@@ -18,7 +18,20 @@ GPU:
   5. the end-to-end receiver, ``Receiver(cfg, source).run()``, on a
      24-satellite scene: every PRN tracked within 40 Hz, and the
      kernel's launch count equal to the number of blocks;
-  6. the last line: {"ok": true, "device": {...}}.
+  6. kernel B3 (direct layout) against its plain version at full width
+     (T=500, K=10, 5 f32 replica rows), open loop, in the power, Costas
+     and forced-death variants;
+  7. B1's lean telemetry mode against its full mode on the same inputs:
+     the stored columns and the end state bit for bit;
+  8. B3's time per block, its plain version's and its bound, as 4;
+  9. the steady-state receiver, ``run(scan_blocks=k)``, on the
+     24-satellite scene: (a) 10 s, 8-block spans, pipelined, the auto
+     layout and wire (mxu, slim2); (b) the same, synchronous spans,
+     against a single-block run of the same scene; (c) 5 s, the direct
+     layout, 4-block spans; every PRN tracked, launches equal to
+     blocks, then one chained span submitted with the sync debug mode
+     at "error" (the submit path never waits for the card);
+ 10. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -47,9 +60,15 @@ H100_BYTES_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
 
+STEADY_S = 10                       # steady-state scene, mxu runs
+DIRECT_S = 5                        # ... and the direct run
+STEADY_SPAN = 8                     # blocks per span, mxu runs
+DIRECT_SPAN = 4                     # ... and the direct run
+
 # telemetry column groups: exact flags and integers; values that carry
 # the bf16 rounding of the mixed window (a sin/cos ulp apart flips a
-# rounding), judged against the column's own scale; f32 rates
+# rounding), judged against the column's own scale; f32 rates. The
+# direct layout's 17 columns take the groups' first 17.
 EXACT_COLS = [7, 12, 13, 15, 16]
 BF16_COLS = [0, 1, 2, 3, 4, 5, 6, 8, 9, 14, 19, 20]
 RATE_COLS = [10, 11, 17, 18]
@@ -58,6 +77,16 @@ CORR_COLS = [0, 1, 2, 3, 4, 5]
 # f32 ops per mixed lane: the carrier rotation from its trig factors
 # (4 multiplies, 2 adds) and the complex mix of the sample (4, 2)
 MIX_OPS_PER_LANE = 12
+# f32 ops per mixed lane in B3 (csrc/track_block_direct.cu, stage 2):
+# the mix as above (12) and six correlation products with their sums
+# (6 multiplies, 6 adds)
+DIRECT_OPS_PER_LANE = 24
+# B1's lean telemetry mode: columns stored on every epoch, on each
+# superstep's first epoch, and there on even supersteps (all under
+# Costas lock)
+LEAN_EVERY = [2, 3]
+LEAN_ROW0 = [17, 18, 19, 20]
+LEAN_ROW0_EVEN = [0, 1, 4, 5, 8, 9]
 
 
 def scene_sats(SatelliteScenario):
@@ -98,7 +127,7 @@ def phase_build():
 
 
 def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
-                      block_ms=BLOCK_MS):
+                      block_ms=BLOCK_MS, layout="mxu"):
     """One block's kernel inputs at the receiver's full width: a
     24-satellite aligned ledger (channels started on each satellite's
     code boundary and true Doppler) plus idle channels, through the
@@ -120,7 +149,7 @@ def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
     codes = trk.make_sampled_code_table(GPS_L1CA, FS, 32,
                                         window=params.window)
     ft = FusedTracker(params, cfg, GPS_L1CA, FS, codes, t_epochs, buf_len,
-                      device=device)
+                      layout=layout, device=device)
     sats = scene_sats(SatelliteScenario)
     sig = synthesize(sats, buf_len, FS, noise_std=1.0, seed=3)
     st = trk.init_state(n_channels)
@@ -152,19 +181,20 @@ def compare(tk, sk, tr, sr):
     tk, sk, tr, sr = (
         np.asarray(x.double().cpu() if hasattr(x, "double") else x,
                    dtype=np.float64) for x in (tk, sk, tr, sr))
-    for k in EXACT_COLS:
+    n_cols = tr.shape[-1]
+    for k in (k for k in EXACT_COLS if k < n_cols):
         if not np.array_equal(tk[..., k], tr[..., k]):
             raise AssertionError(f"telemetry col {k} differs: "
                                  f"{np.abs(tk[..., k] - tr[..., k]).max()}")
     err = {"bf16_cols": 0.0, "rate_cols": 0.0, "state": 0.0}
-    for k in BF16_COLS:
+    for k in (k for k in BF16_COLS if k < n_cols):
         scale = max(float(np.abs(tr[..., k]).max()), 1e-30)
         rel = float(np.abs(tk[..., k] - tr[..., k]).max()) / scale
         if rel >= 1e-3:
             raise AssertionError(f"telemetry col {k} differs by {rel} of "
                                  "the column max")
         err["bf16_cols"] = max(err["bf16_cols"], rel)
-    for k in RATE_COLS:
+    for k in (k for k in RATE_COLS if k < n_cols):
         # the floor judges a carrier loop near 0 Hz, where ulps of its
         # discriminators are a large part of the rate itself
         ratio = float((np.abs(tk[..., k] - tr[..., k])
@@ -193,7 +223,7 @@ def compare(tk, sk, tr, sr):
     return err
 
 
-def open_loop_compare(torch, args, kw):
+def open_loop_compare(torch, args, kw, layout="mxu"):
     """The CUDA kernel against its plain version, open loop. The kernel
     runs the block once, and once more for each prefix of 2K epochs to
     give its state at every second superstep boundary; from each such
@@ -206,19 +236,23 @@ def open_loop_compare(torch, args, kw):
     kernel state, the largest margins over the pieces)."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
+    kernel, plain = {
+        "mxu": (fused.track_block_fused_mxu,
+                fused.track_block_fused_mxu_reference),
+        "direct": (fused.track_block_fused_direct,
+                   fused.track_block_fused_direct_reference)}[layout]
     k, t_all = kw["k_epochs"], kw["t_epochs"]
-    tk, sk = fused.track_block_fused_mxu(*args, **kw)
+    tk, sk = kernel(*args, **kw)
     st, err = args[4], {}
     for e0 in range(0, t_all, 2 * k):
         e1 = e0 + 2 * k
         if e1 < t_all:
-            tp, s_next = fused.track_block_fused_mxu(
-                *args, **dict(kw, t_epochs=e1))
+            tp, s_next = kernel(*args, **dict(kw, t_epochs=e1))
             # the kernel is deterministic: a prefix repeats the block
             assert torch.equal(tp, tk[:e1]), f"prefix {e1} differs"
         else:
             s_next = sk
-        tr, sr = fused.track_block_fused_mxu_reference(
+        tr, sr = plain(
             *args[:4], st, **dict(kw, t_epochs=2 * k),
             first_superstep=e0 // k)
         for name, v in compare(tk[e0:e1], s_next, tr, sr).items():
@@ -256,17 +290,22 @@ def phase_kernel_check(torch):
     return max_abs
 
 
-def phase_timing(torch):
+def phase_timing(torch, layout="mxu"):
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
-    ft, args, kw = full_width_inputs(torch, "cuda", {})
+    ft, args, kw = full_width_inputs(torch, "cuda", {}, layout=layout)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    kernel_fn, plain_fn = {
+        "mxu": (fused.track_block_fused_mxu,
+                fused.track_block_fused_mxu_reference),
+        "direct": (fused.track_block_fused_direct,
+                   fused.track_block_fused_direct_reference)}[layout]
 
     def kernel():
-        return fused.track_block_fused_mxu(*args, **kw)
+        return kernel_fn(*args, **kw)
 
     def plain():
-        return fused.track_block_fused_mxu_reference(*args, **kw)
+        return plain_fn(*args, **kw)
 
     def time_kernel(passes):
         # events around each launch, all queued before one synchronise:
@@ -320,8 +359,12 @@ def phase_timing(torch):
     n_bytes = sum(x.numel() * x.element_size() for x in args) \
         + telem.numel() * telem.element_size() \
         + st.numel() * st.element_size()
-    bf16_ops = 2.0 * 2 * r_rows * lanes    # re and im rows x R: mul + add
-    f32_ops = MIX_OPS_PER_LANE * lanes
+    if layout == "mxu":
+        bf16_ops = 2.0 * 2 * r_rows * lanes  # re and im rows x R: mul + add
+        f32_ops = MIX_OPS_PER_LANE * lanes
+    else:
+        bf16_ops = 0.0
+        f32_ops = DIRECT_OPS_PER_LANE * lanes
     t_bytes = n_bytes / H100_BYTES_S * 1e3
     t_ops = max(bf16_ops / H100_BF16_FLOPS, f32_ops / H100_F32_FLOPS) * 1e3
     res = dict(
@@ -332,71 +375,234 @@ def phase_timing(torch):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=n_bytes, mixed_lanes=lanes, bf16_ops=bf16_ops,
         f32_ops=f32_ops)
-    print("timing (ms per 500 ms block, 32 ch): " + json.dumps(
+    print(f"timing [{layout}] (ms per 500 ms block, 32 ch): " + json.dumps(
         {k: (round(v, 6) if isinstance(v, float) else v)
          for k, v in res.items()}))
     return res
 
 
 def phase_receiver(torch, device="cuda", n_blocks=E2E_BLOCKS):
-    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
-        TrackConfig
-    from gnss_sdr_tpu_torch.models import SatelliteScenario, synthesize
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
-    from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
-
-    sats = scene_sats(SatelliteScenario)
-    block = BLOCK_MS * 2046
-    t0 = time.perf_counter()
-    sig = synthesize(sats, n_blocks * block, FS, noise_std=1.0, seed=3)
-    print(f"scene: {n_blocks * BLOCK_MS / 1000:.1f} s of signal, "
-          f"24 satellites, rendered in {time.perf_counter() - t0:.1f} s")
-    rx = Receiver(
-        ReceiverConfig(
-            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
-            acq=AcqConfig(),
-            track=TrackConfig(n_channels=N_CHANNELS, correlator="fused"),
-            block_ms=BLOCK_MS),
-        ArraySource(sig, FS), device=device)
-    assert rx.fused.layout == "mxu" and rx.device.type == device
+    """The single-block receiver from a cold start, with each block's
+    stage times."""
+    sats, sig = _scene(n_blocks * BLOCK_MS / 1000.0)
     per_block = []                          # stage totals after each block
 
     def on_block(r):
         per_block.append((time.perf_counter(), {
             k: v.total_s for k, v in r.timers.stats.items()}))
 
-    fused.reset_launch_count()              # the main path starts here
     t0 = time.perf_counter()
-    summary = rx.run(on_block=on_block)
-    wall = time.perf_counter() - t0
-    launches = fused.launch_count           # ... and ends here
-    truth = {s.prn: s.doppler_hz for s in sats}
-    errs = {c["prn"]: c["last_doppler_hz"] - truth[c["prn"]]
-            for c in summary["channels"]}
-    print("tracked:", summary["tracked_prns"])
-    print("doppler error (Hz):", json.dumps(
-        {p: round(e, 3) for p, e in sorted(errs.items())}))
-    assert summary["tracked_prns"] == list(range(1, 25)), summary
-    assert max(abs(e) for e in errs.values()) < 40.0, errs
-    assert summary["blocks"] == n_blocks
+    rx, _, launches = _run_receiver(torch, sats, sig, "single-block, cold",
+                                    layout="mxu", on_block=on_block,
+                                    device=device)
     if device == "cuda":
-        assert launches == n_blocks, (launches, n_blocks)
-    signal_s = n_blocks * BLOCK_MS / 1000.0
-    timing = summary["stage_timing"]
-    total = sum(v["total_s"] for v in timing.values())
-    shares = {k: round(v["total_s"] / total, 4) for k, v in timing.items()}
-    print(f"receiver: {signal_s:.1f} s of signal in {wall:.3f} s wall, "
-          f"real-time factor {signal_s / wall:.2f}x; launches {launches}")
-    print("stage totals (s): " + json.dumps(
-        {k: v["total_s"] for k, v in timing.items()}))
-    print("stage shares: " + json.dumps(shares))
+        assert launches["track_block_fused_mxu"] == n_blocks, launches
     prev_t, prev = t0, {}
     for b, (t, tot) in enumerate(per_block):
         print(f"  block {b}: wall {1e3 * (t - prev_t):.3f} ms, " + ", ".join(
             f"{k} {1e3 * (v - prev.get(k, 0.0)):.3f}"
             for k, v in sorted(tot.items())))
         prev_t, prev = t, tot
-    return launches
+    return launches["track_block_fused_mxu"]
+
+
+def phase_direct_check(torch):
+    """Kernel B3 against its plain version at full width, open loop."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    variants = {
+        "power": {},
+        "costas": dict(lock_mode="costas"),
+        "forced_death": dict(lock_threshold=1e12, max_lost_epochs=7),
+    }
+    max_abs = 0.0
+    for name, cfg_kw in variants.items():
+        ft, args, kw = full_width_inputs(torch, "cuda", cfg_kw,
+                                         layout="direct")
+        assert (ft.wp, ft.n_rows, ft.k_epochs) == (2560, 5, 10)
+        assert args[3].dtype == torch.float32
+        before = fused.direct_launch_count
+        tk, sk, err = open_loop_compare(torch, args, kw, layout="direct")
+        assert fused.direct_launch_count == before + kw["t_epochs"] // (
+            2 * kw["k_epochs"])
+        active = sk[:, 7].cpu().numpy()
+        if name == "forced_death":
+            assert not active.any(), "forced death left a channel alive"
+        else:
+            assert active[:24].all() and not active[24:].any()
+        max_abs = max(max_abs, err["corr_max_abs"])
+        print(f"direct kernel vs plain, open loop [{name}, "
+              f"K={kw['k_epochs']}]: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()}))
+    return max_abs
+
+
+def phase_lean_check(torch):
+    """B1's lean telemetry mode against its full mode on the same
+    inputs: the columns it stores, the zeros elsewhere and the end
+    state, bit for bit."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    for name, cfg_kw in {"power": {},
+                         "costas": dict(lock_mode="costas")}.items():
+        ft, args, kw = full_width_inputs(torch, "cuda", cfg_kw)
+        tf, sf = fused.track_block_fused_mxu(*args, **kw)
+        tl, sl = fused.track_block_fused_mxu(
+            *args, **dict(kw, telem_mode="lean"))
+        torch.cuda.synchronize()
+        k = kw["k_epochs"]
+        even = slice(None) if name == "costas" else slice(None, None, 2)
+        stored = torch.zeros_like(tl, dtype=torch.bool)
+        stored[..., LEAN_EVERY + [16]] = True
+        stored[::k, :, LEAN_ROW0] = True
+        rows0 = stored[::k]                 # a view: writes reach stored
+        rows0[even, :, LEAN_ROW0_EVEN] = True
+        assert torch.equal(tl[..., LEAN_EVERY], tf[..., LEAN_EVERY])
+        assert torch.equal(tl[..., 16], tf[..., 16] + 2.0 * tf[..., 7]
+                           + 4.0 * tf[..., 15])
+        assert torch.equal(tl[stored & (torch.arange(
+            tl.shape[-1], device=tl.device) != 16)], tf[stored & (
+                torch.arange(tf.shape[-1], device=tf.device) != 16)])
+        assert not tl[~stored].any(), "lean mode stored an extra column"
+        assert torch.equal(sl, sf), "lean and full end states differ"
+        print(f"lean vs full [{name}, K={k}]: {int(stored.sum())} stored "
+              f"values equal, the rest zero, end state equal")
+
+
+def _scene(seconds):
+    from gnss_sdr_tpu_torch.models import SatelliteScenario, synthesize
+
+    sats = scene_sats(SatelliteScenario)
+    n = int(seconds * 1000 / BLOCK_MS) * BLOCK_MS * 2046
+    t0 = time.perf_counter()
+    sig = synthesize(sats, n, FS, noise_std=1.0, seed=3)
+    print(f"scene: {seconds:.1f} s of signal, 24 satellites, rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return sats, sig
+
+
+def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
+                  span_pipeline=False, on_block=None, device="cuda"):
+    """One receiver run from a cold start on ``sig``: checks every PRN
+    tracked within 40 Hz and all blocks processed; prints its real-time
+    factor and stage shares. The launch counts are set to 0 just before
+    the run and read just after. Returns (receiver, summary, launches)."""
+    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
+        TrackConfig
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+    from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
+
+    n_blocks = sig.size // (BLOCK_MS * 2046)
+    rx = Receiver(
+        ReceiverConfig(
+            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+            acq=AcqConfig(),
+            track=TrackConfig(n_channels=N_CHANNELS, correlator="fused",
+                              fused_layout=layout),
+            block_ms=BLOCK_MS),
+        ArraySource(sig, FS), device=device)
+    assert rx.device.type == device
+    fused.reset_launch_count()              # this path starts here
+    t0 = time.perf_counter()
+    summary = rx.run(on_block=on_block, scan_blocks=scan_blocks,
+                     span_pipeline=span_pipeline)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"track_block_fused_mxu": fused.launch_count,
+                "track_block_fused_direct": fused.direct_launch_count}
+    truth = {s.prn: s.doppler_hz for s in sats}
+    errs = {c["prn"]: c["last_doppler_hz"] - truth[c["prn"]]
+            for c in summary["channels"]}
+    timing = summary["stage_timing"]
+    total = sum(v["total_s"] for v in timing.values())
+    signal_s = n_blocks * BLOCK_MS / 1000.0
+    print(f"receiver [{label}: layout {rx.fused.layout}, wire "
+          f"{rx.fused.wire}, scan_blocks {scan_blocks}, span_pipeline "
+          f"{span_pipeline}]: {signal_s:.1f} s of signal in {wall:.3f} s "
+          f"wall, real-time factor {signal_s / wall:.2f}x; launches "
+          f"{json.dumps(launches)}; track calls {timing['track']['calls']}")
+    print("  stage totals (s): " + json.dumps(
+        {k: v["total_s"] for k, v in timing.items()}))
+    print("  stage shares: " + json.dumps(
+        {k: round(v["total_s"] / total, 4) for k, v in timing.items()}))
+    print("  max |doppler error| (Hz): "
+          f"{max(abs(e) for e in errs.values()):.3f}")
+    assert summary["tracked_prns"] == list(range(1, 25)), summary
+    assert max(abs(e) for e in errs.values()) < 40.0, errs
+    assert summary["blocks"] == n_blocks
+    return rx, summary, launches
+
+
+def _submit_without_sync(torch, rx, sig, n_span=STEADY_SPAN):
+    """One span of the pipelined submit path (window framing with the
+    fresh blocks' upload, the codes, two chained submits) with the sync
+    debug mode at "error": any wait for the card there raises. Runs in
+    the main thread, with no collector."""
+    ft = rx.fused
+    block = BLOCK_MS * 2046
+    blocks = []
+    for b in range(n_span):
+        x = sig[b * block:(b + 1) * block]
+        blocks.append((np.ascontiguousarray(x.real, dtype=np.float32),
+                       np.ascontiguousarray(x.imag, dtype=np.float32)))
+    prn = np.asarray(rx.state.prn_idx).copy()
+    rx._codes_for_prns(prn)                 # the codes cache, warm
+    led = ft._led_from_state(rx.state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        codes = rx._codes_for_prns(prn)
+        sre, sim, _ = rx._advance_span_window(blocks)
+        h1 = ft.submit_span(led, sre, sim, codes, n_span)
+        sre, sim, _ = rx._advance_span_window(blocks)
+        h2 = ft.submit_span(h1.led, sre, sim, codes, n_span)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    telems = ft.collect_span(h2)
+    assert len(telems) == n_span
+    print(f"submit path under sync debug mode 'error': 2 chained spans of "
+          f"{n_span} blocks queued without a host sync")
+
+
+def phase_steady(torch):
+    """The steady-state receiver on the 24-satellite scene: (a) pipelined
+    spans with the auto layout and wire, (b) synchronous spans against a
+    single-block run of the same scene, (c) the direct layout."""
+    sats, sig = _scene(STEADY_S)
+    n_blocks = sig.size // (BLOCK_MS * 2046)
+    _, single, _ = _run_receiver(torch, sats, sig, "single-block")
+    rx_a, sum_a, la = _run_receiver(torch, sats, sig, "a", scan_blocks=
+                                    STEADY_SPAN, span_pipeline=True)
+    _, sum_b, lb = _run_receiver(torch, sats, sig, "b",
+                                 scan_blocks=STEADY_SPAN)
+    n_direct = int(DIRECT_S * 1000 / BLOCK_MS)
+    sig_c = sig[:n_direct * BLOCK_MS * 2046]
+    _, sum_c, lc = _run_receiver(torch, sats, sig_c, "c", layout="direct",
+                                 scan_blocks=DIRECT_SPAN)
+    assert (rx_a.fused.layout, rx_a.fused.wire) == ("mxu", "slim2")
+    assert la == {"track_block_fused_mxu": n_blocks,
+                  "track_block_fused_direct": 0}, la
+    assert lb == la, lb
+    assert lc == {"track_block_fused_mxu": 0,
+                  "track_block_fused_direct": n_direct}, lc
+    for s, n in ((sum_a, n_blocks), (sum_b, n_blocks), (sum_c, n_direct)):
+        assert s["stage_timing"]["track"]["calls"] < n, s["stage_timing"]
+    ch_1 = {c["prn"]: c for c in single["channels"]}
+    ch_a = {c["prn"]: c for c in sum_a["channels"]}
+    ch_b = {c["prn"]: c for c in sum_b["channels"]}
+    worst = 0.0
+    for prn in range(1, 25):
+        assert ch_b[prn]["epochs"] == ch_1[prn]["epochs"], prn
+        assert abs(ch_a[prn]["epochs"] - ch_b[prn]["epochs"]) <= 1, prn
+        d = abs(ch_b[prn]["last_doppler_hz"] - ch_1[prn]["last_doppler_hz"])
+        assert d < 1.0, (prn, d)
+        worst = max(worst, d)
+    print(f"steady (b) vs single-block: epochs equal for all 24 PRNs, "
+          f"|Doppler difference| <= {worst:.4f} Hz; (a) epochs within 1 "
+          "of (b)")
+    _submit_without_sync(torch, rx_a, sig)
+    return {"a": la, "b": lb, "c": lc}
 
 
 def main() -> int:
@@ -407,23 +613,48 @@ def main() -> int:
         return 2
     import gnss_sdr_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     phase_device(torch)
     phase_build()
     max_abs = phase_kernel_check(torch)
     timing = phase_timing(torch)
     launches = phase_receiver(torch)
+    direct_abs = phase_direct_check(torch)
+    phase_lean_check(torch)
+    dtiming = phase_timing(torch, layout="direct")
+    steady = phase_steady(torch)
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
+    src = "gnss_sdr_tpu_torch/csrc/"
+    replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
     print(json.dumps({"kernels": [{
         "name": "track_block_fused_mxu",
         "route": "cuda",
-        "source": "gnss_sdr_tpu_torch/csrc/track_block_mxu.cu",
-        "replaces": "gnss_sdr_tpu/ops/pallas/track_block_fused.py:1872",
-        "launches": launches,
-        "launches_per_block": launches / E2E_BLOCKS,
+        "source": src + "track_block_mxu.cu",
+        "replaces": replaces + "1872",
+        # the slice's main path: the pipelined steady state (a), lean mode
+        "launches": steady["a"]["track_block_fused_mxu"],
+        "launches_by_path": {
+            "single_block": launches,
+            "steady_pipelined": steady["a"]["track_block_fused_mxu"],
+            "steady_sync": steady["b"]["track_block_fused_mxu"]},
+        "lean_mode_checked": True,
         "max_abs_err": max_abs,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "track_block_fused_direct",
+        "route": "cuda",
+        "source": src + "track_block_direct.cu",
+        "replaces": replaces + "848",
+        "launches": steady["c"]["track_block_fused_direct"],
+        "max_abs_err": direct_abs,
+        "ms": dtiming["ms"],
+        "plain_ms": dtiming["plain_ms"],
+        "bound_ms": dtiming["bound_ms"],
+        "bound_by": dtiming["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,11 @@
 // where wanted. The correlations' f32 sums run in another order than
 // the plain version's, so the two differ by ulps there.
 //
+// Telemetry modes: the template flag kLean selects which columns the
+// kernel stores (full: all 21 per epoch; lean: the slim2 wire's feed,
+// see the wrapper's docstring) and nothing else, so both modes run the
+// identical arithmetic and leave the identical state.
+//
 // Bound on the H100: a few microseconds per 500 ms block (bytes of
 // stream, replicas and telemetry over 3.35 TB/s). This kernel uses C of
 // the 132 SMs and a serial per-channel chain, so it sits far above it.
@@ -130,6 +135,7 @@ __device__ float epoch_sl(const float* st, const Held& h, int e, int n0,
 
 // thread 0: stage 3-4 over the K epochs of superstep j; updates st and
 // writes telemetry rows [j*K, j*K + K) of channel c
+template <bool kLean>
 __device__ void chain(const Params& p, float* st, const float* corr,
                       const Held& h, int j, int c) {
   const int K = p.k_epochs, R = p.r_rows;
@@ -262,6 +268,25 @@ __device__ void chain(const Params& p, float* st, const float* corr,
   for (int e = 0; e < K; ++e) {
     float w = row[e][16];
     float* out = p.telem + ((long long)(j * K + e) * p.c_channels + c) * kTelem;
+    if (kLean) {
+      // per epoch: prompt I/Q and the packed flags (processed +
+      // 2 locked + 4 lost); the held rates and ledger increments on the
+      // superstep's first epoch, with the E/L and loop-error diagnostics
+      // there on even supersteps (every superstep under Costas lock),
+      // which is where the slim2 wire reads them
+      out[2] = ip[e] * w;  out[3] = qp[e] * w;
+      out[16] = w + 2.0f * row[e][7] + 4.0f * row[e][15];
+      if (e == 0) {
+        out[17] = carr_freq; out[18] = code_rate;
+        out[19] = h.d_chip;  out[20] = h.d_drift;
+        if (p.costas || j % 2 == 0) {
+          out[0] = ie[e] * w;  out[1] = qe[e] * w;
+          out[4] = il[e] * w;  out[5] = ql[e] * w;
+          out[8] = pll[e] * w; out[9] = dll[e] * w;
+        }
+      }
+      continue;
+    }
     out[0] = ie[e] * w;  out[1] = qe[e] * w;
     out[2] = ip[e] * w;  out[3] = qp[e] * w;
     out[4] = il[e] * w;  out[5] = ql[e] * w;
@@ -288,6 +313,7 @@ __device__ void chain(const Params& p, float* st, const float* corr,
   st[11] = le_f;  // 9 (window offset) and 10 (frac0) carry through
 }
 
+template <bool kLean>
 __global__ void __launch_bounds__(kThreads)
     track_block_mxu_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -405,7 +431,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // ---- stages 3-4: picks, discriminators, lock, loop filters --------
-    if (tid == 0) chain(p, st, corr, h, j, c);
+    if (tid == 0) chain<kLean>(p, st, corr, h, j, c);
     __syncthreads();
   }
   if (tid < kFields)
@@ -421,7 +447,8 @@ extern "C" int track_block_mxu_launch(
     int n0, int wp, int r_rows, float fs, float code_len,
     float lock_threshold, int max_lost, float pll_c1, float pll_c2,
     float dll_c1, float dll_c2, int el_shift, float aiding_scale,
-    float if_freq, int costas, float costas_thr, int interp, void* stream) {
+    float if_freq, int costas, float costas_thr, int interp, int lean,
+    void* stream) {
   (void)stream_len;  // the wrapper checks the read bound before launch
   if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 || r_rows > kMaxR ||
       wp % 128 || t_epochs % k_epochs || c_channels < 1)
@@ -460,11 +487,11 @@ extern "C" int track_block_mxu_launch(
   size_t smem = (size_t)(r_rows + qk) * wp * sizeof(__nv_bfloat16) +
                 (size_t)(qk * r_rows + 256 + 2 * k_epochs * w128 + 12) *
                     sizeof(float);
+  auto kernel = lean ? track_block_mxu_kernel<true>
+                     : track_block_mxu_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      track_block_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  track_block_mxu_kernel<<<c_channels, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<c_channels, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,18 @@
-"""Fused whole-block tracking, mxu layout, on Hopper: ONE kernel launch
-per sample block (T epochs x C channels).
+"""Fused whole-block tracking on Hopper: ONE kernel launch per sample
+block (T epochs x C channels), in two layouts.
 
-Replaces the Pallas TPU kernel ``track_block_fused_mxu``
-(``gnss_sdr_tpu/ops/pallas/track_block_fused.py:1872``, kernel body
-``_mxu_kernel`` :1603 driving ``_mxu_run_k`` :969). The CUDA source is
-``gnss_sdr_tpu_torch/csrc/track_block_mxu.cu``.
+**mxu** (kernel B1) replaces the Pallas TPU kernel
+``track_block_fused_mxu`` (``gnss_sdr_tpu/ops/pallas/track_block_fused.py:1872``,
+kernel body ``_mxu_kernel`` :1603 driving ``_mxu_run_k`` :969). The CUDA
+source is ``gnss_sdr_tpu_torch/csrc/track_block_mxu.cu``.
 
-Contract kept from the TPU kernel:
+**direct** (kernel B3) replaces ``track_block_fused_direct`` (:848,
+``_direct_kernel`` :687 over ``_epoch_core`` :76): exact per-epoch
+NCOs, f32 throughout. The CUDA source is
+``gnss_sdr_tpu_torch/csrc/track_block_direct.cu``; its contract and
+design are under "the direct layout" below.
+
+Contract kept from the mxu TPU kernel:
 
   * K-epoch supersteps with the NCO rates HELD at their superstep-start
     values for the carrier mix, mask, replica select and ledger advance;
@@ -28,7 +34,12 @@ Contract kept from the TPU kernel:
     6 power 7 locked 8 pll_err 9 dll_err 10 carr_freq 11 code_rate
     12 n_t 13 drift 14 chip_res 15 lost_event 16 processed 17/18 held
     rates 19/20 per-epoch chip/drift increments), full mode, as a
-    [T, C, 21] f32 tensor;
+    [T, C, 21] f32 tensor; in the lean mode (``telem_mode="lean"``, the
+    slim2 wire's feed) only cols 2 and 3 and the packed flags in col 16
+    (processed + 2 locked + 4 lost) per epoch, cols 17-20 on each
+    superstep's first epoch and cols 0, 1, 4, 5, 8, 9 on the first
+    epoch of even supersteps (of every superstep under Costas lock),
+    zeros elsewhere; the arithmetic is the full mode's;
   * power lock through the closed-form lifecycle chain, Costas lock
     through the sequential EMA chain.
 
@@ -63,16 +74,21 @@ import torch
 from . import _build
 
 N_FIELDS = 128
-N_TELEM = 21
+N_TELEM = 21            # mxu telemetry columns
+N_TELEM_DIRECT = 17     # direct telemetry columns (fused_runner.N_TELEM_COLS)
 TWO_PI = 6.283185307179586
+TELEM_MODES = ("full", "lean")
 
-# launches of the CUDA kernel (plain int; the plain version never counts)
+# launches of each CUDA kernel (plain ints; the plain versions never
+# count): B1 (mxu) and B3 (direct)
 launch_count = 0
+direct_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
+    global launch_count, direct_launch_count
     launch_count = 0
+    direct_launch_count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +152,11 @@ def build_replicas(codes3x: torch.Tensor, el_shift: int, n0: int, wp: int,
     alignment residue of the window start (state col 9 carries the
     matching mask shift); it needs n0 > el_pad + half + 128.
 
+    ``anchor`` and ``lane_shift`` may be host arrays or tensors on the
+    table's device; on a CUDA tensor nothing here waits for the card
+    (the multi-block scan computes both on the card), so the range of
+    ``lane_shift`` is checked only where it lies on the host.
+
     A short table raises: the JAX gather would clamp silently and hand
     the kernel a misaligned replica for the whole block.
     """
@@ -152,22 +173,29 @@ def build_replicas(codes3x: torch.Tensor, el_shift: int, n0: int, wp: int,
             f"n0={n0} too small for lane_shift (need > "
             f"{el_pad + half + 128})")
     c = codes3x.shape[0]
-    s_i = np.asarray(torch.as_tensor(anchor).cpu(), dtype=np.int64)
-    s_i = np.where(s_i >= n0, s_i - n0, s_i)
-    s_i = np.where(s_i < 0, s_i + n0, s_i)
-    shift = (np.zeros(c, np.int64) if lane_shift is None else
-             np.asarray(torch.as_tensor(lane_shift).cpu(), dtype=np.int64))
-    if lane_shift is not None and ((shift < 0) | (shift >= 128)).any():
-        raise ValueError(f"lane_shift must lie in [0, 128), got {shift}")
+    dev = codes3x.device
+
+    def as_index(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.int64)
+        return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(dev)
+
+    s_i = as_index(anchor)
+    s_i = torch.where(s_i >= n0, s_i - n0, s_i)
+    s_i = torch.where(s_i < 0, s_i + n0, s_i)
+    shift = (torch.zeros(c, dtype=torch.int64, device=dev)
+             if lane_shift is None else as_index(lane_shift))
     if s_i.shape != (c,) or shift.shape != (c,):
         raise ValueError("anchor / lane_shift must be [C]")
+    if lane_shift is not None and shift.device.type == "cpu" and \
+            bool(((shift < 0) | (shift >= 128)).any()):
+        raise ValueError(f"lane_shift must lie in [0, 128), got {shift}")
     # row d, lane l reads table index base - d + l; the + n0 keeps every
     # index of the tiled table non-negative
     base = s_i + n0 - el_pad + half - shift
-    dev = codes3x.device
     rows = torch.arange(n_drift, device=dev, dtype=torch.int64)
     lanes = torch.arange(wp, device=dev, dtype=torch.int64)
-    idx = (torch.from_numpy(base).to(dev)[:, None, None]
+    idx = (base[:, None, None]
            - rows[None, :, None] + lanes[None, None, :])
     return torch.gather(
         codes3x.to(torch.float32), 1, idx.reshape(c, -1)
@@ -482,11 +510,32 @@ def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
     return new, telem
 
 
+def _lean_from_full(telem, k_epochs, first_superstep, costas):
+    """The lean telemetry of a block from its full telemetry: what the
+    lean mode stores, zeros elsewhere (the mode's contract, module
+    docstring)."""
+    lean = torch.zeros_like(telem)
+    lean[..., 2:4] = telem[..., 2:4]
+    lean[..., 16] = telem[..., 16] + 2.0 * telem[..., 7] \
+        + 4.0 * telem[..., 15]
+    for u in range(telem.shape[0] // k_epochs):
+        e = u * k_epochs
+        lean[e, :, 17:21] = telem[e, :, 17:21]
+        if costas or (first_superstep + u) % 2 == 0:
+            for k in (0, 1, 4, 5, 8, 9):
+                lean[e, :, k] = telem[e, :, k]
+    return lean
+
+
 def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
                 t_epochs, k_epochs, n0, wp, lock_mode, starts_host=None,
-                first_superstep=0):
+                starts_bound=None, first_superstep=0,
+                replica_dtype=torch.bfloat16):
+    """Types, shapes, devices, contiguity and the read bound of one
+    launch of either layout (they share the window feed)."""
     if wp % 128:
-        raise ValueError(f"mxu layout requires wp % 128 == 0, got {wp}")
+        raise ValueError(f"the fused kernels require wp % 128 == 0, "
+                         f"got {wp}")
     if k_epochs < 1 or t_epochs % (2 * k_epochs):
         raise ValueError(f"t_epochs={t_epochs} not divisible by "
                          f"2*k_epochs={2 * k_epochs}")
@@ -496,7 +545,7 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
     for name, t, dt in (("stream_re", stream_re, torch.float32),
                         ("stream_im", stream_im, torch.float32),
                         ("starts", starts, torch.int32),
-                        ("replicas", replicas, torch.bfloat16),
+                        ("replicas", replicas, replica_dtype),
                         ("state_in", state_in, torch.float32)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -520,22 +569,37 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
                          f"got {tuple(replicas.shape)}")
     # read bound: the last superstep's window must lie inside the stream
     # (an out-of-bounds read on the card goes unnoticed or faults),
-    # checked on the host, so a launch never waits for the card
-    if starts_host is None:
-        if starts.device.type != "cpu":
-            raise ValueError("starts on the card needs starts_host, the "
-                             "host values it was uploaded from, for the "
-                             "read-bound check")
-        host = starts.numpy()
+    # checked on the host, so a launch never waits for the card: from
+    # the host copy of the starts, or from a static bound the caller
+    # guarantees (0 <= every start <= starts_bound; the multi-block scan
+    # computes its starts on the card and knows only this bound)
+    if starts_host is not None and starts_bound is not None:
+        raise ValueError("give starts_host or starts_bound, not both")
+    if starts_bound is not None:
+        lo, hi = 0, int(starts_bound)
+        if starts.device.type == "cpu" and starts.numel():
+            # on the host the guarantee itself is checked too
+            s_lo, s_hi = int(starts.min()), int(starts.max())
+            if s_lo < 0 or s_hi > hi:
+                raise ValueError(f"starts in [{s_lo}, {s_hi}] break their "
+                                 f"bound [0, {hi}]")
     else:
-        host = np.asarray(starts_host)
-        if host.shape != (c,):
-            raise ValueError(f"starts_host must be [C={c}], "
-                             f"got {host.shape}")
+        if starts_host is None:
+            if starts.device.type != "cpu":
+                raise ValueError(
+                    "starts on the card needs starts_host, the host values "
+                    "it was uploaded from, or starts_bound, for the "
+                    "read-bound check")
+            host = starts.numpy()
+        else:
+            host = np.asarray(starts_host)
+            if host.shape != (c,):
+                raise ValueError(f"starts_host must be [C={c}], "
+                                 f"got {host.shape}")
+        lo, hi = int(host.min()), int(host.max())
     span = direct_span(k_epochs, n0, wp)
     j_last = first_superstep + t_epochs // k_epochs - 1
     last = (j_last * k_epochs * n0 // 128) * 128
-    lo, hi = int(host.min()), int(host.max())
     if lo < 0 or hi + last + span > stream_re.shape[0]:
         raise ValueError(
             f"window read out of bounds: starts in [{lo}, {hi}], last "
@@ -548,7 +612,8 @@ def track_block_fused_mxu_reference(
     k_epochs, n0, wp, fs, code_len=1023.0, lock_threshold=15.0,
     max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0, dll_c2=0.0,
     el_shift=1, aiding_scale=0.0, if_freq=0.0, lock_mode="power",
-    costas_thr=0.4, interp=False, starts_host=None, first_superstep=0,
+    costas_thr=0.4, interp=False, telem_mode="full", starts_host=None,
+    starts_bound=None, first_superstep=0,
 ):
     """The plain PyTorch version of the mxu kernel, on any device: the
     same arithmetic, step by step, one Python iteration per superstep.
@@ -558,10 +623,12 @@ def track_block_fused_mxu_reference(
     longer block from ``state_in`` (their window offsets in the block),
     so a check can hold the kernel's block to this version piece by
     piece, each piece started from the kernel's own state."""
+    if telem_mode not in TELEM_MODES:
+        raise ValueError(f"unknown telem_mode {telem_mode!r}")
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
-                first_superstep=first_superstep)
+                starts_bound=starts_bound, first_superstep=first_superstep)
     st = state_in
     telems = []
     for j in range(first_superstep,
@@ -575,7 +642,11 @@ def track_block_fused_mxu_reference(
             aiding_scale=aiding_scale, if_freq=if_freq,
             lock_mode=lock_mode, costas_thr=costas_thr, interp=interp)
         telems.append(tl)
-    return torch.cat(telems, dim=0), st
+    telem = torch.cat(telems, dim=0)
+    if telem_mode == "lean":
+        telem = _lean_from_full(telem, k_epochs, first_superstep,
+                                lock_mode == "costas")
+    return telem, st
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +661,17 @@ _F = ctypes.c_float
 def _lib():
     lib = _build.load_library("track_block_mxu")
     fn = lib.track_block_mxu_launch
+    fn.argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
+                   _I, _I, _I, _I, _I, _I,
+                   _F, _F, _F, _I, _F, _F, _F, _F, _I,
+                   _F, _F, _I, _F, _I, _I, _VP]
+    fn.restype = _I
+    return fn
+
+
+def _direct_lib():
+    lib = _build.load_library("track_block_direct")
+    fn = lib.track_block_direct_launch
     fn.argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                    _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _I, _F, _F, _F, _F, _I,
@@ -623,39 +705,48 @@ def track_block_fused_mxu(
     lock_mode: str = "power",
     costas_thr: float = 0.4,
     interp: bool = False,
+    telem_mode: str = "full",
     starts_host=None,          # [C] host copy of starts (numpy)
+    starts_bound=None,         # or: int, 0 <= every start <= it
 ):
     """mxu fused tracking: T epochs, ONE kernel launch. Returns
-    (telemetry [T, C, 21] f32, state [C, 128] f32).
+    (telemetry [T, C, 21] f32, full or lean, state [C, 128] f32).
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA
     kernel or raise (failed build, refused launch, bad argument). There
     is no fallback from the card to the plain version. The read bound
     is checked on the host before the launch, from ``starts_host`` (the
-    values ``starts`` was uploaded from; required on the card), so the
-    launch never waits for the card."""
+    values ``starts`` was uploaded from) or ``starts_bound`` (one of
+    them is required on the card), so the launch never waits for the
+    card."""
     kw = dict(t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp, fs=fs,
               code_len=code_len, lock_threshold=lock_threshold,
               max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
               dll_c1=dll_c1, dll_c2=dll_c2, el_shift=el_shift,
               aiding_scale=aiding_scale, if_freq=if_freq,
               lock_mode=lock_mode, costas_thr=costas_thr, interp=interp,
-              starts_host=starts_host)
+              telem_mode=telem_mode, starts_host=starts_host,
+              starts_bound=starts_bound)
     if state_in.device.type == "cpu":
         return track_block_fused_mxu_reference(
             stream_re, stream_im, starts, replicas, state_in, **kw)
     if state_in.device.type != "cuda":
         raise ValueError(f"unsupported device {state_in.device}")
+    if telem_mode not in TELEM_MODES:
+        raise ValueError(f"unknown telem_mode {telem_mode!r}")
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
-                lock_mode=lock_mode, starts_host=starts_host)
+                lock_mode=lock_mode, starts_host=starts_host,
+                starts_bound=starts_bound)
     c, r_rows = replicas.shape[0], replicas.shape[1]
     if k_epochs > 8 or r_rows > 16:
         raise ValueError(f"the CUDA kernel takes K <= 8 and R <= 16, got "
                          f"K={k_epochs}, R={r_rows}")
     fn = _lib()
-    telem = torch.empty((t_epochs, c, N_TELEM), dtype=torch.float32,
-                        device=state_in.device)
+    lean = telem_mode == "lean"
+    # the lean mode stores a few columns: the rest must read zero
+    telem = (torch.zeros if lean else torch.empty)(
+        (t_epochs, c, N_TELEM), dtype=torch.float32, device=state_in.device)
     state_out = torch.empty_like(state_in)
     with torch.cuda.device(state_in.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -666,9 +757,304 @@ def track_block_fused_mxu(
                  fs, code_len, lock_threshold, int(max_lost),
                  pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
                  aiding_scale, if_freq, int(lock_mode == "costas"),
-                 costas_thr, int(bool(interp)), stream)
+                 costas_thr, int(bool(interp)), int(lean), stream)
     if err != 0:
         raise RuntimeError(f"track_block_mxu launch failed: CUDA error {err}")
     global launch_count
     launch_count += 1
+    return telem, state_out
+
+
+# ---------------------------------------------------------------------------
+# the direct layout (kernel B3)
+# ---------------------------------------------------------------------------
+#
+# Contract kept from the TPU kernel (``_direct_kernel`` driving
+# ``_epoch_core``), per epoch e of superstep j (K epochs each):
+#   * exact per-epoch NCOs: every epoch derives its rates from the state
+#     the previous epoch left, and the loop filters update it at once;
+#   * the window frame of superstep j starts at a_c + floor(jKn0/128)*128
+#     in the stream, epoch e's window at floor(en0/128)*128 inside it, and
+#     the epoch's lanes are [start_lane, start_lane + n_t) with
+#     start_lane = col9 + drift + rem_e + rem_j (the alignment residues);
+#   * the carrier from the outer-product trig factors A (per 128-lane
+#     group) and B (per lane mod 128), phase referenced to start_lane;
+#   * the prompt selected from N_DRIFT f32 replica rows by the drift less
+#     floor((chip_res + frac0) / dc), blended with the row below by the
+#     fractional sample when ``interp``; rolled right by rem_i = rem_e +
+#     rem_j; early and late the prompt's +-el_shift rolls (the mask zeroes
+#     the wrapped lanes);
+#   * six f32 correlations, power or Costas lock, the PLL/DLL
+#     discriminators and loop filters, death after max_lost unlocked
+#     epochs;
+#   * telemetry columns 0-16 as [T, C, 17] f32, the [C, 128] state.
+# Arithmetic as XLA computes the TPU kernel's on the CPU (checked bit for
+# bit against the Pallas kernel in interpret mode): x / fs is x * (1/fs)
+# (the constant-divisor rewrite), and the carrier phase and chip ledger
+# advances are fused multiply-adds, fma(step, n_t, phase) and
+# fma(dc, n_t, chip_res) - L (here exact f64 products, fmaf on the card).
+# bf16 appears nowhere in this layout.
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (f32 operands: the f64 product is
+    exact, so only the sum rounds before the final rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _epoch_direct_reference(st, j, e, stream_re, stream_im, starts, reps, *,
+                            k_epochs, wp, n0, fs, code_len, lock_threshold,
+                            max_lost, pll_c1, pll_c2, dll_c1, dll_c2,
+                            el_shift, aiding_scale, if_freq, lock_mode,
+                            costas_thr, interp):
+    """Epoch e of superstep j for all channels: (new state [C, 128],
+    telemetry row [C, 17]). Follows _epoch_core step by step."""
+    dev = st.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    c_channels = st.shape[0]
+    n_drift = reps.shape[1]
+    half = (n_drift - 1) // 2
+
+    def col(k):
+        return st[:, k:k + 1]                                   # [C, 1]
+
+    carr_freq, carr_phase, carr_err = col(0), col(1), col(2)
+    code_rate, chip_res, code_err = col(3), col(4), col(5)
+    lost, active, drift = col(6), col(7), col(8)
+    woff, frac0, lock_ema = col(9), col(10), col(11)
+
+    kk = k_epochs * n0
+    off = (j * kk // 128) * 128
+    rem_j = j * kk - off
+    a_e = (e * n0 // 128) * 128
+    rem_e = e * n0 - a_e
+    rem_i = rem_e + rem_j
+    start_lane = woff + drift + f(rem_e) + f(rem_j)
+
+    fs_f = f(fs)
+    inv_fs = f(1.0) / fs_f
+    if aiding_scale != 0.0:
+        code_rate_eff = code_rate + (carr_freq - f(if_freq)) * f(aiding_scale)
+    else:
+        code_rate_eff = code_rate
+    dc = code_rate_eff * inv_fs
+    n_t_f = torch.round(fs_f * f(code_len) / code_rate_eff)
+
+    lane = torch.arange(wp, device=dev, dtype=torch.float32)[None, :]
+    mask = ((lane >= start_lane) & (lane < start_lane + n_t_f)).to(
+        torch.float32)
+
+    # carrier wipe-off from the outer-product trig factors
+    step = carr_freq * inv_fs
+    phi0 = carr_phase - start_lane * step
+    w128 = wp // 128
+    q_w = torch.arange(w128, device=dev, dtype=torch.float32)[None, :]
+    q128 = torch.arange(128, device=dev, dtype=torch.float32)[None, :]
+    th_a = phi0 + (step * f(128.0)) * q_w
+    th_a = (th_a - torch.floor(th_a)) * f(TWO_PI)
+    th_b = step * q128
+    th_b = (th_b - torch.floor(th_b)) * f(TWO_PI)
+    a_c, a_s = torch.cos(th_a), torch.sin(th_a)                 # [C, w128]
+    b_c, b_s = torch.cos(th_b), torch.sin(th_b)                 # [C, 128]
+    ra_c = a_c.repeat_interleave(128, dim=1)                    # lane // 128
+    ra_s = a_s.repeat_interleave(128, dim=1)
+    tb_c, tb_s = b_c.repeat(1, w128), b_s.repeat(1, w128)       # lane % 128
+    cth = ra_c * tb_c - ra_s * tb_s
+    sth = ra_s * tb_c + ra_c * tb_s
+    pos = starts.to(torch.int64)[:, None] + (off + a_e) + torch.arange(
+        wp, device=dev, dtype=torch.int64)[None, :]
+    wre, wim = stream_re[pos], stream_im[pos]
+    re_w = (wre * cth + wim * sth) * mask
+    im_w = (wim * cth - wre * sth) * mask
+
+    # prompt select: at most two rows carry weight, so the weighted sum
+    # over rows rounds once whatever its order
+    q = (chip_res + frac0) / dc
+    q_floor = torch.floor(q)
+    shift = drift - q_floor
+    d_f = torch.arange(n_drift, device=dev,
+                       dtype=torch.float32)[None, :] - f(half)   # [1, R]
+    sel_d = (shift == d_f).to(torch.float32)                    # [C, R]
+    if interp:
+        f_sub = q - q_floor
+        sel_m = (shift == d_f + 1.0).to(torch.float32)
+        w = (1.0 - f_sub) * sel_d + f_sub * sel_m
+    else:
+        w = sel_d
+    prompt = torch.sum(w[:, :, None] * reps, dim=1)             # [C, wp]
+    prompt = torch.roll(prompt, rem_i, dims=1)
+    early = torch.roll(prompt, -el_shift, dims=1)   # early[l] = p[l+el]
+    late = torch.roll(prompt, el_shift, dims=1)     # late[l]  = p[l-el]
+    i_e = torch.sum(re_w * early, dim=1, keepdim=True)
+    q_e = torch.sum(im_w * early, dim=1, keepdim=True)
+    i_p = torch.sum(re_w * prompt, dim=1, keepdim=True)
+    q_p = torch.sum(im_w * prompt, dim=1, keepdim=True)
+    i_l = torch.sum(re_w * late, dim=1, keepdim=True)
+    q_l = torch.sum(im_w * late, dim=1, keepdim=True)
+
+    power = i_p * i_p + q_p * q_p
+    if lock_mode == "costas":
+        metric = (i_p * i_p - q_p * q_p) / torch.maximum(power, f(1e-12))
+        alpha = f(0.1)
+        new_lock_ema = torch.where(
+            active > 0.5, (1.0 - alpha) * lock_ema + alpha * metric,
+            lock_ema)
+        locked = new_lock_ema > f(costas_thr)
+    else:
+        new_lock_ema = lock_ema
+        locked = power > f(lock_threshold)
+    safe_ip = torch.where(torch.abs(i_p) < 1e-12, f(1e-12), i_p)
+    pll_err = _atan_poly(q_p / safe_ip) * f(1.0 / TWO_PI)
+    carr_nco = pll_err * f(pll_c1) + (pll_err - carr_err) * f(pll_c2)
+    pow_e = torch.sqrt(i_e * i_e + q_e * q_e)
+    pow_l = torch.sqrt(i_l * i_l + q_l * q_l)
+    el_sum = pow_e + pow_l
+    dll_err = torch.where(
+        el_sum > 0.0, (pow_e - pow_l) / torch.maximum(el_sum, f(1e-12)),
+        f(0.0))
+    code_nco = dll_err * f(dll_c1) + (dll_err - code_err) * f(dll_c2)
+
+    act = active > 0.5
+    upd = act & locked
+    new_carr_freq = torch.where(upd, carr_freq + carr_nco, carr_freq)
+    new_carr_err = torch.where(upd, pll_err, carr_err)
+    new_code_rate = torch.where(upd, code_rate + code_nco, code_rate)
+    new_code_err = torch.where(upd, dll_err, code_err)
+    zero = torch.zeros_like(lost)
+    new_lost = torch.where(act, torch.where(locked, zero, lost + 1.0), lost)
+    died = new_lost >= f(max_lost)
+    new_active = torch.where(died, zero, active)
+    ncp = _fma(step, n_t_f, carr_phase)
+    new_carr_phase = ncp - torch.floor(ncp)
+    new_chip_res = _fma(dc, n_t_f, chip_res) - f(code_len)
+    new_drift = drift + n_t_f - f(n0)
+
+    def sel(new, old):
+        return torch.where(act, new, old)
+
+    new = torch.zeros_like(st)
+    for k, v in ((0, sel(new_carr_freq, carr_freq)),
+                 (1, sel(new_carr_phase, carr_phase)),
+                 (2, sel(new_carr_err, carr_err)),
+                 (3, sel(new_code_rate, code_rate)),
+                 (4, sel(new_chip_res, chip_res)),
+                 (5, sel(new_code_err, code_err)), (6, sel(new_lost, lost)),
+                 (7, new_active), (8, sel(new_drift, drift)), (9, woff),
+                 (10, frac0), (11, torch.where(died, zero, new_lock_ema))):
+        new[:, k] = v.reshape(c_channels)
+    wr = act.to(torch.float32)
+    row = torch.cat([
+        i_e * wr, q_e * wr, i_p * wr, q_p * wr, i_l * wr, q_l * wr,
+        power * wr, upd.to(torch.float32), pll_err * wr, dll_err * wr,
+        sel(new_carr_freq, carr_freq), sel(new_code_rate, code_rate),
+        n_t_f, drift, chip_res * wr, (died & act).to(torch.float32), wr,
+    ], dim=1)                                                   # [C, 17]
+    return new, row
+
+
+def track_block_fused_direct_reference(
+    stream_re, stream_im, starts, replicas, state_in, *, t_epochs,
+    k_epochs, n0, wp, fs, code_len=1023.0, lock_threshold=15.0,
+    max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0, dll_c2=0.0,
+    el_shift=1, aiding_scale=0.0, if_freq=0.0, lock_mode="power",
+    costas_thr=0.4, interp=False, starts_host=None, starts_bound=None,
+    first_superstep=0,
+):
+    """The plain PyTorch version of the direct kernel, on any device:
+    the same arithmetic, one Python iteration per epoch. Returns
+    (telemetry [T, C, 17] f32, state [C, 128] f32). ``first_superstep``
+    as in track_block_fused_mxu_reference."""
+    _check_args(stream_re, stream_im, starts, replicas, state_in,
+                t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
+                lock_mode=lock_mode, starts_host=starts_host,
+                starts_bound=starts_bound, first_superstep=first_superstep,
+                replica_dtype=torch.float32)
+    kw = dict(k_epochs=k_epochs, wp=wp, n0=n0, fs=fs, code_len=code_len,
+              lock_threshold=lock_threshold, max_lost=max_lost,
+              pll_c1=pll_c1, pll_c2=pll_c2, dll_c1=dll_c1, dll_c2=dll_c2,
+              el_shift=el_shift, aiding_scale=aiding_scale,
+              if_freq=if_freq, lock_mode=lock_mode, costas_thr=costas_thr,
+              interp=interp)
+    st, rows = state_in, []
+    for j in range(first_superstep,
+                   first_superstep + t_epochs // k_epochs):
+        for e in range(k_epochs):
+            st, row = _epoch_direct_reference(
+                st, j, e, stream_re, stream_im, starts, replicas, **kw)
+            rows.append(row)
+    return torch.stack(rows, dim=0), st
+
+
+def track_block_fused_direct(
+    stream_re: torch.Tensor,   # [L] f32 shared sample stream
+    stream_im: torch.Tensor,   # [L] f32
+    starts: torch.Tensor,      # [C] i32 per-channel window starts
+    replicas: torch.Tensor,    # [C, N_DRIFT, wp] f32 (build_replicas)
+    state_in: torch.Tensor,    # [C, 128] f32
+    *,
+    t_epochs: int,
+    k_epochs: int,
+    n0: int,
+    wp: int,
+    fs: float,
+    code_len: float = 1023.0,
+    lock_threshold: float = 15.0,
+    max_lost: int = 20,
+    pll_c1: float = 0.0,
+    pll_c2: float = 0.0,
+    dll_c1: float = 0.0,
+    dll_c2: float = 0.0,
+    el_shift: int = 1,
+    aiding_scale: float = 0.0,
+    if_freq: float = 0.0,
+    lock_mode: str = "power",
+    costas_thr: float = 0.4,
+    interp: bool = False,
+    starts_host=None,          # [C] host copy of starts (numpy)
+    starts_bound=None,         # or: int, 0 <= every start <= it
+):
+    """direct fused tracking: T epochs, ONE kernel launch. Returns
+    (telemetry [T, C, 17] f32, state [C, 128] f32). Devices, checks and
+    the read bound as track_block_fused_mxu."""
+    kw = dict(t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp, fs=fs,
+              code_len=code_len, lock_threshold=lock_threshold,
+              max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
+              dll_c1=dll_c1, dll_c2=dll_c2, el_shift=el_shift,
+              aiding_scale=aiding_scale, if_freq=if_freq,
+              lock_mode=lock_mode, costas_thr=costas_thr, interp=interp,
+              starts_host=starts_host, starts_bound=starts_bound)
+    if state_in.device.type == "cpu":
+        return track_block_fused_direct_reference(
+            stream_re, stream_im, starts, replicas, state_in, **kw)
+    if state_in.device.type != "cuda":
+        raise ValueError(f"unsupported device {state_in.device}")
+    _check_args(stream_re, stream_im, starts, replicas, state_in,
+                t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
+                lock_mode=lock_mode, starts_host=starts_host,
+                starts_bound=starts_bound, replica_dtype=torch.float32)
+    c, n_drift = replicas.shape[0], replicas.shape[1]
+    if n_drift > 8 or wp > 128 * 128:
+        raise ValueError(f"the CUDA kernel takes <= 8 replica rows and "
+                         f"wp <= 16384, got {n_drift} and {wp}")
+    if replicas.data_ptr() % 16:
+        raise ValueError("replicas must start 16-byte aligned (the kernel "
+                         "copies them in 16-byte pieces)")
+    fn = _direct_lib()
+    telem = torch.empty((t_epochs, c, N_TELEM_DIRECT), dtype=torch.float32,
+                        device=state_in.device)
+    state_out = torch.empty_like(state_in)
+    with torch.cuda.device(state_in.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
+                 stream_re.shape[0], starts.data_ptr(), replicas.data_ptr(),
+                 state_in.data_ptr(), telem.data_ptr(), state_out.data_ptr(),
+                 c, t_epochs, k_epochs, n0, wp, n_drift,
+                 fs, code_len, lock_threshold, int(max_lost),
+                 pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
+                 aiding_scale, if_freq, int(lock_mode == "costas"),
+                 costas_thr, int(bool(interp)), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"track_block_direct launch failed: CUDA error {err}")
+    global direct_launch_count
+    direct_launch_count += 1
     return telem, state_out

@@ -1,22 +1,28 @@
 """The receiver: streaming orchestration of acquisition + tracking
-(counterpart of ``gnss_sdr_tpu/receiver/pipeline.py``, single-block
-path).
+(counterpart of ``gnss_sdr_tpu/receiver/pipeline.py``).
 
   per block:  advance window -> (paced) PCPS search + handoff ->
               fused tracking kernel (one launch) -> rebase ->
               telemetry / nav / lifecycle
+
+In steady state (``run(scan_blocks=k)``) spans of k blocks run through
+the multi-block scan, the ledger on the card and one download per span;
+``span_pipeline=True`` chains the spans' ledger on the card and downloads
+each span's telemetry from a collector thread while the next span runs.
 
 Channel lifecycle (Idle -> Tracking -> Lost -> re-search) is a set of
 state transitions plus a host-side PRN <-> channel map.
 
 Not ported yet, and raising NotImplementedError: front-end conditioning
 (IF mix, decimation, DC removal, AGC, pulse blanking; ROADMAP A7), a
-device mesh (A14), correlators other than ``fused`` (A12), the
-multi-block scan and span pipeline (A5.2-A5.4), non-GPS signals' nav
+device mesh (A14), correlators other than ``fused`` (A12), the conv
+acquisition engine and its in-scan search (A11), non-GPS signals' nav
 chains (A16) and the streaming observables / EKF outputs (A8).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import warnings
 from typing import Optional
 
@@ -29,7 +35,7 @@ from ..models.constellation import get_signal
 from ..utils.profiling import StageTimer
 from ..utils.telemetry import TelemetryLog
 from . import tracking as trk
-from .acquisition import AcquisitionEngine, SearchScheduler
+from .acquisition import AcquisitionEngine, SearchMode, SearchScheduler
 from .fused_runner import FusedTracker
 from .navproc import NavProcessor
 from .stream import DeviceStreamWindow, SampleSource, StreamWindow
@@ -101,12 +107,18 @@ class Receiver:
         else:
             self.window = DeviceStreamWindow(self.history, self.block,
                                              self.device)
+        # "auto" as the JAX package resolves it: the mxu layout and the
+        # slim wires on an accelerator, the exact direct layout and the
+        # bit-exact f32 wire on the CPU
         layout = cfg.track.fused_layout
         if layout == "auto":
-            layout = "mxu"
+            layout = "direct" if self.device.type == "cpu" else "mxu"
         wire = cfg.track.telemetry_wire
         if wire == "auto":
-            wire = "f32"            # the single-block path's format
+            if self.device.type == "cpu":
+                wire = "f32"
+            else:
+                wire = "slim2" if layout == "mxu" else "slim"
         self.fused = FusedTracker(
             self.params, cfg.track, self.spec, self.fs, self.codes_full,
             self.epochs_per_block, self.history + self.block,
@@ -177,15 +189,18 @@ class Receiver:
                 return False
         samples, n_valid = pulled
         if n_valid < self.block:
-            # a partial tail block would take the scanned per-epoch
-            # tracker, which is not ported yet (ROADMAP A12): the run
-            # stops at the last full block
-            warnings.warn(
-                f"end of stream: dropping a partial tail block of "
-                f"{n_valid} samples (< {self.block}); the scanned tracker "
-                "that processes it is not ported yet", stacklevel=2)
+            self._drop_tail(n_valid)
             return False
         return self._process_block(samples, n_valid)
+
+    def _drop_tail(self, n_valid: int) -> None:
+        # a partial tail block would take the scanned per-epoch tracker,
+        # which is not ported yet (ROADMAP A12): the run stops at the
+        # last full block
+        warnings.warn(
+            f"end of stream: dropping a partial tail block of "
+            f"{n_valid} samples (< {self.block}); the scanned tracker "
+            "that processes it is not ported yet", stacklevel=3)
 
     def _process_block(self, samples, n_valid) -> bool:
         n_fresh = self.window.advance(samples)
@@ -223,30 +238,288 @@ class Receiver:
 
     # ------------------------------------------------------------------
     def _codes_for_state(self) -> torch.Tensor:
-        """Per-channel replica rows on the device, cached on channel
-        (re)assignment."""
-        key = tuple(np.asarray(self.state.prn_idx).tolist())
+        return self._codes_for_prns(np.asarray(self.state.prn_idx))
+
+    def _codes_for_prns(self, prn_idx) -> torch.Tensor:
+        """Per-channel replica rows on the device for these PRN rows,
+        cached on channel (re)assignment; the index upload does not wait
+        for the card."""
+        key = tuple(prn_idx.tolist())
         if key != self._codes_key:
             self._codes_key = key
-            rows = torch.from_numpy(
-                np.maximum(np.asarray(self.state.prn_idx), 0).astype(np.int64))
-            self._codes_ch = self.codes_full[rows.to(self.device)].contiguous()
+            rows = torch.from_numpy(np.maximum(prn_idx, 0).astype(np.int64))
+            self._codes_ch = self.codes_full[
+                rows.to(self.device, non_blocking=True)].contiguous()
         return self._codes_ch
+
+    # ------------------------------------------------------------------
+    def step_scan(self, k: int) -> int:
+        """Process up to ``k`` blocks as one span (FusedTracker.run_blocks:
+        the ledger on the card, one download per span). Acquisition never
+        runs inside a span; ``run(scan_blocks=...)`` searches at span
+        boundaries. A short read (end of stream) takes the single-block
+        path. Returns the number of blocks processed (0 at end of
+        stream)."""
+        full, tail = [], None
+        for _ in range(k):
+            with self.timers.stage("ingest", self.block):
+                pulled = self._pull_block()
+            if pulled is None:
+                break
+            samples, n_valid = pulled
+            if n_valid == self.block:
+                full.append(samples)
+            else:
+                tail = n_valid
+                break
+        done = 0
+        if len(full) == k:
+            done += self._process_span(full)
+        else:
+            for s in full:
+                if self._process_block(s, self.block):
+                    done += 1
+        if tail is not None:
+            self._drop_tail(tail)
+        return done
+
+    def _emit_span(self, telems, g0) -> None:
+        """Telemetry, nav and lifecycle of a span's blocks, block by block
+        (block b's window starts at g0 + (b + 1) * block)."""
+        for b, telem in enumerate(telems):
+            gs = g0 + (b + 1) * self.block
+            self.telemetry.append_block(telem, gs)
+            if self.cfg.pvt.enable:
+                self.nav.feed_block(telem, gs)
+            lost = np.asarray(telem.lost_event).any(axis=0)
+            if lost.any():
+                for prn, ch in list(self.active.items()):
+                    if lost[ch]:
+                        del self.active[prn]
+                        self.telemetry.close_channel(ch)
+                        self.nav.close_channel(ch)
+            self.time_ms += self.cfg.block_ms
+
+    def _process_span(self, blocks: list) -> int:
+        """Run ``len(blocks)`` full fresh blocks through the multi-block
+        scan; mirrors _process_block's bookkeeping (telemetry, nav,
+        lifecycle) from the one downloaded span."""
+        k = len(blocks)
+        with self.timers.stage("track", self.block * k):
+            # the window rolls past the whole span (state offsets come
+            # back already rebased: no trk.rebase here)
+            stream_re, stream_im, g0 = self._advance_span_window(blocks)
+            self.state, telems = self.fused.run_blocks(
+                self.state, stream_re, stream_im, self._codes_for_state(),
+                k)
+        with self.timers.stage("nav", self.block * k):
+            self._emit_span(telems, g0)
+        self.scheduler.update_mode(len(self.active))
+        return k
+
+    # ------------------------------------------------------------------
+    def _collect_pipelined(self, handle, g0, on_block, telems):
+        """Consume one collected span: telemetry, nav and lifecycle.
+        Returns (n_blocks, stop_requested)."""
+        with self.timers.stage("nav", self.block * handle.n_blocks):
+            self._emit_span(telems, g0)
+        self.scheduler.update_mode(len(self.active))
+        stop = bool(on_block is not None and on_block(self))
+        return handle.n_blocks, stop
+
+    def _run_pipelined(self, k: int, budget, on_block):
+        """Steady-state span pipeline: spans chain their ledger ON THE
+        CARD (FusedTracker.submit_span / handle.led), so span n+1 is
+        queued before span n's telemetry is read; the download and the
+        host nav overlap the next span's kernels, and the host waits once
+        per span for telemetry only. Lost-channel bookkeeping trails by
+        one span. Cold and warm acquisition never run pipelined; the JAX
+        package's handoffs from the in-scan search, applied to the device
+        ledger one span late, come with that search (ROADMAP A11; the
+        ledger update itself is FusedTracker.apply_handoffs_device).
+        Returns (blocks, eos)."""
+        ft = self.fused
+        led = self.state                  # first submit uploads host state
+        pending = None                    # (handle, g0) being collected
+        done = 0
+        leftovers = []
+        eos = False
+        stop = False
+        prn_idx = np.asarray(self.state.prn_idx).copy()
+
+        # collector thread: ONLY the download wait and the numpy unpack
+        # (FusedTracker.collect_span waits on the span's own event); all
+        # receiver-state mutation stays on this thread
+        in_q: queue.Queue = queue.Queue(maxsize=1)
+        out_q: queue.Queue = queue.Queue(maxsize=1)
+
+        def _collector():
+            while True:
+                item = in_q.get()
+                if item is None:
+                    return
+                try:
+                    out_q.put((ft.collect_span(item), None))
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    out_q.put((None, e))
+
+        th = threading.Thread(target=_collector, daemon=True)
+        th.start()
+
+        def pop_pending():
+            """Wait for the collector's result for the pending span."""
+            nonlocal pending
+            handle, g0 = pending
+            with self.timers.stage("track", self.block * handle.n_blocks):
+                telems, err = out_q.get()
+            if err is not None:
+                raise err
+            pending = None
+            return handle, g0, telems
+
+        try:
+            while (not stop
+                   and self.scheduler.mode == SearchMode.STEADY
+                   and (budget is None
+                        or budget - done - (k if pending else 0) >= k)):
+                full = []
+                for _ in range(k):
+                    with self.timers.stage("ingest", self.block):
+                        pulled = self._pull_block()
+                    if pulled is None:
+                        eos = True
+                        break
+                    samples, n_valid = pulled
+                    if n_valid == self.block:
+                        full.append(samples)
+                    else:
+                        leftovers.append((samples, n_valid))
+                        eos = True
+                        break
+                if len(full) < k:
+                    # not a full span: the blocks flush through the
+                    # single-block path after the pipeline drains
+                    leftovers = [(s, self.block) for s in full] + leftovers
+                    break
+                prev = pop_pending() if pending is not None else None
+                with self.timers.stage("track"):
+                    codes_rows = self._codes_for_prns(prn_idx)
+                    stream_re, stream_im, g0 = \
+                        self._advance_span_window(full)
+                    handle = ft.submit_span(led, stream_re, stream_im,
+                                            codes_rows, k)
+                led = handle.led
+                pending = (handle, g0)
+                in_q.put(handle)          # the collector waits for it
+                if prev is not None:
+                    # nav of span n-1 overlaps span n's kernels and copy
+                    n_done, s = self._collect_pipelined(*prev[:2], on_block,
+                                                        prev[2])
+                    done += n_done
+                    stop = stop or s
+            if pending is not None:
+                handle, g0, telems = pop_pending()
+                n_done, s = self._collect_pipelined(handle, g0, on_block,
+                                                    telems)
+                done += n_done
+                stop = stop or s
+        finally:
+            # shut the collector down on every path (a blocked thread
+            # would pin the pending span's buffers)
+            try:
+                in_q.put_nowait(None)
+            except queue.Full:
+                pass
+            th.join(timeout=30.0)
+        # sync the exact host ledger once at pipeline exit (led is still
+        # the host state if no span was submitted)
+        if led is not self.state:
+            self.state = ft.absorb_led(self.state, led)
+        if not stop:
+            for samples, n_valid in leftovers:
+                if n_valid < self.block:
+                    self._drop_tail(n_valid)
+                    break
+                if self._process_block(samples, n_valid):
+                    done += 1
+                    if on_block is not None and on_block(self):
+                        stop = True
+                        break
+        return done, eos or stop
+
+    def _advance_span_window(self, full):
+        """Span framing shared by the synchronous and pipelined paths:
+        concatenate [window tail | len(full) fresh blocks] and roll the
+        window to the new frontier. On the card the fresh blocks upload
+        without waiting. Returns (stream_re, stream_im, g0 = the span's
+        window global start)."""
+        keep = self.history + self.block
+        if isinstance(self.window, DeviceStreamWindow):
+            def up(x):
+                return torch.as_tensor(x, dtype=torch.float32).to(
+                    self.device, non_blocking=True)
+            cat = torch.cat
+        else:
+            def up(x):
+                return np.asarray(x, dtype=np.float32)
+            cat = np.concatenate
+        stream_re = cat([self.window.re[self.block:]]
+                        + [up(re) for re, _ in full])
+        stream_im = cat([self.window.im[self.block:]]
+                        + [up(im) for _, im in full])
+        g0 = self.window.global_start
+        self.window.load(stream_re[-keep:], stream_im[-keep:])
+        self.window.global_start = g0 + len(full) * self.block
+        self.window.blocks_fed += len(full)
+        return stream_re, stream_im, g0
 
     # ------------------------------------------------------------------
     def run(self, max_blocks: Optional[int] = None, on_block=None,
             scan_blocks: int = 1, span_pipeline: bool = False) -> dict:
-        """Drive the stream one block at a time; ``on_block(receiver)``
-        fires after every block and a truthy return stops the run."""
-        if scan_blocks > 1 or span_pipeline:
-            raise NotImplementedError(
-                "scan_blocks > 1 / span_pipeline (the multi-block scan) is "
-                "not ported yet (ROADMAP A5.2-A5.4)")
+        """Drive the stream; ``on_block(receiver)`` fires after every
+        processed block or span, and a truthy return stops the run.
+
+        ``scan_blocks > 1`` enables the steady state: once the scheduler
+        is in steady search mode, spans of that many blocks run through
+        the multi-block scan (step_scan), one host wait per span, with
+        the paced re-search at span boundaries. Cold and warm starts keep
+        single-block steps. ``span_pipeline=True`` also chains the spans'
+        ledger on the card (_run_pipelined): span n+1 is queued before
+        span n's telemetry is read, and lost-channel bookkeeping trails
+        by one span.
+        """
         blocks = 0
         while max_blocks is None or blocks < max_blocks:
-            if not self.step():
-                break
-            blocks += 1
+            k = 1
+            if scan_blocks > 1 and self.scheduler.mode == SearchMode.STEADY:
+                k = scan_blocks
+                if max_blocks is not None and max_blocks - blocks < k:
+                    # a remainder shorter than a span takes single blocks
+                    k = 1
+            if k > 1 and span_pipeline:
+                budget = (None if max_blocks is None
+                          else max_blocks - blocks)
+                done, stop = self._run_pipelined(k, budget, on_block)
+                blocks += done
+                if stop or done == 0:
+                    break
+                continue
+            if k > 1:
+                done = self.step_scan(k)
+                if done == 0:
+                    break
+                blocks += done
+                # paced re-search at the span boundary (the in-span
+                # blocks are search-free by construction)
+                have_enough = (self.window.blocks_fed * self.block
+                               >= self.acq_len)
+                if have_enough and self.scheduler.due(self.time_ms):
+                    with self.timers.stage("acquire", self.acq_len):
+                        self._run_acquisition()
+            else:
+                if not self.step():
+                    break
+                blocks += 1
             if on_block is not None and on_block(self):
                 break
         return self.summary()

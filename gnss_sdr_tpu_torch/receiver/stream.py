@@ -176,7 +176,8 @@ class StreamWindow:
         return n
 
     def load(self, re: np.ndarray, im: np.ndarray) -> None:
-        """Overwrite the window contents (checkpoint restore)."""
+        """Overwrite the window contents (checkpoint restore, span
+        framing)."""
         self.re[:] = re
         self.im[:] = im
 
@@ -224,3 +225,14 @@ class DeviceStreamWindow:
         self.global_start += self.b
         self.blocks_fed += 1
         return n
+
+    def load(self, re, im) -> None:
+        """Overwrite the window contents: tensors on the window's device
+        pass straight through (the span path reloads the window from the
+        span stream it built on the card), host arrays upload."""
+        for name, x in (("re", re), ("im", im)):
+            x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+            if x.shape != (self.h + self.b,):
+                raise ValueError(f"window load: {name} has shape "
+                                 f"{tuple(x.shape)}, not ({self.h + self.b},)")
+            setattr(self, name, x)

@@ -67,3 +67,47 @@ def test_receiver_runs_through_kernel(card):
     """1.5 s of the 24-satellite scene at 500 ms blocks: every PRN
     tracked within 40 Hz, one launch per block."""
     assert chip_smoke.phase_receiver(torch, device="cuda", n_blocks=3) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_direct_kernel_matches_plain_on_card(card, variant):
+    """Kernel B3 against its plain version, 32 channels, 20 ms blocks
+    (K=10), open loop, within the CPU kernel test's tolerances."""
+    ft, args, kw = chip_smoke.full_width_inputs(
+        torch, card, VARIANTS[variant], block_ms=20, layout="direct")
+    before = fused.direct_launch_count
+    tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw,
+                                             layout="direct")
+    assert fused.direct_launch_count == before + 20 // (2 * kw["k_epochs"])
+    active = sk[:, 7].cpu().numpy()
+    if variant == "forced_death":
+        assert not active.any()
+    else:
+        assert active[:24].all() and not active[24:].any()
+
+
+@pytest.mark.cuda
+def test_lean_mode_matches_full_on_card(card):
+    """B1's lean telemetry: the stored columns and the end state equal
+    the full mode's bit for bit, the rest zero (full width)."""
+    chip_smoke.phase_lean_check(torch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,pipelined", [("auto", True),
+                                              ("direct", False)])
+def test_steady_receiver_on_card(card, layout, pipelined):
+    """3 s of the 24-satellite scene: single blocks until the search
+    scheduler turns steady (during block 1), then one 4-block span; every
+    PRN tracked within 40 Hz, one launch per block; then two chained
+    spans queued with the sync debug mode at "error"."""
+    sats, sig = chip_smoke._scene(3.0)
+    rx, summary, launches = chip_smoke._run_receiver(
+        torch, sats, sig, "test", layout=layout, scan_blocks=4,
+        span_pipeline=pipelined)
+    name = ("track_block_fused_mxu" if rx.fused.layout == "mxu"
+            else "track_block_fused_direct")
+    assert launches[name] == 6 and sum(launches.values()) == 6
+    assert summary["stage_timing"]["track"]["calls"] < 6
+    chip_smoke._submit_without_sync(torch, rx, sig, n_span=2)

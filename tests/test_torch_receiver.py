@@ -72,7 +72,7 @@ def both_receivers():
         JSyntheticSource([JSat(**s) for s in SATS], FS, noise_std=1.0,
                          seed=11, total_samples=n))
     rx = Receiver(
-        _cfg(PORT),
+        _cfg(PORT, dict(fused_layout="mxu")),
         SyntheticSource([SatelliteScenario(**s) for s in SATS], FS,
                         noise_std=1.0, seed=11, total_samples=n),
         device="cpu")
@@ -192,7 +192,7 @@ def test_receiver_defaults_to_cuda():
 @pytest.mark.parametrize("kw,item", [
     (dict(track_kw=dict(correlator="shift")), "A12"),
     (dict(rf_decim=2), "A7"),
-    (dict(scan=True), "A5"),
+    (dict(track_kw=dict(correlator="fused", fused_layout="seg")), "B4"),
 ])
 def test_unported_receiver_options_raise(kw, item):
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,
@@ -207,10 +207,5 @@ def test_unported_receiver_options_raise(kw, item):
                         decimation=2),
             track=TrackConfig(n_channels=4, correlator="fused"),
             block_ms=20)
-    else:
-        rx = Receiver(_cfg(PORT), src, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            rx.run(max_blocks=2, scan_blocks=2)
-        return
     with pytest.raises(NotImplementedError, match=item):
         Receiver(cfg, src, device="cpu")

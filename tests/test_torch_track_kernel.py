@@ -280,8 +280,9 @@ class TestConstruction:
         assert (ft.k_epochs, ft.n_rows, ft.wp % 128) == (5, 8, 0)
 
     def test_odd_block_ms_raises(self):
-        # no superstep pairing: the JAX package's direct fallback is B3
-        with pytest.raises(NotImplementedError, match="B3"):
+        # no superstep pairing on mxu or direct: the JAX package runs the
+        # seg layout there (B4b fed by B4c), not ported yet
+        with pytest.raises(NotImplementedError, match="B4"):
             self._ft(t_epochs=7)
 
     def test_short_buffer_raises(self):
@@ -296,8 +297,8 @@ class TestConstruction:
                                  np.zeros(2, np.int32))
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(layout="direct"), "B3"), (dict(shared_fetch=True), "B2"),
-        (dict(wire="slim2"), "A5.3"), (dict(mesh=object()), "A14")])
+        (dict(layout="seg"), "B4"), (dict(shared_fetch=True), "B2"),
+        (dict(layout="windows"), "B4"), (dict(mesh=object()), "A14")])
     def test_unported_options_raise(self, kw, item):
         cfg = TrackConfig(n_channels=2, correlator="fused")
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
