@@ -31,7 +31,28 @@ GPU:
      layout, 4-block spans; every PRN tracked, launches equal to
      blocks, then one chained span submitted with the sync debug mode
      at "error" (the submit path never waits for the card);
- 10. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 10. kernel B5 (one epoch's E/P/L correlations) against its plain
+     version at full width (32 channels): 2.046 MHz (W=2054, shift 1),
+     4.092 MHz (W=4100, shift 2) and Galileo E1B at 8.184 MHz (two
+     samples per chip), interp off and on, partial and idle epoch masks,
+     random u32 phases; each sum's largest difference over its column's
+     largest |value|;
+ 11. B5's time per launch and per 500 ms block (501 launches, fresh
+     inputs, the L2 flushed before each; the kernel's device time from
+     the profiler, events around each launch beside it), the plain
+     version's and the bound;
+ 12. the scanned receiver (the JAX package's default tracker) on the
+     24-satellite scene, 5 s from a cold start: correlator="pallas" (B5
+     launched blocks x 501 times, B1 and B3 never) and the default
+     "shift" (no kernel launch); every PRN tracked within 40 Hz; then
+     one track_block of the pallas receiver queued with the sync debug
+     mode at "error" (only the final download waits);
+ 13. the IF capture: an int8 real file at 16.368 MHz with a 4.092 MHz
+     IF, DC removal, mixed and decimated 4x on the card, 2 s,
+     correlator="pallas": every PRN tracked within 40 Hz;
+ 14. the fused receiver on a stream that ends in a partial block: the
+     full blocks through B1, the tail through the scanned tracker;
+ 15. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -61,6 +82,16 @@ H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
 
 STEADY_S = 10                       # steady-state scene, mxu runs
+SCAN_S = 5                          # scanned receiver runs
+IF_S = 2                            # IF capture run
+FS_IF_IN = 16_368_000.0             # ... its capture rate, IF and
+F_IF = 4_092_000.0                  # decimation (tests/test_pipeline.py)
+IF_DECIM = 4
+# f32 ops per in-mask lane in B5 (csrc/epl_correlator.cu): the complex
+# mix (4 multiplies, 2 adds), three chip-ramp fmas (2 each) and six
+# correlation multiply-adds (12)
+B5_OPS_PER_LANE = 24
+B5_TOL = 1e-4                       # of each sum's column max
 DIRECT_S = 5                        # ... and the direct run
 STEADY_SPAN = 8                     # blocks per span, mxu runs
 DIRECT_SPAN = 4                     # ... and the direct run
@@ -469,59 +500,90 @@ def phase_lean_check(torch):
               f"values equal, the rest zero, end state equal")
 
 
+_SCENES: dict = {}
+
+
 def _scene(seconds):
+    """bench.py's 24-satellite scene, ``seconds`` long at 2.046 MHz
+    (rendered once per length)."""
     from gnss_sdr_tpu_torch.models import SatelliteScenario, synthesize
 
-    sats = scene_sats(SatelliteScenario)
-    n = int(seconds * 1000 / BLOCK_MS) * BLOCK_MS * 2046
-    t0 = time.perf_counter()
-    sig = synthesize(sats, n, FS, noise_std=1.0, seed=3)
-    print(f"scene: {seconds:.1f} s of signal, 24 satellites, rendered in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return sats, sig
+    if seconds not in _SCENES:
+        sats = scene_sats(SatelliteScenario)
+        n = int(seconds * 1000 / BLOCK_MS) * BLOCK_MS * 2046
+        t0 = time.perf_counter()
+        sig = synthesize(sats, n, FS, noise_std=1.0, seed=3)
+        print(f"scene: {seconds:.1f} s of signal, 24 satellites, rendered "
+              f"in {time.perf_counter() - t0:.1f} s")
+        _SCENES[seconds] = (sats, sig)
+    return _SCENES[seconds]
+
+
+def _launch_counts():
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    return {"track_block_fused_mxu": fused.launch_count,
+            "track_block_fused_direct": fused.direct_launch_count,
+            "epl_correlate_pallas": b5.launch_count}
+
+
+def _reset_launch_counts():
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    fused.reset_launch_count()
+    b5.reset_launch_count()
 
 
 def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
-                  span_pipeline=False, on_block=None, device="cuda"):
-    """One receiver run from a cold start on ``sig``: checks every PRN
-    tracked within 40 Hz and all blocks processed; prints its real-time
-    factor and stage shares. The launch counts are set to 0 just before
-    the run and read just after. Returns (receiver, summary, launches)."""
+                  span_pipeline=False, on_block=None, device="cuda",
+                  correlator="fused", source=None, rf_kw=None,
+                  n_blocks=None):
+    """One receiver run from a cold start on ``sig`` (or ``source``):
+    checks every PRN tracked within 40 Hz and all blocks processed;
+    prints its real-time factor and stage shares. The launch counts are
+    set to 0 just before the run and read just after. Returns (receiver,
+    summary, launches)."""
     from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
         TrackConfig
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
     from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
 
-    n_blocks = sig.size // (BLOCK_MS * 2046)
+    if n_blocks is None:
+        n_blocks = sig.size // (BLOCK_MS * 2046)
+    rf = {"freq_if_hz": 0.0, "output_sample_rate_hz": FS, **(rf_kw or {})}
     rx = Receiver(
         ReceiverConfig(
-            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+            rf=RfConfig(**rf),
             acq=AcqConfig(),
-            track=TrackConfig(n_channels=N_CHANNELS, correlator="fused",
+            track=TrackConfig(n_channels=N_CHANNELS, correlator=correlator,
                               fused_layout=layout),
             block_ms=BLOCK_MS),
-        ArraySource(sig, FS), device=device)
+        source if source is not None else ArraySource(sig, FS),
+        device=device)
     assert rx.device.type == device
-    fused.reset_launch_count()              # this path starts here
+    _reset_launch_counts()                  # this path starts here
     t0 = time.perf_counter()
     summary = rx.run(on_block=on_block, scan_blocks=scan_blocks,
                      span_pipeline=span_pipeline)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"track_block_fused_mxu": fused.launch_count,
-                "track_block_fused_direct": fused.direct_launch_count}
+    launches = _launch_counts()
     truth = {s.prn: s.doppler_hz for s in sats}
     errs = {c["prn"]: c["last_doppler_hz"] - truth[c["prn"]]
             for c in summary["channels"]}
     timing = summary["stage_timing"]
     total = sum(v["total_s"] for v in timing.values())
-    signal_s = n_blocks * BLOCK_MS / 1000.0
-    print(f"receiver [{label}: layout {rx.fused.layout}, wire "
-          f"{rx.fused.wire}, scan_blocks {scan_blocks}, span_pipeline "
-          f"{span_pipeline}]: {signal_s:.1f} s of signal in {wall:.3f} s "
-          f"wall, real-time factor {signal_s / wall:.2f}x; launches "
-          f"{json.dumps(launches)}; track calls {timing['track']['calls']}")
+    signal_s = (n_blocks * BLOCK_MS / 1000.0 if sig is None
+                else sig.size / FS)
+    path = (f"layout {rx.fused.layout}, wire {rx.fused.wire}"
+            if rx.fused is not None else "scanned tracker")
+    print(f"receiver [{label}: correlator {correlator}, {path}, "
+          f"scan_blocks {scan_blocks}, span_pipeline {span_pipeline}]: "
+          f"{signal_s:.1f} s of signal in {wall:.3f} s wall, real-time "
+          f"factor {signal_s / wall:.2f}x; launches {json.dumps(launches)}; "
+          f"track calls {timing['track']['calls']}")
     print("  stage totals (s): " + json.dumps(
         {k: v["total_s"] for k, v in timing.items()}))
     print("  stage shares: " + json.dumps(
@@ -582,10 +644,12 @@ def phase_steady(torch):
                                  scan_blocks=DIRECT_SPAN)
     assert (rx_a.fused.layout, rx_a.fused.wire) == ("mxu", "slim2")
     assert la == {"track_block_fused_mxu": n_blocks,
-                  "track_block_fused_direct": 0}, la
+                  "track_block_fused_direct": 0,
+                  "epl_correlate_pallas": 0}, la
     assert lb == la, lb
     assert lc == {"track_block_fused_mxu": 0,
-                  "track_block_fused_direct": n_direct}, lc
+                  "track_block_fused_direct": n_direct,
+                  "epl_correlate_pallas": 0}, lc
     for s, n in ((sum_a, n_blocks), (sum_b, n_blocks), (sum_c, n_direct)):
         assert s["stage_timing"]["track"]["calls"] < n, s["stage_timing"]
     ch_1 = {c["prn"]: c for c in single["channels"]}
@@ -603,6 +667,331 @@ def phase_steady(torch):
           "of (b)")
     _submit_without_sync(torch, rx_a, sig)
     return {"a": la, "b": lb, "c": lc}
+
+
+B5_CASES = {
+    # name: (signal, fs, interp)
+    "gps_2046k": ("gps_l1ca", FS, False),
+    "gps_2046k_interp": ("gps_l1ca", FS, True),
+    "gps_4092k": ("gps_l1ca", 4_092_000.0, False),
+    "e1b_8184k": ("galileo_e1b", 8_184_000.0, False),
+    "e1b_8184k_interp": ("galileo_e1b", 8_184_000.0, True),
+}
+
+
+def b5_inputs(torch, signal, fs, n_epochs=1, seed=0, idle=8):
+    """B5's arguments at the receiver's full width (32 channels) for
+    ``signal`` at ``fs``: the window, shift and code table the scanned
+    tracker gives it (TrackParams, make_code_table), noisy windows with
+    the channel's code in them, random u32 carrier phases and steps,
+    random chip phases near the nominal rate, and the receiver's epoch
+    masks: n_t for the tracking channels, saturated for ``idle`` idle
+    ones, and (with idle=0) partial masks 0, 1, 500 and n0 - 1. Returns
+    (list of ``n_epochs`` argument tuples on the card, statics)."""
+    from gnss_sdr_tpu_torch.config import TrackConfig
+    from gnss_sdr_tpu_torch.models import get_signal
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    spec = get_signal(signal)
+    params = trk.TrackParams.create(TrackConfig(), spec, fs)
+    n0, w = spec.samples_per_code(fs), params.window
+    codes = torch.from_numpy(trk.make_code_table(spec, N_CHANNELS)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_valid = torch.full((N_CHANNELS,), n0, dtype=torch.int32)
+    if idle:
+        n_valid[-idle:] = 2 ** 31 - 1
+    else:
+        n_valid[-4:] = torch.tensor([0, 1, 500, n0 - 1], dtype=torch.int32)
+    n_valid = n_valid.cuda()
+    c = N_CHANNELS
+    rate = 1.023e6 + 3.0 * torch.randn(c, generator=gen, device="cuda")
+    cps = (rate.float() * float(np.float32(1.0) / np.float32(fs)))
+    out = []
+    for _ in range(n_epochs):
+        def u32():
+            return torch.randint(0, 2 ** 32, (c,), generator=gen,
+                                 device="cuda", dtype=torch.int64)
+        chip_int = torch.randint(0, spec.code_length_chips, (c,),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        chip_frac = torch.rand(c, generator=gen, device="cuda")
+        # windows: unit noise plus each channel's code at 0.5, so the
+        # prompt sums carry signal as in tracking
+        idx = torch.remainder(
+            (chip_int.double()[:, None] * params.oversample
+             + torch.arange(w, device="cuda")[None, :].double()
+             * cps.double()[:, None] * params.oversample).long(),
+            codes.shape[1])
+        sig = 0.5 * torch.gather(codes, 1, idx)
+        re = (sig + torch.randn(c, w, generator=gen, device="cuda"))
+        im = torch.randn(c, w, generator=gen, device="cuda")
+        out.append((re.contiguous(), im.contiguous(), n_valid, u32(), u32(),
+                    chip_int, chip_frac, cps.contiguous(), codes))
+    return out, dict(shift=params.el_shift, oversample=params.oversample,
+                     n0=n0, window=w)
+
+
+def _b5_bound(args, n_epochs):
+    """(bound ms, "bytes" or "operations", bytes, ops) of ``n_epochs``
+    B5 launches on inputs like ``args``: each input read once and the
+    [C, 6] sums written once, over 3.35 TB/s; the in-mask lanes' f32
+    operations over 67 TFLOP/s."""
+    re, n_valid = args[0], args[2]
+    n_bytes = sum(x.numel() * x.element_size() for x in args) \
+        + re.shape[0] * 6 * 4
+    lanes = float(n_valid.clamp(0, re.shape[1]).double().sum())
+    ops = B5_OPS_PER_LANE * lanes
+    t_bytes = n_epochs * n_bytes / H100_BYTES_S * 1e3
+    t_ops = n_epochs * ops / H100_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_epochs * n_bytes, n_epochs * ops)
+
+
+def phase_b5_check(torch):
+    """B5 against its plain version on the card, every case of B5_CASES
+    with the idle masks and with the partial masks."""
+    from gnss_sdr_tpu_torch.ops import correlator as corr
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+
+    fields = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l")
+    max_abs = 0.0
+    for name, (signal, fs, interp) in B5_CASES.items():
+        for idle in (8, 0):
+            (args,), st = b5_inputs(torch, signal, fs, seed=len(name) + idle,
+                                    idle=idle)
+            kw = dict(shift=st["shift"], oversample=st["oversample"],
+                      interp=interp)
+            before = b5.launch_count
+            got = b5.epl_correlate_pallas(*args, **kw)
+            torch.cuda.synchronize()
+            assert b5.launch_count == before + 1
+            ref = corr.epl_correlate_one_shift(*args, **kw)
+            assert b5.launch_count == before + 1   # the plain never counts
+            rel = {}
+            for f in fields:
+                a, b = getattr(got, f).double(), getattr(ref, f).double()
+                d = float((a - b).abs().max())
+                max_abs = max(max_abs, d)
+                rel[f] = d / max(float(b.abs().max()), 1e-30)
+            print(f"B5 vs plain [{name}, W={st['window']}, shift "
+                  f"{st['shift']}, os {st['oversample']}, "
+                  f"{'idle' if idle else 'partial'} masks]: "
+                  + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()}))
+            assert max(rel.values()) < B5_TOL, (name, rel)
+    return max_abs
+
+
+def phase_b5_timing(torch):
+    """B5 at the operating point (32 channels, 2.046 MHz, 24 tracking and
+    8 idle masks): per launch and per 500 ms block (501 launches), each
+    launch on fresh inputs with the L2 flushed before it; the plain
+    version's time; the bound. A launch of B5 is shorter than the
+    wrapper's host work, so events around it would also hold the card's
+    wait for the host: the kernel's own time is the profiler's device
+    time of the kernel, summed over the block's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_sdr_tpu_torch.ops import correlator as corr
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+
+    t_epochs = BLOCK_MS + 1
+    inputs, st = b5_inputs(torch, "gps_l1ca", FS, n_epochs=t_epochs, seed=7)
+    kw = dict(shift=st["shift"], oversample=st["oversample"])
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def timed(fn):
+        """Events around each call (the plain version: its interval holds
+        its many small kernels and the host work between them)."""
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in inputs]
+        for args, (start, end) in zip(inputs, events):
+            flush.zero_()                    # evict the 50 MB L2
+            start.record()
+            fn(*args, **kw)
+            end.record()
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in events]
+
+    def profiled():
+        """The kernel's device time per launch (ms), from the profiler."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args in inputs:
+                flush.zero_()
+                b5.epl_correlate_pallas(*args, **kw)
+            torch.cuda.synchronize()
+        per = [e for e in prof.key_averages()
+               if "epl_correlator_kernel" in e.key]
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in per)
+        n = sum(e.count for e in per)
+        return us / 1e3, n
+
+    for args in inputs[:3]:
+        b5.epl_correlate_pallas(*args, **kw)
+        corr.epl_correlate_one_shift(*args, **kw)
+    torch.cuda.synchronize()
+    # in turns: plain, kernel, kernel, plain
+    p1 = timed(corr.epl_correlate_one_shift)
+    k1_ms, k1_n = profiled()
+    k2_ms, k2_n = profiled()
+    p2 = timed(corr.epl_correlate_one_shift)
+    assert k1_n == k2_n == t_epochs and k1_ms > 0 and k2_ms > 0, \
+        (k1_n, k2_n, k1_ms, k2_ms)
+    ev = timed(b5.epl_correlate_pallas)
+    # the host's side: 501 launches back to back, wall clock to the sync
+    t0 = time.perf_counter()
+    for args in inputs:
+        b5.epl_correlate_pallas(*args, **kw)
+    torch.cuda.synchronize()
+    wall_block = (time.perf_counter() - t0) * 1e3
+    bound, bound_by, n_bytes, ops = _b5_bound(inputs[0], t_epochs)
+    res = dict(
+        ms=(k1_ms + k2_ms) / 2, ms_passes=[k1_ms, k2_ms],
+        ms_per_launch=(k1_ms + k2_ms) / 2 / t_epochs,
+        events_ms_per_launch_median=statistics.median(ev),
+        plain_ms=(sum(p1) + sum(p2)) / 2,
+        plain_ms_per_launch=statistics.median(p1 + p2),
+        wall_ms_per_block_back_to_back=wall_block,
+        bound_ms=bound, bound_by=bound_by, bytes=n_bytes, f32_ops=ops)
+    print(f"timing [B5] (ms per 500 ms block = {t_epochs} launches, 32 ch): "
+          + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in res.items()}))
+    return res
+
+
+def phase_scan_receiver(torch):
+    """The scanned receiver at the operating point, cold start, 5 s:
+    correlator="pallas" through B5, then the default "shift" (torch ops
+    only); then one track_block of the pallas receiver queued with the
+    sync debug mode at "error"."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    sats, sig = _scene(SCAN_S)
+    n_blocks = sig.size // (BLOCK_MS * 2046)
+    per_block = n_blocks * (BLOCK_MS + 1)
+    rx_p, sum_p, lp = _run_receiver(torch, sats, sig, "scan",
+                                    correlator="pallas")
+    assert lp == {"track_block_fused_mxu": 0, "track_block_fused_direct": 0,
+                  "epl_correlate_pallas": per_block}, lp
+    _, sum_s, ls = _run_receiver(torch, sats, sig, "scan",
+                                 correlator="shift")
+    assert not any(ls.values()), ls
+    ch_p = {c["prn"]: c for c in sum_p["channels"]}
+    ch_s = {c["prn"]: c for c in sum_s["channels"]}
+    worst = max(abs(ch_p[p]["last_doppler_hz"] - ch_s[p]["last_doppler_hz"])
+                for p in range(1, 25))
+    print(f"pallas vs shift receiver: |Doppler difference| <= {worst:.4f} Hz")
+
+    # one block of the pallas receiver with the sync debug mode at "error"
+    rx = rx_p
+    codes = rx._codes_for_state()
+    t_epochs = rx.epochs_per_block + 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        buf = trk.track_block_device(rx.params, codes, rx.state, rx.window.re,
+                                     rx.window.im, t_epochs,
+                                     valid_len=rx.history + rx.block)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st, tl = trk.unpack_block(buf, N_CHANNELS, t_epochs)
+    assert tl.processed[:, np.asarray(rx.state.active)].any(axis=0).all()
+    print(f"track_block under sync debug mode 'error': {t_epochs} epochs "
+          "queued without a host sync (only the final download waits)")
+
+    # the device's busy share over one block of the scanned tracker: the
+    # kernels' summed time (profiler) over the block's wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trk.track_block(rx.params, codes, rx.state, rx.window.re,
+                        rx.window.im, t_epochs,
+                        valid_len=rx.history + rx.block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in events)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    b5_us = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in events if "epl_correlator" in e.key)
+    if dev_us > 0:
+        print(f"profiled block of the scanned tracker [pallas]: wall "
+              f"{wall * 1e3:.3f} ms (profiler on), device kernels "
+              f"{dev_us / 1e3:.3f} ms (busy share "
+              f"{dev_us / 1e6 / wall:.4f}), B5 {b5_us / 1e3:.3f} ms, "
+              f"{launches} kernel launches ({launches / t_epochs:.1f} per "
+              "epoch)")
+    else:
+        print("profiled block of the scanned tracker: the profiler saw no "
+              "device time (busy share not measured)")
+    return {"pallas": lp, "shift": ls, "summary_pallas": sum_p,
+            "summary_shift": sum_s}
+
+
+def phase_if_capture(torch):
+    """The IF capture at full width: an int8 real file (16.368 MHz, 4.092
+    MHz IF), DC removal on, mixed and decimated 4x on the card, 24
+    satellites, 32 channels, 500 ms blocks, correlator="pallas"."""
+    import tempfile
+
+    from gnss_sdr_tpu_torch.models import (SatelliteScenario,
+                                           synthesize_real_if_int8)
+    from gnss_sdr_tpu_torch.receiver import FileSource
+
+    sats = scene_sats(SatelliteScenario)
+    n = int(IF_S * FS_IF_IN)
+    t0 = time.perf_counter()
+    raw = synthesize_real_if_int8(sats, n, FS_IF_IN, F_IF, noise_std=1.0,
+                                  scale=20.0, seed=5)
+    print(f"IF capture: {IF_S} s of int8 real samples at {FS_IF_IN:g} Hz, "
+          f"IF {F_IF:g} Hz, rendered in {time.perf_counter() - t0:.1f} s")
+    n_blocks = IF_S * 1000 // BLOCK_MS
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/capture.bin"
+        with open(path, "wb") as f:
+            f.write(raw.tobytes())
+        src = FileSource(path, FS_IF_IN, "int8_real")
+        try:
+            rx, summary, launches = _run_receiver(
+                torch, sats, None, "IF capture", correlator="pallas",
+                source=src, n_blocks=n_blocks,
+                rf_kw=dict(freq_if_hz=F_IF, output_sample_rate_hz=F_IF,
+                           enable_dc_removal=True, enable_mixing=True,
+                           decimation=IF_DECIM))
+        finally:
+            src.close()
+    assert rx.fs == FS_IF_IN / IF_DECIM and rx.f_if == 0.0
+    assert launches["epl_correlate_pallas"] == n_blocks * (BLOCK_MS + 1)
+    return launches
+
+
+def phase_fused_tail(torch):
+    """The fused receiver on 3 full blocks and a 200 ms partial one: B1
+    runs the full blocks, the scanned tracker (slice correlator) the
+    tail, whose epochs are processed."""
+    sats, sig = _scene(SCAN_S)
+    block = BLOCK_MS * 2046
+    n_full = 3
+    tail = sig[:n_full * block + 200 * 2046]
+    rx, summary, launches = _run_receiver(torch, sats, tail, "fused tail",
+                                          n_blocks=n_full + 1)
+    assert launches == {"track_block_fused_mxu": n_full,
+                        "track_block_fused_direct": 0,
+                        "epl_correlate_pallas": 0}, launches
+    ends = [int(t.global_sample[-1]) for t in rx.telemetry.all_traces()]
+    assert min(ends) >= n_full * block, ends
+    print(f"fused receiver, partial tail: {summary['blocks']} blocks, the "
+          f"tail's epochs processed (last epoch starts >= sample "
+          f"{min(ends)}, full blocks end at {n_full * block})")
 
 
 def main() -> int:
@@ -623,6 +1012,11 @@ def main() -> int:
     phase_lean_check(torch)
     dtiming = phase_timing(torch, layout="direct")
     steady = phase_steady(torch)
+    b5_abs = phase_b5_check(torch)
+    b5_timing = phase_b5_timing(torch)
+    scan = phase_scan_receiver(torch)
+    phase_if_capture(torch)
+    phase_fused_tail(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -655,6 +1049,19 @@ def main() -> int:
         "plain_ms": dtiming["plain_ms"],
         "bound_ms": dtiming["bound_ms"],
         "bound_by": dtiming["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "epl_correlate_pallas",
+        "route": "cuda",
+        "source": src + "epl_correlator.cu",
+        "replaces": "gnss_sdr_tpu/ops/pallas/epl_correlator.py:104",
+        # the slice's main path: the scanned receiver, correlator="pallas"
+        "launches": scan["pallas"]["epl_correlate_pallas"],
+        "max_abs_err": b5_abs,
+        "ms": b5_timing["ms"],
+        "plain_ms": b5_timing["plain_ms"],
+        "bound_ms": b5_timing["bound_ms"],
+        "bound_by": b5_timing["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

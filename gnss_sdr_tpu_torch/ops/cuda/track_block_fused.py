@@ -71,6 +71,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..correlator import fma as _fma
 from . import _build
 
 N_FIELDS = 128
@@ -794,12 +795,6 @@ def track_block_fused_mxu(
 # advances are fused multiply-adds, fma(step, n_t, phase) and
 # fma(dc, n_t, chip_res) - L (here exact f64 products, fmaf on the card).
 # bf16 appears nowhere in this layout.
-
-def _fma(a, b, c):
-    """a * b + c rounded once to f32 (f32 operands: the f64 product is
-    exact, so only the sum rounds before the final rounding)."""
-    return (a.double() * b.double() + c.double()).float()
-
 
 def _epoch_direct_reference(st, j, e, stream_re, stream_im, starts, reps, *,
                             k_epochs, wp, n0, fs, code_len, lock_threshold,

@@ -11,6 +11,7 @@ uint32 (both round to nearest).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 TWO_PI = 6.283185307179586
@@ -24,7 +25,23 @@ def freq_to_step(freq_hz, fs_hz: float, device=None) -> torch.Tensor:
     Only the fractional part of f/fs matters. ``torch.round`` is
     half-to-even like ``jnp.round``."""
     f = torch.as_tensor(freq_hz, dtype=torch.float32, device=device)
-    cycles = f / torch.tensor(fs_hz, dtype=torch.float32, device=f.device)
+    return cycles_to_step(
+        f / torch.tensor(fs_hz, dtype=torch.float32, device=f.device))
+
+
+def inv_f32(x: float) -> float:
+    """f32(1) / f32(x), rounded to f32, as a Python float: the factor by
+    which XLA replaces a division by the f32 constant x inside a jitted
+    graph (a torch op with a Python float scalar rounds it to f32, which
+    leaves this value exact)."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def cycles_to_step(cycles: torch.Tensor) -> torch.Tensor:
+    """uint32 cycle-fraction step (int64 tensor) from f32 cycles per
+    sample. The JAX package's jitted graphs (track_block,
+    condition_block) form the cycles as ``freq * inv_f32(fs)``, eager
+    code as ``freq / fs``; both end here."""
     frac = cycles - torch.floor(cycles)
     # a fraction that rounds up to 2**32 saturates to 2**32 - 1, as
     # XLA's float -> uint32 conversion does in the JAX package
@@ -49,9 +66,10 @@ def advance(acc_u32, step_u32, n) -> torch.Tensor:
 
 
 def to_radians(phase_u32: torch.Tensor) -> torch.Tensor:
-    """uint32 cycle fraction -> radians in [0, 2*pi)."""
-    return phase_u32.to(torch.float32) * torch.tensor(
-        TWO_PI / _SCALE, dtype=torch.float32, device=phase_u32.device)
+    """uint32 cycle fraction -> radians in [0, 2*pi). The factor enters
+    as a Python float holding its f32 value (the op rounds it to f32),
+    so nothing is copied to the device."""
+    return phase_u32.to(torch.float32) * float(np.float32(TWO_PI / _SCALE))
 
 
 def cis(phase_u32: torch.Tensor):

@@ -6,9 +6,11 @@ from .tracking import (  # noqa: F401
     EpochTelemetry,
     TrackParams,
     init_state,
+    make_code_table,
     make_sampled_code_table,
     rebase,
     start_channel,
     state_from_numpy,
+    track_block,
 )
 from .navproc import ChannelNav, NavProcessor  # noqa: F401

@@ -1,29 +1,41 @@
 """The receiver: streaming orchestration of acquisition + tracking
 (counterpart of ``gnss_sdr_tpu/receiver/pipeline.py``).
 
-  per block:  advance window -> (paced) PCPS search + handoff ->
-              fused tracking kernel (one launch) -> rebase ->
+  per block:  read + front-end conditioning -> advance window ->
+              (paced) PCPS search + handoff -> tracking -> rebase ->
               telemetry / nav / lifecycle
 
-In steady state (``run(scan_blocks=k)``) spans of k blocks run through
-the multi-block scan, the ledger on the card and one download per span;
-``span_pipeline=True`` chains the spans' ledger on the card and downloads
-each span's telemetry from a collector thread while the next span runs.
+Tracking runs one of two paths, as the JAX package chooses them: with
+``correlator="fused"`` the fused whole-block kernel (one launch per full
+block, receiver/fused_runner.py), and otherwise (the default "shift",
+"exact", "slice", "pallas") the scanned tracker (tracking.track_block,
+``epochs_per_block + 1`` epochs of torch ops on the card, "pallas" with
+one launch of kernel B5 per epoch). A partial last block (a short final
+read, zero-padded) always takes the scanned tracker with the slice
+correlator, over its valid samples only.
+
+The digital front end (IF mixing, decimation, DC removal, pulse
+blanking, AGC; ops/frontend.py) conditions each raw block on the
+receiver's device, its state carried from block to block on the card.
+
+In steady state (``run(scan_blocks=k)``, fused tracker on the mxu or
+direct layout) spans of k blocks run through the multi-block scan, the
+ledger on the card and one download per span; ``span_pipeline=True``
+chains the spans' ledger on the card and downloads each span's telemetry
+from a collector thread while the next span runs.
 
 Channel lifecycle (Idle -> Tracking -> Lost -> re-search) is a set of
 state transitions plus a host-side PRN <-> channel map.
 
-Not ported yet, and raising NotImplementedError: front-end conditioning
-(IF mix, decimation, DC removal, AGC, pulse blanking; ROADMAP A7), a
-device mesh (A14), correlators other than ``fused`` (A12), the conv
-acquisition engine and its in-scan search (A11), non-GPS signals' nav
-chains (A16) and the streaming observables / EKF outputs (A8).
+Not ported yet, and raising NotImplementedError: a device mesh (ROADMAP
+A14), the conv acquisition engine and its in-scan search (A11), non-GPS
+signals' nav chains (A16) and the streaming observables / EKF outputs
+(A8).
 """
 from __future__ import annotations
 
 import queue
 import threading
-import warnings
 from typing import Optional
 
 import numpy as np
@@ -32,6 +44,7 @@ import torch
 from ..config import ReceiverConfig
 from ..device import resolve_device
 from ..models.constellation import get_signal
+from ..ops.frontend import condition_block
 from ..utils.profiling import StageTimer
 from ..utils.telemetry import TelemetryLog
 from . import tracking as trk
@@ -53,33 +66,44 @@ class Receiver:
                 f"signal {self.spec.name!r}: only the GPS L1 C/A nav chain "
                 "is ported yet (ROADMAP A16)")
 
-        self.fs = float(source.fs_hz)
+        # digital front end: mixes out the IF and/or decimates before the
+        # window, so everything downstream runs at baseband and the
+        # (lower) output rate
+        self.fs_in = float(source.fs_hz)
         stream_if = float(cfg.f_if_hz)
-        mix = cfg.rf.enable_mixing and stream_if != 0.0
-        if (mix or cfg.rf.enable_dc_removal or cfg.rf.decimation > 1
-                or cfg.rf.pulse_blank_sigma > 0
-                or cfg.rf.enable_digital_agc):
-            raise NotImplementedError(
-                "front-end conditioning (IF mix, decimation, DC removal, "
-                "pulse blanking, AGC) is not ported yet (ROADMAP A7: "
-                "ops/frontend.py::condition_block)")
-        # downstream timing (code epochs, pseudoranges) uses the source
+        self.decim = max(1, cfg.rf.decimation)
+        self.mix = cfg.rf.enable_mixing and stream_if != 0.0
+        self.dc = cfg.rf.enable_dc_removal
+        self.blank_sigma = cfg.rf.pulse_blank_sigma
+        self.agc = cfg.rf.enable_digital_agc
+        self.conditioning = (self.mix or self.dc or self.decim > 1
+                             or self.blank_sigma > 0 or self.agc)
+        self.mix_freq = stream_if if self.mix else 0.0
+        self.fs = self.fs_in / self.decim
+        # downstream timing (code epochs, pseudoranges) uses the derived
         # rate, so a silent mismatch would corrupt every observable
         if abs(cfg.rf.output_sample_rate_hz - self.fs) > 1e-6 * self.fs:
             raise ValueError(
                 f"rf.output_sample_rate_hz={cfg.rf.output_sample_rate_hz:g}"
-                f" != source fs = {self.fs:g}")
-        self.f_if = stream_if
+                f" != source fs / decimation = {self.fs_in:g}/{self.decim}"
+                f" = {self.fs:g}")
+        self.f_if = 0.0 if self.mix else stream_if
+        # front-end state carried across blocks: the mixer's u32 phase
+        # (a host int), the DC biases and AGC gain (0-dim tensors on the
+        # device once the first block is conditioned)
+        self._fe_phase = np.uint32(0)
+        self._fe_bias_re = np.float32(0.0)
+        self._fe_bias_im = np.float32(0.0)
+        self._fe_agc_gain = np.float32(1.0)
         par = cfg.parallel
         if par.channel_axis > 1 or par.time_axis > 1:
             raise NotImplementedError(
                 "a device mesh (parallel.channel_axis / time_axis > 1) is "
                 "not ported yet (ROADMAP A14)")
-        if cfg.track.correlator != "fused":
-            raise NotImplementedError(
-                f"correlator={cfg.track.correlator!r}: only the fused "
-                "tracking kernel is ported yet (ROADMAP A12 for the "
-                "scanned correlators)")
+        if cfg.track.correlator not in trk.CORRELATORS:
+            raise ValueError(
+                f"unknown correlator {cfg.track.correlator!r}; expected "
+                f"one of {trk.CORRELATORS}")
 
         n0 = self.spec.samples_per_code(self.fs)
         self.n0 = n0
@@ -98,31 +122,36 @@ class Receiver:
         self.history = self.acq_len + 2 * n0
         self.params = trk.TrackParams.create(cfg.track, self.spec, self.fs,
                                              if_freq_hz=self.f_if)
-        self.codes_full = torch.from_numpy(trk.make_sampled_code_table(
-            self.spec, self.fs, cfg.acq.n_prn, window=self.params.window,
-        )).to(self.device)
+        if cfg.track.correlator in ("slice", "fused"):
+            table = trk.make_sampled_code_table(
+                self.spec, self.fs, cfg.acq.n_prn, window=self.params.window)
+        else:
+            table = trk.make_code_table(self.spec, cfg.acq.n_prn)
+        self.codes_full = torch.from_numpy(table).to(self.device)
         self.state = trk.init_state(cfg.track.n_channels)
         if self.device.type == "cpu":
             self.window = StreamWindow(self.history, self.block)
         else:
             self.window = DeviceStreamWindow(self.history, self.block,
                                              self.device)
-        # "auto" as the JAX package resolves it: the mxu layout and the
-        # slim wires on an accelerator, the exact direct layout and the
-        # bit-exact f32 wire on the CPU
-        layout = cfg.track.fused_layout
-        if layout == "auto":
-            layout = "direct" if self.device.type == "cpu" else "mxu"
-        wire = cfg.track.telemetry_wire
-        if wire == "auto":
-            if self.device.type == "cpu":
-                wire = "f32"
-            else:
-                wire = "slim2" if layout == "mxu" else "slim"
-        self.fused = FusedTracker(
-            self.params, cfg.track, self.spec, self.fs, self.codes_full,
-            self.epochs_per_block, self.history + self.block,
-            layout=layout, wire=wire, device=self.device)
+        self.fused = None
+        if cfg.track.correlator == "fused":
+            # "auto" as the JAX package resolves it: the mxu layout and
+            # the slim wires on an accelerator, the exact direct layout
+            # and the bit-exact f32 wire on the CPU
+            layout = cfg.track.fused_layout
+            if layout == "auto":
+                layout = "direct" if self.device.type == "cpu" else "mxu"
+            wire = cfg.track.telemetry_wire
+            if wire == "auto":
+                if self.device.type == "cpu":
+                    wire = "f32"
+                else:
+                    wire = "slim2" if layout == "mxu" else "slim"
+            self.fused = FusedTracker(
+                self.params, cfg.track, self.spec, self.fs, self.codes_full,
+                self.epochs_per_block, self.history + self.block,
+                layout=layout, wire=wire, device=self.device)
         self.scheduler = SearchScheduler(cfg.acq)
         self.telemetry = TelemetryLog(cfg.track.n_channels)
         self.nav = NavProcessor(
@@ -166,12 +195,18 @@ class Receiver:
 
     # ------------------------------------------------------------------
     def _pull_block(self):
-        """Read one raw block as a planar (re, im) pair."""
-        raw = self.source.read(self.block)
+        """Read one raw block, zero-pad a short read to a full block, and
+        run the front-end conditioning on the receiver's device (the raw
+        block uploads once; a padded block is conditioned whole, so the
+        front-end state advances through the zeros, as in the JAX
+        package). Returns ((re, im), n_valid output samples), or None at
+        end of stream."""
+        need = self.block * self.decim
+        raw = self.source.read(need)
         if raw is None:
             return None
         if isinstance(raw, tuple):
-            re, im = raw
+            re, im = (np.asarray(x, dtype=np.float32) for x in raw)
             size = int(re.shape[0])
         else:
             size = raw.size
@@ -179,28 +214,33 @@ class Receiver:
             im = np.ascontiguousarray(np.imag(raw), dtype=np.float32)
         if size == 0:
             return None
-        return (re, im), size
+        if size < need:
+            re = np.pad(re, (0, need - size))
+            im = np.pad(im, (0, need - size))
+        n_valid = -(-size // self.decim)
+        if not self.conditioning:
+            return (re, im), n_valid
+        dev = self.device
+        (re, im, self._fe_phase, self._fe_bias_re, self._fe_bias_im,
+         self._fe_agc_gain) = condition_block(
+            torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev),
+            np.float32(self.mix_freq), self._fe_phase, self._fe_bias_re,
+            self._fe_bias_im, self._fe_agc_gain, fs_hz=self.fs_in,
+            alpha=self.cfg.rf.dc_alpha, decimation=self.decim,
+            enable_dc=self.dc, enable_mix=self.mix,
+            blank_sigma=self.blank_sigma, enable_agc=self.agc)
+        if dev.type == "cpu":
+            re, im = re.numpy(), im.numpy()
+        return (re, im), n_valid
 
     def step(self) -> bool:
         """Process one block; returns False at end of stream."""
-        with self.timers.stage("ingest", self.block):
+        with self.timers.stage("ingest", self.block * self.decim):
             pulled = self._pull_block()
             if pulled is None:
                 return False
         samples, n_valid = pulled
-        if n_valid < self.block:
-            self._drop_tail(n_valid)
-            return False
         return self._process_block(samples, n_valid)
-
-    def _drop_tail(self, n_valid: int) -> None:
-        # a partial tail block would take the scanned per-epoch tracker,
-        # which is not ported yet (ROADMAP A12): the run stops at the
-        # last full block
-        warnings.warn(
-            f"end of stream: dropping a partial tail block of "
-            f"{n_valid} samples (< {self.block}); the scanned tracker "
-            "that processes it is not ported yet", stacklevel=3)
 
     def _process_block(self, samples, n_valid) -> bool:
         n_fresh = self.window.advance(samples)
@@ -216,9 +256,19 @@ class Receiver:
                 self._run_acquisition()
 
         with self.timers.stage("track", self.block):
-            self.state, telem = self.fused.run_block(
-                self.state, self.window.re, self.window.im,
-                self._codes_for_state())
+            codes = self._codes_for_state()
+            if self.fused is not None and n_valid == self.block:
+                # the fused kernel: one launch for the block's T epochs
+                self.state, telem = self.fused.run_block(
+                    self.state, self.window.re, self.window.im, codes)
+            else:
+                # the scanned tracker (+1 catch-up epoch); a fused
+                # receiver's partial last block lands here too, where
+                # "fused" selects the slice correlator
+                self.state, telem = trk.track_block(
+                    self.params, codes, self.state, self.window.re,
+                    self.window.im, self.epochs_per_block + 1,
+                    valid_len=self.history + n_valid)
 
         with self.timers.stage("nav", self.block):
             self.telemetry.append_block(telem, self.window.global_start)
@@ -262,7 +312,7 @@ class Receiver:
         stream)."""
         full, tail = [], None
         for _ in range(k):
-            with self.timers.stage("ingest", self.block):
+            with self.timers.stage("ingest", self.block * self.decim):
                 pulled = self._pull_block()
             if pulled is None:
                 break
@@ -270,7 +320,7 @@ class Receiver:
             if n_valid == self.block:
                 full.append(samples)
             else:
-                tail = n_valid
+                tail = (samples, n_valid)
                 break
         done = 0
         if len(full) == k:
@@ -279,8 +329,8 @@ class Receiver:
             for s in full:
                 if self._process_block(s, self.block):
                     done += 1
-        if tail is not None:
-            self._drop_tail(tail)
+        if tail is not None and self._process_block(*tail):
+            done += 1
         return done
 
     def _emit_span(self, telems, g0) -> None:
@@ -384,7 +434,8 @@ class Receiver:
                         or budget - done - (k if pending else 0) >= k)):
                 full = []
                 for _ in range(k):
-                    with self.timers.stage("ingest", self.block):
+                    with self.timers.stage("ingest",
+                                           self.block * self.decim):
                         pulled = self._pull_block()
                     if pulled is None:
                         eos = True
@@ -437,9 +488,6 @@ class Receiver:
             self.state = ft.absorb_led(self.state, led)
         if not stop:
             for samples, n_valid in leftovers:
-                if n_valid < self.block:
-                    self._drop_tail(n_valid)
-                    break
                 if self._process_block(samples, n_valid):
                     done += 1
                     if on_block is not None and on_block(self):
@@ -479,19 +527,22 @@ class Receiver:
         """Drive the stream; ``on_block(receiver)`` fires after every
         processed block or span, and a truthy return stops the run.
 
-        ``scan_blocks > 1`` enables the steady state: once the scheduler
-        is in steady search mode, spans of that many blocks run through
-        the multi-block scan (step_scan), one host wait per span, with
-        the paced re-search at span boundaries. Cold and warm starts keep
-        single-block steps. ``span_pipeline=True`` also chains the spans'
+        ``scan_blocks > 1`` enables the steady state of the fused tracker
+        (mxu or direct layout; other receivers run single blocks): once
+        the scheduler is in steady search mode, spans of that many blocks
+        run through the multi-block scan (step_scan), one host wait per
+        span, with the paced re-search at span boundaries. Cold and warm
+        starts keep single-block steps. ``span_pipeline=True`` also chains the spans'
         ledger on the card (_run_pipelined): span n+1 is queued before
         span n's telemetry is read, and lost-channel bookkeeping trails
         by one span.
         """
         blocks = 0
+        can_scan = (scan_blocks > 1 and self.fused is not None
+                    and self.fused.layout in ("direct", "mxu"))
         while max_blocks is None or blocks < max_blocks:
             k = 1
-            if scan_blocks > 1 and self.scheduler.mode == SearchMode.STEADY:
+            if can_scan and self.scheduler.mode == SearchMode.STEADY:
                 k = scan_blocks
                 if max_blocks is not None and max_blocks - blocks < k:
                     # a remainder shorter than a span takes single blocks

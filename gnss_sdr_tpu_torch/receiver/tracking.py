@@ -1,15 +1,30 @@
-"""Tracking data model (counterpart of the data-model half of
+"""Multi-channel DLL/PLL tracking (counterpart of
 ``gnss_sdr_tpu/receiver/tracking.py``).
 
 Channel state is a structure of arrays ``ChannelState`` [C] with an
 exact bookkeeping ledger: uint32 carrier and fractional-chip
 accumulators, an int32 integer chip index and block-relative int32
-sample offsets. The fused path re-anchors this ledger on the host every
-block (receiver/fused_runner.py), so the fields are numpy arrays here;
-the kernel's [C, 128] float32 state is built from them per block.
+sample offsets. Between blocks the ledger lives on the host as numpy
+arrays: the fused path re-anchors it every block
+(receiver/fused_runner.py), and the scanned path below uploads it once
+per block.
 
-The scanned per-epoch tracking path (``epoch_step``/``track_block``) is
-not ported yet (ROADMAP A12).
+The scanned path (``track_block``): ``n_epochs`` epochs of
+``epoch_step`` over one resident sample block, sequential in time,
+batched over channels, as torch ops on the block's device. Each epoch
+gathers the channels' windows, correlates them (``params.correlator``:
+"shift", "exact", "slice"/"fused" as torch ops, "pallas" through the
+CUDA kernel B5), runs the discriminators, lock detector and loop
+filters, and advances the exact ledger; lock and loss transitions are
+masked selects. Nothing in the epoch loop waits for the card: the state
+goes up in one packed copy and comes back, with the [T, C] telemetry,
+in one copy at the end.
+
+Arithmetic as the JAX package's jitted graph computes it on the CPU
+(checked bit for bit against it on the integer ledger): a division by
+the constant fs is a multiplication by ``inv_f32(fs)``, and XLA fuses
+the carrier-aided code rate, the chip ramp and the chip estimate into
+fused multiply-adds.
 """
 from __future__ import annotations
 
@@ -17,11 +32,22 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..config import TrackConfig
 from ..models.constellation import SignalSpec
+from ..ops import nco
+from ..ops.correlator import (
+    epl_correlate_one,
+    epl_correlate_one_shift,
+    epl_correlate_one_slice,
+    f32_to_i32,
+    fma,
+)
+from ..ops.cuda.epl_correlator import epl_correlate_pallas
 
 _U32_SCALE = 4294967296.0
+CORRELATORS = ("shift", "exact", "slice", "fused", "pallas")
 
 
 class ChannelState(NamedTuple):
@@ -189,6 +215,20 @@ def make_sampled_code_table(spec: SignalSpec, fs_hz: float,
     return np.stack(rows)
 
 
+def make_code_table(spec: SignalSpec, n_prn: int | None = None) -> np.ndarray:
+    """[n_prn, L * oversample] float32 replica table of the gather
+    correlators ("shift", "exact", "pallas"). For BOC signals the
+    subcarrier is baked in at half-chip resolution, so one gather covers
+    code x subcarrier."""
+    table = spec.code_table()[: (n_prn or spec.n_prn)].astype(np.float32)
+    if spec.boc_cycles_per_chip:
+        os = 2 * spec.boc_cycles_per_chip
+        rep = np.repeat(table, os, axis=1)
+        sub = np.tile(np.array([1.0, -1.0], np.float32), rep.shape[1] // 2)
+        return rep * sub[None, :]
+    return table
+
+
 def init_state(n_channels: int) -> ChannelState:
     z_f = np.zeros(n_channels, np.float32)
     z_i = np.zeros(n_channels, np.int32)
@@ -230,3 +270,275 @@ def rebase(state: ChannelState, advance: int) -> ChannelState:
     ``advance`` samples."""
     return state._replace(
         offset=(np.asarray(state.offset) - advance).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the scanned path
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+_TELEM_BOOL = ("processed", "locked", "lost_event")
+_TELEM_INT = ("start_offset", "epoch_index")
+
+
+def _pack_state(state: ChannelState) -> np.ndarray:
+    """[13, C] int32: each ledger field's bits (bool as 0/1), the one
+    array uploaded per block."""
+    rows = []
+    for f in ChannelState._fields:
+        a = np.asarray(getattr(state, f), dtype=_FIELD_DTYPES[f])
+        rows.append(a.astype(np.int32) if a.dtype == np.bool_
+                    else a.view(np.int32))
+    return np.stack(rows)
+
+
+def _device_state(packed: torch.Tensor) -> ChannelState:
+    """The packed ledger as tensors: u32 accumulators as masked int64
+    (ops/nco.py), the other integers int32, flags bool."""
+    fields = {}
+    for k, f in enumerate(ChannelState._fields):
+        row, dt = packed[k], _FIELD_DTYPES[f]
+        if dt is np.float32:
+            fields[f] = row.view(torch.float32)
+        elif dt is np.uint32:
+            fields[f] = row.to(torch.int64) & _MASK32
+        elif dt is np.bool_:
+            fields[f] = row != 0
+        else:
+            fields[f] = row
+    return ChannelState(**fields)
+
+
+def _bits32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits of a field: f32 reinterpreted, flags 0/1, integers
+    (u32 in int64 included) wrapped to int32."""
+    if x.dtype == torch.float32:
+        return x.contiguous().view(torch.int32)
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    x = x.to(torch.int64)
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def epoch_step(params: TrackParams, codes: torch.Tensor,
+               state: ChannelState, block_re: torch.Tensor,
+               block_im: torch.Tensor, limit: int
+               ) -> tuple[ChannelState, EpochTelemetry]:
+    """One tracking epoch for all channels (masked where impossible), on
+    ``state``'s tensors (_device_state); returns the new state and [C]
+    telemetry tensors. ``limit``: the valid samples in the block."""
+    p = params
+    block_len = block_re.shape[0]
+    inv_fs = nco.inv_f32(p.fs_hz)
+
+    # carrier-aided effective code rate: Doppler scales the chip rate by
+    # code_rate / carrier
+    if p.carrier_aiding:
+        code_rate_eff = fma(state.carr_freq - p.if_freq_hz,
+                            float(np.float32(p.aiding_scale)),
+                            state.code_rate)
+    else:
+        code_rate_eff = state.code_rate
+
+    # true epoch length from the current code rate (do_tracking.rs:192-193)
+    fs_l = float(np.float32(p.fs_hz) * np.float32(p.code_length))
+    n_t_f = torch.round(torch.full_like(code_rate_eff, fs_l)
+                        / torch.clamp(code_rate_eff, min=1.0))
+    # an idle channel's zero rate gives ~4e9, saturated as XLA does: its
+    # (unused) sums are then over the whole window
+    n_t = f32_to_i32(n_t_f)
+    # the FULL static window must fit: deferred epochs are recovered by
+    # the +1 catch-up epoch of the next block
+    can = (state.active & (state.offset >= 0)
+           & (state.offset + p.window <= limit))
+    start = torch.clamp(state.offset, 0, block_len - p.window).to(torch.int64)
+    idx = start[:, None] + torch.arange(p.window, device=block_re.device)
+    win_re, win_im = block_re[idx], block_im[idx]
+
+    carr_step = nco.cycles_to_step(state.carr_freq * inv_fs)
+    chips_per_sample = code_rate_eff * inv_fs
+    chip_frac_f = state.chip_frac_u32.to(torch.float32) * (1.0 / _U32_SCALE)
+    args = (win_re, win_im, n_t, state.carr_acc, carr_step, state.chip_int,
+            chip_frac_f, chips_per_sample, codes)
+    if p.correlator in ("slice", "fused"):
+        sums = epl_correlate_one_slice(*args, shift=p.el_shift,
+                                       n0=p.samples_per_code_nominal)
+    elif p.correlator == "pallas":
+        sums = epl_correlate_pallas(*args, shift=p.el_shift,
+                                    oversample=p.oversample,
+                                    interp=p.interp_code)
+    elif p.correlator == "shift":
+        sums = epl_correlate_one_shift(*args, shift=p.el_shift,
+                                       oversample=p.oversample,
+                                       interp=p.interp_code)
+    else:
+        sums = epl_correlate_one(*args, el_space=p.el_space,
+                                 oversample=p.oversample)
+
+    power = sums.i_p * sums.i_p + sums.q_p * sums.q_p
+    if p.lock_mode == "costas":
+        # scale-invariant normalized lock metric (I^2-Q^2)/(I^2+Q^2),
+        # EMA-smoothed
+        nbd = sums.i_p * sums.i_p - sums.q_p * sums.q_p
+        metric = nbd / torch.clamp(power, min=1e-12)
+        new_lock_ema = torch.where(
+            can, (1.0 - 0.1) * state.lock_ema + 0.1 * metric,
+            state.lock_ema)
+        locked = new_lock_ema > p.costas_lock_threshold
+    else:
+        new_lock_ema = state.lock_ema
+        locked = power > p.lock_threshold
+
+    # PLL: Costas atan discriminator (do_tracking.rs:280-286)
+    safe_ip = torch.where(torch.abs(sums.i_p) < 1e-12, 1e-12, sums.i_p)
+    pll_err = torch.atan(sums.q_p / safe_ip) * (1.0 / (2.0 * np.pi))
+    carr_nco = pll_err * (p.dt / p.pll_tau1) + (
+        pll_err - state.carr_err) * (p.pll_tau2 / p.pll_tau1)
+    new_carr_freq = state.carr_freq + carr_nco
+
+    # DLL: normalized early-late envelope (do_tracking.rs:288-301)
+    pow_e = torch.sqrt(sums.i_e * sums.i_e + sums.q_e * sums.q_e)
+    pow_l = torch.sqrt(sums.i_l * sums.i_l + sums.q_l * sums.q_l)
+    el_sum = pow_e + pow_l
+    dll_err = torch.where(
+        el_sum > 0.0, (pow_e - pow_l) / torch.clamp(el_sum, min=1e-12), 0.0)
+    code_nco = dll_err * (p.dt / p.dll_tau1) + (
+        dll_err - state.code_err) * (p.dll_tau2 / p.dll_tau1)
+    new_code_rate = state.code_rate + code_nco
+
+    # loop filters engage only on locked epochs (do_tracking.rs:188-191)
+    upd = can & locked
+    new_carr_freq = torch.where(upd, new_carr_freq, state.carr_freq)
+    new_carr_err = torch.where(upd, pll_err, state.carr_err)
+    new_code_rate = torch.where(upd, new_code_rate, state.code_rate)
+    new_code_err = torch.where(upd, dll_err, state.code_err)
+
+    # exact phase advance over n_t samples (every processed epoch)
+    new_carr_acc = nco.advance(state.carr_acc, carr_step, n_t)
+    code_step = nco.cycles_to_step(chips_per_sample)
+    new_frac = (state.chip_frac_u32
+                + n_t.to(torch.int64) * code_step) & _MASK32
+    new_frac_f = new_frac.to(torch.float32) * (1.0 / _U32_SCALE)
+    est_total = fma(n_t_f, chips_per_sample, chip_frac_f)
+    carry = torch.round(est_total - new_frac_f).to(torch.int32)
+    raw_chip = state.chip_int + carry        # < 2L: two select-wraps
+    new_chip_int = torch.where(raw_chip >= p.code_length,
+                               raw_chip - p.code_length, raw_chip)
+    new_chip_int = torch.where(new_chip_int >= p.code_length,
+                               new_chip_int - p.code_length, new_chip_int)
+
+    # lock / lost bookkeeping (do_tracking.rs:183-209)
+    new_lost = torch.where(locked, 0, state.lost_count + 1)
+    lost_event = can & (new_lost >= p.max_lost_epochs)
+    survives = can & ~lost_event
+
+    def sel(new, old):
+        return torch.where(can, new, old)
+
+    def live(new, old):
+        return torch.where(survives, new,
+                           torch.where(lost_event, 0.0, old))
+
+    new_state = ChannelState(
+        active=state.active & ~lost_event,
+        prn_idx=torch.where(lost_event, -1, state.prn_idx),
+        offset=sel(state.offset + n_t, state.offset),
+        epochs=sel(state.epochs + 1, state.epochs),
+        lost_count=torch.where(lost_event, 0,
+                               sel(new_lost, state.lost_count)),
+        carr_freq=live(new_carr_freq, state.carr_freq),
+        carr_acc=sel(new_carr_acc, state.carr_acc),
+        carr_err=live(new_carr_err, state.carr_err),
+        code_rate=live(new_code_rate, state.code_rate),
+        chip_int=sel(new_chip_int, state.chip_int),
+        chip_frac_u32=sel(new_frac, state.chip_frac_u32),
+        code_err=live(new_code_err, state.code_err),
+        lock_ema=torch.where(lost_event, 0.0, new_lock_ema),
+    )
+    telem = EpochTelemetry(
+        processed=can,
+        i_e=sums.i_e, q_e=sums.q_e, i_p=sums.i_p, q_p=sums.q_p,
+        i_l=sums.i_l, q_l=sums.q_l,
+        power=power, locked=upd, lost_event=lost_event,
+        pll_err=pll_err, dll_err=dll_err,
+        carr_freq=new_state.carr_freq, code_rate=new_state.code_rate,
+        start_offset=state.offset, epoch_index=state.epochs,
+        chip_phase=state.chip_int.to(torch.float32) + chip_frac_f,
+    )
+    return new_state, telem
+
+
+def track_block_device(params: TrackParams, codes, state: ChannelState,
+                       block_re, block_im, n_epochs: int,
+                       valid_len: int | None = None) -> torch.Tensor:
+    """``n_epochs`` epochs over one resident sample block, as torch ops
+    on the block's device, from the host ledger ``state``. Returns ONE
+    int32 tensor on that device: the end state's [13, C] field bits,
+    then the [17, T, C] telemetry bits (``unpack_block`` reads it). The
+    state goes up in one copy from pinned memory, and nothing here waits
+    for the card."""
+    if params.correlator not in CORRELATORS:
+        raise ValueError(f"unknown correlator {params.correlator!r}; "
+                         f"expected one of {CORRELATORS}")
+    block_re = torch.as_tensor(block_re, dtype=torch.float32)
+    block_im = torch.as_tensor(block_im, dtype=torch.float32,
+                               device=block_re.device)
+    dev = block_re.device
+    codes = torch.as_tensor(codes, dtype=torch.float32).to(dev).contiguous()
+    packed = torch.from_numpy(_pack_state(state))
+    if dev.type == "cuda":
+        packed = packed.pin_memory().to(dev, non_blocking=True)
+    st = _device_state(packed)
+    limit = block_re.shape[0]
+    if valid_len is not None:
+        limit = min(limit, int(valid_len))
+    rows = []
+    for _ in range(n_epochs):
+        st, tl = epoch_step(params, codes, st, block_re, block_im, limit)
+        rows.append(tl)
+    state_bits = torch.stack([_bits32(x) for x in st])
+    telem_bits = torch.stack([
+        _bits32(torch.stack([getattr(r, f) for r in rows]))
+        for f in EpochTelemetry._fields])
+    return torch.cat([state_bits.reshape(-1), telem_bits.reshape(-1)])
+
+
+def unpack_block(buf, n_channels: int,
+                 n_epochs: int) -> tuple[ChannelState, EpochTelemetry]:
+    """The host (ChannelState, [T, C] EpochTelemetry) of a
+    track_block_device result (a tensor, downloaded here, or its numpy
+    copy)."""
+    if isinstance(buf, torch.Tensor):
+        buf = buf.cpu().numpy()
+    n_state = len(ChannelState._fields) * n_channels
+    st_rows = buf[:n_state].reshape(-1, n_channels)
+    state = ChannelState(**{
+        f: (st_rows[k] != 0 if _FIELD_DTYPES[f] is np.bool_
+            else st_rows[k].view(_FIELD_DTYPES[f])).copy()
+        for k, f in enumerate(ChannelState._fields)})
+    tl_rows = buf[n_state:].reshape(-1, n_epochs, n_channels)
+    fields = {}
+    for k, f in enumerate(EpochTelemetry._fields):
+        x = tl_rows[k]
+        if f in _TELEM_BOOL:
+            fields[f] = x != 0
+        elif f in _TELEM_INT:
+            fields[f] = x.copy()
+        else:
+            fields[f] = x.view(np.float32).copy()
+    return state, EpochTelemetry(**fields)
+
+
+def track_block(params: TrackParams, codes, state: ChannelState, block_re,
+                block_im, n_epochs: int, valid_len: int | None = None
+                ) -> tuple[ChannelState, EpochTelemetry]:
+    """Run ``n_epochs`` tracking epochs over one resident sample block
+    (track_block_device) and download the result in one copy. Returns
+    the host ledger and [T, C] telemetry. The caller picks ``n_epochs =
+    block_ms / code_period_ms + 1``: the +1 lets a channel that fell
+    behind catch up one epoch per block. ``valid_len`` (a Python int)
+    bounds processing when the block's tail is zero padding (a short
+    final read)."""
+    buf = track_block_device(params, codes, state, block_re, block_im,
+                             n_epochs, valid_len)
+    return unpack_block(buf, np.asarray(state.active).shape[0], n_epochs)

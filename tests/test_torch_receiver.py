@@ -22,7 +22,7 @@ from gnss_sdr_tpu.receiver import Receiver as JReceiver  # noqa: E402
 from gnss_sdr_tpu.receiver import SyntheticSource as JSyntheticSource  # noqa: E402
 
 from gnss_sdr_tpu_torch import (  # noqa: E402
-    AcqConfig, ReceiverConfig, RfConfig, TrackConfig)
+    AcqConfig, ParallelConfig, ReceiverConfig, RfConfig, TrackConfig)
 from gnss_sdr_tpu_torch.models import SatelliteScenario  # noqa: E402
 from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused  # noqa: E402
 from gnss_sdr_tpu_torch.receiver import (  # noqa: E402
@@ -190,22 +190,17 @@ def test_receiver_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(track_kw=dict(correlator="shift")), "A12"),
-    (dict(rf_decim=2), "A7"),
+    (dict(acq_kw=dict(engine="conv")), "A11"),
+    (dict(par_kw=dict(channel_axis=2)), "A14"),
     (dict(track_kw=dict(correlator="fused", fused_layout="seg")), "B4"),
 ])
 def test_unported_receiver_options_raise(kw, item):
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,
                           total_samples=int(0.1 * FS))
-    if "track_kw" in kw:
-        cfg = ReceiverConfig(
-            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
-            track=TrackConfig(n_channels=4, **kw["track_kw"]), block_ms=20)
-    elif "rf_decim" in kw:
-        cfg = ReceiverConfig(
-            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS / 2,
-                        decimation=2),
-            track=TrackConfig(n_channels=4, correlator="fused"),
-            block_ms=20)
+    cfg = ReceiverConfig(
+        rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+        acq=AcqConfig(**kw.get("acq_kw", {})),
+        track=TrackConfig(n_channels=4, **kw.get("track_kw", {})),
+        parallel=ParallelConfig(**kw.get("par_kw", {})), block_ms=20)
     with pytest.raises(NotImplementedError, match=item):
         Receiver(cfg, src, device="cpu")
