@@ -52,7 +52,22 @@ GPU:
      correlator="pallas": every PRN tracked within 40 Hz;
  14. the fused receiver on a stream that ends in a partial block: the
      full blocks through B1, the tail through the scanned tracker;
- 15. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 15. the per-epoch kernels against their plain versions at full width
+     (32 channels, 24 tracking and 8 idle), open loop (pieces of 20-25
+     epochs, each from the kernel's own state), power, Costas and
+     forced death: B4a (windows, T=500, wp=2176), B4b (seg, T=125,
+     wp=2432) with B4c's segments (equal to its plain version bit for
+     bit), B6 (resident, T=500, wp=4352, chunks of 5) and B6 against
+     B4a on the same stream, kernel to kernel; then B6 once through its
+     entry point;
+ 16. the per-epoch kernels' times per block, their plain versions' and
+     their bounds, as 4 (B4c beside one PyTorch indexing call);
+ 17. the receiver on the 24-satellite scene, 5 s, through the per-epoch
+     layouts: 125 ms blocks (an odd epoch count: mxu and direct fall to
+     seg, B4b and B4c once per block), and 500 ms blocks on the windows
+     layout (B4a once per block) against the direct layout; every PRN
+     tracked within 40 Hz;
+ 18. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -95,6 +110,16 @@ B5_TOL = 1e-4                       # of each sum's column max
 DIRECT_S = 5                        # ... and the direct run
 STEADY_SPAN = 8                     # blocks per span, mxu runs
 DIRECT_SPAN = 4                     # ... and the direct run
+# the per-epoch layouts (phases 15-17)
+WINDOWS_BLOCK_MS = 500              # B4a and B6: T = 500
+SEG_BLOCK_MS = 125                  # B4b + B4c: T = 125, odd: seg
+SEG_S = 5                           # the per-epoch receiver runs
+RESIDENT_K = 8                      # B6's k_epochs: chunks of 5 at T = 500
+EPOCH_PIECE = 20                    # open-loop piece (seg: 25)
+# B6 against B4a on the same stream (tests/test_fused_kernel.py:146-149):
+# cols 0-6 within 1e-4 of their max, the carrier rate within 0.05 Hz,
+# state cols 0-8 within 0.1
+RESIDENT_TOL = (1e-4, 0.05, 0.1)
 
 # telemetry column groups: exact flags and integers; values that carry
 # the bf16 rounding of the mixed window (a sin/cos ulp apart flips a
@@ -163,6 +188,13 @@ def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
     24-satellite aligned ledger (channels started on each satellite's
     code boundary and true Doppler) plus idle channels, through the
     FusedTracker's own host re-anchor."""
+    ft, args, kw, _ = _full_width(torch, device, cfg_kw, n_channels,
+                                  block_ms, layout)
+    return ft, args, kw
+
+
+def _full_width(torch, device, cfg_kw, n_channels, block_ms, layout):
+    """full_width_inputs, and the channels' code rows on the card."""
     from gnss_sdr_tpu_torch.config import AcqConfig, TrackConfig
     from gnss_sdr_tpu_torch.models import GPS_L1CA, SatelliteScenario, synthesize
     from gnss_sdr_tpu_torch.receiver import tracking as trk
@@ -196,7 +228,7 @@ def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
     anc = ft.anchor_block(st)
     args, kw = ft.kernel_args(anc, np.real(sig).astype(np.float32),
                               np.imag(sig).astype(np.float32), rows)
-    return ft, args, kw
+    return ft, args, kw, rows
 
 
 def compare(tk, sk, tr, sr):
@@ -321,27 +353,21 @@ def phase_kernel_check(torch):
     return max_abs
 
 
-def phase_timing(torch, layout="mxu"):
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
-
-    ft, args, kw = full_width_inputs(torch, "cuda", {}, layout=layout)
+def _timed_turns(torch, kernel, plain, plain_passes=PLAIN_PASSES,
+                 kernel_passes=KERNEL_PASSES):
+    """Times (ms) of ``kernel`` and ``plain`` (no-argument callables) in
+    turns: plain, kernel, kernel, plain, the L2 flushed before each call.
+    The kernel's launches are all queued before one synchronise, with
+    events around each (the host prepares the next launch while the card
+    runs this one, so each interval holds the kernel and not the host's
+    work); the plain version runs one call at a time, its interval
+    holding its many small kernels and the host work between them.
+    ``plain_passes`` counts both of the plain version's turns together.
+    Returns (kernel times, plain times, synced kernel times: the launch
+    with the wrapper's host work before it, for comparison)."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    kernel_fn, plain_fn = {
-        "mxu": (fused.track_block_fused_mxu,
-                fused.track_block_fused_mxu_reference),
-        "direct": (fused.track_block_fused_direct,
-                   fused.track_block_fused_direct_reference)}[layout]
-
-    def kernel():
-        return kernel_fn(*args, **kw)
-
-    def plain():
-        return plain_fn(*args, **kw)
 
     def time_kernel(passes):
-        # events around each launch, all queued before one synchronise:
-        # the host prepares the next launch while the card runs this
-        # one, so each interval holds the kernel and not the host's work
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in range(passes)]
@@ -354,8 +380,6 @@ def phase_timing(torch, layout="mxu"):
         return [start.elapsed_time(end) for start, end in events]
 
     def time_synced(fn, passes):
-        # one call at a time: the interval also holds the host's work
-        # between the events (the whole of it for the plain version)
         times = []
         for _ in range(passes):
             flush.zero_()
@@ -372,38 +396,58 @@ def phase_timing(torch, layout="mxu"):
         kernel()
     plain()
     torch.cuda.synchronize()
-    # in turns: plain, kernel, kernel, plain
-    p1 = time_synced(plain, PLAIN_PASSES)
-    k1 = time_kernel(KERNEL_PASSES)
-    k2 = time_kernel(KERNEL_PASSES)
-    p2 = time_synced(plain, PLAIN_PASSES)
-    ks, ps = k1 + k2, p1 + p2
-    # the launch with the wrapper's host work before it, for comparison
-    k_sync = time_synced(kernel, KERNEL_PASSES)
+    p1 = time_synced(plain, (plain_passes + 1) // 2)
+    k1 = time_kernel(kernel_passes)
+    k2 = time_kernel(kernel_passes)
+    p2 = time_synced(plain, plain_passes // 2)
+    return k1 + k2, p1 + p2, time_synced(kernel, kernel_passes)
+
+
+def _bound(n_bytes, f32_ops, bf16_ops=0.0):
+    """(bound ms, "bytes" or "operations"): the bytes over 3.35 TB/s
+    against the operations over their peak rates."""
+    t_bytes = n_bytes / H100_BYTES_S * 1e3
+    t_ops = max(bf16_ops / H100_BF16_FLOPS, f32_ops / H100_F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def phase_timing(torch, layout="mxu"):
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    ft, args, kw = full_width_inputs(torch, "cuda", {}, layout=layout)
+    kernel_fn, plain_fn = {
+        "mxu": (fused.track_block_fused_mxu,
+                fused.track_block_fused_mxu_reference),
+        "direct": (fused.track_block_fused_direct,
+                   fused.track_block_fused_direct_reference)}[layout]
+    ks, ps, k_sync = _timed_turns(torch, lambda: kernel_fn(*args, **kw),
+                                  lambda: plain_fn(*args, **kw),
+                                  plain_passes=2 * PLAIN_PASSES)
 
     # the least time for the same work, from this run's inputs and what
     # its data needs: only the lanes inside each processed epoch's mask
     # (n_t of them, telemetry cols 12 and 16) are mixed and correlated
-    telem, st = kernel()
+    telem, st = kernel_fn(*args, **kw)
     r_rows = args[3].shape[1]
     lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
-    n_bytes = sum(x.numel() * x.element_size() for x in args) \
-        + telem.numel() * telem.element_size() \
-        + st.numel() * st.element_size()
+    n_bytes = _nbytes(*args, telem, st)
     if layout == "mxu":
         bf16_ops = 2.0 * 2 * r_rows * lanes  # re and im rows x R: mul + add
         f32_ops = MIX_OPS_PER_LANE * lanes
     else:
         bf16_ops = 0.0
         f32_ops = DIRECT_OPS_PER_LANE * lanes
-    t_bytes = n_bytes / H100_BYTES_S * 1e3
-    t_ops = max(bf16_ops / H100_BF16_FLOPS, f32_ops / H100_F32_FLOPS) * 1e3
+    bound, bound_by = _bound(n_bytes, f32_ops, bf16_ops)
     res = dict(
         ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
         plain_ms=statistics.median(ps), plain_min=min(ps),
         plain_max=max(ps), ms_synced=statistics.median(k_sync),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=bound, bound_by=bound_by,
         bytes=n_bytes, mixed_lanes=lanes, bf16_ops=bf16_ops,
         f32_ops=f32_ops)
     print(f"timing [{layout}] (ms per 500 ms block, 32 ch): " + json.dumps(
@@ -521,25 +565,39 @@ def _scene(seconds):
 
 def _launch_counts():
     from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     return {"track_block_fused_mxu": fused.launch_count,
             "track_block_fused_direct": fused.direct_launch_count,
-            "epl_correlate_pallas": b5.launch_count}
+            "epl_correlate_pallas": b5.launch_count,
+            "track_block_fused": ep.windows_launch_count,
+            "track_block_fused_seg": ep.seg_launch_count,
+            "gather_segments": ep.gather_launch_count,
+            "track_block_fused_resident": ep.resident_launch_count}
 
 
 def _reset_launch_counts():
     from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     fused.reset_launch_count()
+    ep.reset_launch_count()
     b5.reset_launch_count()
+
+
+def _expect_launches(launches, **counts):
+    """Each kernel's launches equal ``counts`` (0 where not named)."""
+    want = {k: counts.pop(k, 0) for k in launches}
+    assert not counts, f"unknown kernels {sorted(counts)}"
+    assert launches == want, (launches, want)
 
 
 def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
                   span_pipeline=False, on_block=None, device="cuda",
                   correlator="fused", source=None, rf_kw=None,
-                  n_blocks=None):
+                  n_blocks=None, block_ms=BLOCK_MS):
     """One receiver run from a cold start on ``sig`` (or ``source``):
     checks every PRN tracked within 40 Hz and all blocks processed;
     prints its real-time factor and stage shares. The launch counts are
@@ -550,7 +608,7 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
 
     if n_blocks is None:
-        n_blocks = sig.size // (BLOCK_MS * 2046)
+        n_blocks = sig.size // (block_ms * 2046)
     rf = {"freq_if_hz": 0.0, "output_sample_rate_hz": FS, **(rf_kw or {})}
     rx = Receiver(
         ReceiverConfig(
@@ -558,7 +616,7 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
             acq=AcqConfig(),
             track=TrackConfig(n_channels=N_CHANNELS, correlator=correlator,
                               fused_layout=layout),
-            block_ms=BLOCK_MS),
+            block_ms=block_ms),
         source if source is not None else ArraySource(sig, FS),
         device=device)
     assert rx.device.type == device
@@ -575,12 +633,13 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
             for c in summary["channels"]}
     timing = summary["stage_timing"]
     total = sum(v["total_s"] for v in timing.values())
-    signal_s = (n_blocks * BLOCK_MS / 1000.0 if sig is None
+    signal_s = (n_blocks * block_ms / 1000.0 if sig is None
                 else sig.size / FS)
     path = (f"layout {rx.fused.layout}, wire {rx.fused.wire}"
             if rx.fused is not None else "scanned tracker")
     print(f"receiver [{label}: correlator {correlator}, {path}, "
-          f"scan_blocks {scan_blocks}, span_pipeline {span_pipeline}]: "
+          f"block_ms {block_ms}, scan_blocks {scan_blocks}, "
+          f"span_pipeline {span_pipeline}]: "
           f"{signal_s:.1f} s of signal in {wall:.3f} s wall, real-time "
           f"factor {signal_s / wall:.2f}x; launches {json.dumps(launches)}; "
           f"track calls {timing['track']['calls']}")
@@ -643,13 +702,9 @@ def phase_steady(torch):
     _, sum_c, lc = _run_receiver(torch, sats, sig_c, "c", layout="direct",
                                  scan_blocks=DIRECT_SPAN)
     assert (rx_a.fused.layout, rx_a.fused.wire) == ("mxu", "slim2")
-    assert la == {"track_block_fused_mxu": n_blocks,
-                  "track_block_fused_direct": 0,
-                  "epl_correlate_pallas": 0}, la
+    _expect_launches(la, track_block_fused_mxu=n_blocks)
     assert lb == la, lb
-    assert lc == {"track_block_fused_mxu": 0,
-                  "track_block_fused_direct": n_direct,
-                  "epl_correlate_pallas": 0}, lc
+    _expect_launches(lc, track_block_fused_direct=n_direct)
     for s, n in ((sum_a, n_blocks), (sum_b, n_blocks), (sum_c, n_direct)):
         assert s["stage_timing"]["track"]["calls"] < n, s["stage_timing"]
     ch_1 = {c["prn"]: c for c in single["channels"]}
@@ -874,8 +929,7 @@ def phase_scan_receiver(torch):
     per_block = n_blocks * (BLOCK_MS + 1)
     rx_p, sum_p, lp = _run_receiver(torch, sats, sig, "scan",
                                     correlator="pallas")
-    assert lp == {"track_block_fused_mxu": 0, "track_block_fused_direct": 0,
-                  "epl_correlate_pallas": per_block}, lp
+    _expect_launches(lp, epl_correlate_pallas=per_block)
     _, sum_s, ls = _run_receiver(torch, sats, sig, "scan",
                                  correlator="shift")
     assert not any(ls.values()), ls
@@ -984,14 +1038,326 @@ def phase_fused_tail(torch):
     tail = sig[:n_full * block + 200 * 2046]
     rx, summary, launches = _run_receiver(torch, sats, tail, "fused tail",
                                           n_blocks=n_full + 1)
-    assert launches == {"track_block_fused_mxu": n_full,
-                        "track_block_fused_direct": 0,
-                        "epl_correlate_pallas": 0}, launches
+    _expect_launches(launches, track_block_fused_mxu=n_full)
     ends = [int(t.global_sample[-1]) for t in rx.telemetry.all_traces()]
     assert min(ends) >= n_full * block, ends
     print(f"fused receiver, partial tail: {summary['blocks']} blocks, the "
           f"tail's epochs processed (last epoch starts >= sample "
           f"{min(ends)}, full blocks end at {n_full * block})")
+
+
+# ---------------------------------------------------------------------------
+# the per-epoch layouts: B4a (windows), B4b (seg) fed by B4c, B6 (resident)
+# ---------------------------------------------------------------------------
+
+def epoch_inputs(torch, feed, cfg_kw, device="cuda", block_ms=None):
+    """Full-width inputs of one per-epoch kernel through FusedTracker's
+    own re-anchor (the 24-satellite ledger of full_width_inputs, 8 idle
+    channels): "windows" (B4a, 500 ms blocks, the windows cut by
+    slice_windows), "seg" (B4b, 125 ms blocks, the segments made by B4c's
+    plain version) or "resident" (B6 on the windows run's stream, the
+    channels' offsets in state col 9, replicas from
+    build_replicas_shared). Returns a dict: "args" and "kw" of the
+    kernel, "ft"; for seg "gather" (B4c's args and kw); for resident
+    "windows" (B4a's args and kw on the same stream)."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    if block_ms is None:
+        block_ms = SEG_BLOCK_MS if feed == "seg" else WINDOWS_BLOCK_MS
+    ft, (sre, sim, starts, reps, mat), kw, rows = _full_width(
+        torch, device, cfg_kw, N_CHANNELS, block_ms,
+        "seg" if feed == "seg" else "windows")
+    host = kw.pop("starts_host")
+    if feed == "seg":
+        gather = ((sre, sim, starts, ft.l_seg), dict(starts_host=host))
+        seg_re, seg_im = fused.gather_segments_reference(*gather[0],
+                                                         **gather[1])
+        return dict(ft=ft, args=(seg_re, seg_im, reps, mat), kw=kw,
+                    gather=gather)
+    wre, wim = fused.slice_windows(sre, sim, host, ft.t_epochs, ft.n0,
+                                   ft.wp, ft.el_pad)
+    out = dict(ft=ft, args=(wre, wim, reps, mat), kw=kw)
+    if feed == "windows":
+        return out
+    # B6: one double-length window per epoch (+256: the alignment residue)
+    n0, c = ft.n0, mat.shape[0]
+    wp = ((2 * n0 + 256 + 127) // 128) * 128
+    need = 3 * n0 + wp + 2 * ft.el_pad
+    codes4x = rows[:, :n0].repeat(1, -(-need // n0))[:, :need].contiguous()
+    # every channel starts on a code boundary: chip phase 0, anchor 0 (the
+    # windows run's frac0 is 0 too)
+    cps = float(np.float32(1.023e6) * (np.float32(1.0) / np.float32(FS)))
+    reps_sh = fused.build_replicas_shared(
+        codes4x, torch.zeros(c, device=device),
+        torch.full((c,), cps, device=device), host, ft.params.el_shift,
+        n0, wp, n_drift=reps.shape[1]).contiguous()
+    st = mat.clone()
+    st[:, 9] = torch.from_numpy(host.astype(np.float32)).to(device)
+    return dict(ft=ft, args=(sre, sim, reps_sh, st),
+                kw=dict(kw, t_epochs=ft.t_epochs, k_epochs=RESIDENT_K, wp=wp),
+                windows=(out["args"], out["kw"]))
+
+
+def _epoch_fns(feed):
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    return {"windows": (fused.track_block_fused,
+                        fused.track_block_fused_reference),
+            "seg": (fused.track_block_fused_seg,
+                    fused.track_block_fused_seg_reference),
+            "resident": (fused.track_block_fused_resident,
+                         fused.track_block_fused_resident_reference)}[feed]
+
+
+def epoch_open_loop(torch, feed, args, kw, piece=EPOCH_PIECE):
+    """A per-epoch kernel against its plain version, open loop: the
+    kernel runs the block once, and once more for each prefix that ends
+    a piece of ``piece`` epochs, to give its state there; from each such
+    state the plain version runs the next piece, held to the kernel's
+    telemetry and end state (``compare``). Returns (kernel telemetry,
+    kernel state, the largest margins over the pieces)."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    kernel, plain = _epoch_fns(feed)
+    if feed == "windows":
+        t_all = args[0].shape[0]
+    else:
+        t_all = kw["t_epochs"]
+    extra = {}
+    if feed == "resident":
+        # the block's chunk, so every prefix and piece keeps its lanes
+        extra = dict(k_epochs=fused.resident_chunk(t_all, kw["k_epochs"]))
+        assert piece % extra["k_epochs"] == 0
+    tk, sk = kernel(*args, **kw)
+    st, err = args[3], {}
+    for e0 in range(0, t_all, piece):
+        e1 = min(e0 + piece, t_all)
+        if e1 < t_all:
+            if feed == "windows":
+                tp, s_next = kernel(args[0][:e1], args[1][:e1], *args[2:],
+                                    **kw)
+            else:
+                tp, s_next = kernel(*args, **dict(kw, t_epochs=e1, **extra))
+            # the kernel is deterministic: a prefix repeats the block
+            assert torch.equal(tp, tk[:e1]), f"prefix {e1} differs"
+        else:
+            s_next = sk
+        if feed == "windows":
+            tr, sr = plain(args[0][e0:e1], args[1][e0:e1], args[2], st, **kw)
+        else:
+            tr, sr = plain(*args[:3], st, **dict(
+                kw, t_epochs=e1 - e0, first_epoch=e0, **extra))
+        for name, v in compare(tk[e0:e1], s_next, tr, sr).items():
+            err[name] = max(err.get(name, 0.0), v)
+        st = s_next
+    return tk, sk, err
+
+
+def resident_vs_windows(torch, inp, piece=EPOCH_PIECE):
+    """B6 against B4a, kernel to kernel, on the same stream, open loop:
+    from B4a's state at the start of each piece (its offsets put in
+    col 9), B6 runs the piece on the stream from the piece's first epoch
+    (the piece starts on a chunk boundary, so its lanes are the whole
+    block's); telemetry and state held to B4a's with the JAX suite's
+    tolerances (RESIDENT_TOL). Returns the largest differences."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    (wre, wim, w_reps, w_st), w_kw = inp["windows"]
+    sre, sim, reps, st_r = inp["args"]
+    kw = inp["kw"]
+    n0, t_all = kw["n0"], kw["t_epochs"]
+    k = fused.resident_chunk(t_all, kw["k_epochs"])
+    assert piece % k == 0
+    tw, sw = fused.track_block_fused(wre, wim, w_reps, w_st, **w_kw)
+    worst = [0.0, 0.0, 0.0]
+    st = w_st
+    for e0 in range(0, t_all, piece):
+        e1 = min(e0 + piece, t_all)
+        st_w = (fused.track_block_fused(wre[:e1], wim[:e1], w_reps, w_st,
+                                        **w_kw)[1] if e1 < t_all else sw)
+        st_in = st.clone()
+        st_in[:, 9] = st_r[:, 9]
+        tr, sr = fused.track_block_fused_resident(
+            sre[e0 * n0:], sim[e0 * n0:], reps, st_in,
+            **dict(kw, t_epochs=e1 - e0, k_epochs=k))
+        a, b = tw[e0:e1].double(), tr.double()
+        scale = max(1.0, float(a[..., :7].abs().max()))
+        worst[0] = max(worst[0], float((a[..., :7] - b[..., :7]).abs().max())
+                       / scale)
+        worst[1] = max(worst[1], float((a[..., 10] - b[..., 10]).abs().max()))
+        worst[2] = max(worst[2], float((st_w[:, :9].double()
+                                        - sr[:, :9].double()).abs().max()))
+        st = st_w
+    assert all(w < tol for w, tol in zip(worst, RESIDENT_TOL)), worst
+    return worst
+
+
+VARIANTS_EPOCH = {
+    "power": {},
+    "costas": dict(lock_mode="costas"),
+    "forced_death": dict(lock_threshold=1e12, max_lost_epochs=7),
+}
+
+
+def phase_epoch_check(torch):
+    """B4a, B4b (+ B4c) and B6 against their plain versions at full
+    width, open loop; B4c bit for bit; B6 against B4a; then B6 once
+    through its entry point with the launch counts set to 0 just before
+    (its only path: no receiver runs it). Returns the largest |error| of
+    the correlations per kernel and B6's launches."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    max_abs = {"windows": 0.0, "seg": 0.0, "resident": 0.0, "gather": 0.0}
+    shapes = {"windows": (2176, 500), "seg": (2432, 125),
+              "resident": (4352, 500)}
+    for name, cfg_kw in VARIANTS_EPOCH.items():
+        for feed in ("windows", "seg", "resident"):
+            inp = epoch_inputs(torch, feed, cfg_kw)
+            args, kw = inp["args"], inp["kw"]
+            assert (args[2].shape[2], inp["ft"].t_epochs) == shapes[feed]
+            if feed == "seg":
+                assert inp["ft"].l_seg == 256_128
+                g_args, g_kw = inp["gather"]
+                got = fused.gather_segments(*g_args, **g_kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], args[0]) and \
+                    torch.equal(got[1], args[1]), "B4c differs"
+            before = _launch_counts()
+            tk, sk, err = epoch_open_loop(
+                torch, feed, args, kw, piece=25 if feed == "seg" else
+                EPOCH_PIECE)
+            launched = {k: v - before[k] for k, v in _launch_counts().items()}
+            key = {"windows": "track_block_fused",
+                   "seg": "track_block_fused_seg",
+                   "resident": "track_block_fused_resident"}[feed]
+            assert launched[key] > 0 and sum(launched.values()) == \
+                launched[key], launched
+            active = sk[:, 7].cpu().numpy()
+            if name == "forced_death":
+                assert not active.any(), "forced death left a channel alive"
+            else:
+                assert active[:24].all() and not active[24:].any()
+            max_abs[feed] = max(max_abs[feed], err["corr_max_abs"])
+            print(f"{key} kernel vs plain, open loop [{name}, wp "
+                  f"{args[2].shape[2]}, T {inp['ft'].t_epochs}]: "
+                  + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()}))
+            if feed == "resident":
+                worst = resident_vs_windows(torch, inp)
+                print(f"B6 vs B4a, kernel to kernel, open loop [{name}]: "
+                      f"cols 0-6 {worst[0]:.3e} of max, carrier rate "
+                      f"{worst[1]:.3e} Hz, state {worst[2]:.3e} "
+                      f"(limits {RESIDENT_TOL})")
+    # B6's path: its entry point over one full block
+    inp = epoch_inputs(torch, "resident", {})
+    _reset_launch_counts()
+    telem, st = fused.track_block_fused_resident(*inp["args"], **inp["kw"])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    _expect_launches(launches, track_block_fused_resident=1)
+    assert telem.shape == (500, N_CHANNELS, 17) and \
+        bool(torch.isfinite(telem).all())
+    assert (st[:24, 7] > 0.5).all(), "B6 lost a channel"
+    print("B6 entry point, one 500 ms block: 1 launch, 24 channels "
+          f"tracking, locked share "
+          f"{float(telem[:, :24, 7].mean()):.4f}")
+    return max_abs, launches["track_block_fused_resident"]
+
+
+def phase_epoch_timing(torch):
+    """Each per-epoch kernel's time per block at full width (as
+    phase_timing: L2 flushed, median of the passes), its plain version's
+    (two passes), its bound from this run's inputs, and for B4c the time
+    of one PyTorch indexing call per component computing the same copy."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    out = {}
+    for feed in ("windows", "seg", "resident"):
+        inp = epoch_inputs(torch, feed, {})
+        args, kw = inp["args"], inp["kw"]
+        kernel, plain = _epoch_fns(feed)
+        ks, ps, k_sync = _timed_turns(torch, lambda: kernel(*args, **kw),
+                                      lambda: plain(*args, **kw),
+                                      plain_passes=2)
+        before = sum(_launch_counts().values())
+        telem, st = kernel(*args, **kw)
+        per_block = sum(_launch_counts().values()) - before
+        lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
+        n_bytes = _nbytes(*args, telem, st)
+        f32_ops = DIRECT_OPS_PER_LANE * lanes
+        bound, bound_by = _bound(n_bytes, f32_ops)
+        ft = inp["ft"]
+        res = dict(launches_per_block=per_block,
+                   ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
+                   plain_ms=statistics.median(ps), plain_passes=ps,
+                   ms_synced=statistics.median(k_sync), bound_ms=bound,
+                   bound_by=bound_by, bytes=n_bytes, mixed_lanes=lanes,
+                   f32_ops=f32_ops, t_epochs=ft.t_epochs, wp=args[2].shape[2],
+                   library_ms=None)
+        out[feed] = res
+        print(f"timing [{feed}] (ms per {ft.t_epochs} ms block, 32 ch): "
+              + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                            for k, v in res.items()}))
+        if feed != "seg":
+            continue
+        (sre, sim, starts, l_seg), g_kw = inp["gather"]
+        idx = starts.to(torch.int64)[:, None] + torch.arange(
+            l_seg, device="cuda")[None, :]
+        ks, ps, k_sync = _timed_turns(
+            torch, lambda: fused.gather_segments(sre, sim, starts, l_seg,
+                                                 **g_kw),
+            lambda: fused.gather_segments_reference(sre, sim, starts, l_seg,
+                                                    **g_kw),
+            plain_passes=2)
+        ls, _, _ = _timed_turns(torch, lambda: (sre[idx], sim[idx]),
+                                lambda: None, plain_passes=0)
+        before = sum(_launch_counts().values())
+        seg = fused.gather_segments(sre, sim, starts, l_seg, **g_kw)
+        per_block = sum(_launch_counts().values()) - before
+        n_bytes = _nbytes(sre, sim, starts, *seg)
+        bound, bound_by = _bound(n_bytes, 0.0)
+        res = dict(launches_per_block=per_block,
+                   ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
+                   plain_ms=statistics.median(ps),
+                   ms_synced=statistics.median(k_sync),
+                   library_ms=statistics.median(ls), bound_ms=bound,
+                   bound_by=bound_by, bytes=n_bytes, l_seg=l_seg)
+        out["gather"] = res
+        print("timing [gather] (ms per 125 ms block, 32 ch): " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in res.items()}))
+    return out
+
+
+def phase_epoch_receivers(torch):
+    """The receiver through the per-epoch layouts on the 24-satellite
+    scene, 5 s, cold: 125 ms blocks (T = 125 has no superstep pairing:
+    the auto layout falls from mxu to direct to seg; B4b and B4c once
+    per block, nothing else), and 500 ms blocks on the windows layout
+    (B4a once per block) against the direct layout (B3): epochs equal
+    per PRN, Doppler within 1 Hz."""
+    sats, sig = _scene(SEG_S)
+    n_seg = SEG_S * 1000 // SEG_BLOCK_MS
+    n_win = SEG_S * 1000 // WINDOWS_BLOCK_MS
+    rx_s, _, ls = _run_receiver(torch, sats, sig, "odd epoch count",
+                                block_ms=SEG_BLOCK_MS)
+    assert rx_s.fused.layout == "seg", rx_s.fused.layout
+    _expect_launches(ls, track_block_fused_seg=n_seg, gather_segments=n_seg)
+    rx_w, sum_w, lw = _run_receiver(torch, sats, sig, "windows",
+                                    layout="windows")
+    _expect_launches(lw, track_block_fused=n_win)
+    _, sum_d, ld = _run_receiver(torch, sats, sig, "direct", layout="direct")
+    _expect_launches(ld, track_block_fused_direct=n_win)
+    ch_w = {c["prn"]: c for c in sum_w["channels"]}
+    ch_d = {c["prn"]: c for c in sum_d["channels"]}
+    worst = 0.0
+    for prn in range(1, 25):
+        assert ch_w[prn]["epochs"] == ch_d[prn]["epochs"], prn
+        d = abs(ch_w[prn]["last_doppler_hz"] - ch_d[prn]["last_doppler_hz"])
+        assert d < 1.0, (prn, d)
+        worst = max(worst, d)
+    print(f"windows vs direct receiver: epochs equal for all 24 PRNs, "
+          f"|Doppler difference| <= {worst:.4f} Hz")
+    return {"seg": ls, "windows": lw, "direct": ld}
 
 
 def main() -> int:
@@ -1017,6 +1383,9 @@ def main() -> int:
     scan = phase_scan_receiver(torch)
     phase_if_capture(torch)
     phase_fused_tail(torch)
+    epoch_abs, resident_launches = phase_epoch_check(torch)
+    etiming = phase_epoch_timing(torch)
+    epoch_rx = phase_epoch_receivers(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -1063,7 +1432,29 @@ def main() -> int:
         "bound_ms": b5_timing["bound_ms"],
         "bound_by": b5_timing["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": src + source,
+        "replaces": replaces + line,
+        "launches": launches,
+        "max_abs_err": epoch_abs[feed],
+        "ms": etiming[feed]["ms"],
+        "plain_ms": etiming[feed]["plain_ms"],
+        "bound_ms": etiming[feed]["bound_ms"],
+        "bound_by": etiming[feed]["bound_by"],
+        "library_ms": etiming[feed]["library_ms"],
+    } for name, source, line, feed, launches in (
+        # the windows receiver (500 ms blocks) and the receiver at an odd
+        # epoch count (125 ms blocks, seg); B6 through its entry point
+        ("track_block_fused", "track_block_epoch.cu", "499", "windows",
+         epoch_rx["windows"]["track_block_fused"]),
+        ("track_block_fused_seg", "track_block_epoch.cu", "579", "seg",
+         epoch_rx["seg"]["track_block_fused_seg"]),
+        ("gather_segments", "gather_segments.cu", "2001", "gather",
+         epoch_rx["seg"]["gather_segments"]),
+        ("track_block_fused_resident", "track_block_epoch.cu", "2065",
+         "resident", resident_launches))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,26 +10,15 @@
 //
 // Design: one thread block per channel walks the channel's T epochs in
 // order (GPU blocks run in no order, so the TPU's sequential grid becomes
-// this loop). The channel's N_DRIFT f32 prompt rows (5 x 2560 x 4 B =
-// 51 KB) sit in shared memory for the whole block. Per epoch:
-//   1. every thread derives the epoch's NCO quantities from the state in
-//      shared memory; threads build the carrier's outer-product trig
-//      factors (B per lane mod 128, A per 128-lane group) in shared memory;
-//   2. each thread mixes its lanes straight from global memory (a
-//      superstep's K = 10 windows, ~21k samples x 2 x 4 B, would not fit
-//      twice in shared memory, and each sample is read once per epoch);
-//      lanes outside the epoch's mask add exactly zero, so they are not
-//      read. The prompt at lane l is the selected row at (l - rem_i) mod
-//      wp (the TPU kernel's right roll), early and late at l +- el_shift
-//      of that (its E/L rolls, with the wrap the mask zeroes);
-//   3. a block reduction forms the six f32 correlations;
-//   4. thread 0 runs the discriminators, lock, loop filters and death,
-//      writes the telemetry row and the new state to shared memory.
-// Built with --fmad=false so every scalar step rounds as the plain
-// version's separate ops do; the carrier phase and chip ledger advances
-// are explicit fmaf, as XLA fuses them in the TPU kernel. The
-// correlations' f32 sums run in another order than the plain version's,
-// so the two differ by ulps there.
+// this loop); the channel's N_DRIFT f32 prompt rows (5 x 2560 x 4 B =
+// 51 KB) sit in shared memory for the whole block. Epoch e of superstep j
+// reads its window straight from the shared stream at the channel's
+// 128-aligned start + floor(jKn0/128)*128 + floor(en0/128)*128 (a
+// superstep's K = 10 windows, ~21k samples x 2 x 4 B, would not fit twice
+// in shared memory, and each sample is read once per epoch); the epoch
+// itself (trig factors, mix, six correlations, discriminators, loop
+// filters) is epoch::run_epoch, shared with the per-epoch layouts
+// (epoch_core.cuh).
 //
 // Bound on the H100: the 12 f32 mixing operations per in-mask lane
 // (~2046 lanes per channel-epoch) over the card's f32 rate, a few
@@ -38,133 +27,24 @@
 // same order. This kernel uses C of the 132 SMs and a serial per-channel
 // chain, so it sits far above that.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "epoch_core.cuh"
 
 namespace {
 
-constexpr int kFields = 128;
-constexpr int kTelem = 17;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDrift = 8;
-
-// constants rounded double -> float, as torch.tensor(x, float32) does
-constexpr float kTwoPi = (float)6.283185307179586;
-constexpr float kInvTwoPi = (float)(1.0 / 6.283185307179586);
-constexpr float kHalfPi = (float)(3.141592653589793 / 2.0);
-
-struct Params {
-  const float* stream_re;
+struct DirectFeed {
+  const float* stream_re;  // [L] shared sample stream
   const float* stream_im;
-  const int* starts;
-  const float* replicas;
-  const float* state_in;
-  float* telem;
-  float* state_out;
-  int c_channels, t_epochs, k_epochs, n0, wp, n_drift, el_shift;
-  float fs_code_len, inv_fs, code_len, lock_threshold, max_lost_f;
-  float pll_c1, pll_c2, dll_c1, dll_c2;
-  float aiding_scale, if_freq, costas_thr;
-  int aiding, costas, interp;
+  const int* starts;       // [C] 128-aligned window starts
+  int k_epochs;
 };
 
-__device__ float atan_poly(float x) {
-  // Abramowitz-Stegun 4.4.49 (max error ~1e-5 rad): the TPU kernel's
-  // PLL discriminator, kept as is
-  float ax = fabsf(x);
-  bool inv = ax > 1.0f;
-  float z = inv ? 1.0f / fmaxf(ax, (float)1e-20) : ax;
-  float t = z * z;
-  float p = z * ((float)0.9998660 +
-                 t * ((float)-0.3302995 +
-                      t * ((float)0.1801410 +
-                           t * ((float)-0.0851330 + (float)0.0208351 * t))));
-  float r = inv ? kHalfPi - p : p;
-  return x < 0.0f ? -r : r;
-}
-
-struct Epoch {  // one epoch's NCO quantities (every thread derives them)
-  float dc, n_t, step, start_lane, phi0;
-  float w_lo, w_hi;  // prompt weights of rows lo = hi - 1 and hi
-  int lo, hi;        // selected rows (or -1)
-  int rem_i;
-};
-
-__device__ Epoch epoch_nco(const Params& p, const float* st, int rem_e,
-                           int rem_j) {
-  Epoch q;
-  const float carr_freq = st[0], carr_phase = st[1], code_rate = st[3];
-  const float chip_res = st[4], drift = st[8], woff = st[9], frac0 = st[10];
-  float rate_eff = p.aiding
-                       ? code_rate + (carr_freq - p.if_freq) * p.aiding_scale
-                       : code_rate;
-  q.dc = rate_eff * p.inv_fs;
-  q.n_t = rintf(p.fs_code_len / rate_eff);
-  q.start_lane = ((woff + drift) + (float)rem_e) + (float)rem_j;
-  q.step = carr_freq * p.inv_fs;
-  q.phi0 = carr_phase - q.start_lane * q.step;
-  q.rem_i = rem_e + rem_j;
-  // prompt select: the row whose drift shift matches, and with interp
-  // the row below it weighted by the fractional sample
-  const int half = (p.n_drift - 1) / 2;
-  float qq = (chip_res + frac0) / q.dc;
-  float qf = floorf(qq);
-  float shift = drift - qf;
-  q.hi = -1;
-  q.lo = -1;
-  for (int d = 0; d < p.n_drift; ++d) {
-    if (shift == (float)(d - half)) q.hi = d;
-    if (p.interp && shift == (float)(d - half + 1)) q.lo = d;
-  }
-  if (p.interp) {
-    float f_sub = qq - qf;
-    q.w_hi = 1.0f - f_sub;
-    q.w_lo = f_sub;
-  } else {
-    q.w_hi = 1.0f;
-    q.w_lo = 0.0f;
-  }
-  return q;
-}
-
-// the (rolled) prompt replica at window lane x (any integer in
-// (-wp, 2wp)); the sum over rows in row order, as the TPU kernel's
-__device__ __forceinline__ float prompt_at(const float* reps, const Epoch& q,
-                                           int wp, int x) {
-  int i = x % wp;
-  if (i < 0) i += wp;
-  float v = 0.0f;
-  if (q.lo >= 0) v = q.w_lo * reps[q.lo * wp + i];
-  if (q.hi >= 0) v = v + q.w_hi * reps[q.hi * wp + i];
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    track_block_direct_kernel(Params p) {
+__global__ void __launch_bounds__(epoch::kThreads)
+    track_block_direct_kernel(epoch::Params p, DirectFeed f) {
   extern __shared__ __align__(16) float smem[];
   const int c = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = p.k_epochs, wp = p.wp, w128 = wp / 128;
-
-  float* reps = smem;                      // [n_drift, wp]
-  float* b_cos = reps + p.n_drift * wp;    // [128]
-  float* b_sin = b_cos + 128;
-  float* a_cos = b_sin + 128;              // [w128]
-  float* a_sin = a_cos + w128;
-  float* red = a_sin + w128;               // [6, kWarps]
-  float* st = red + 6 * kWarps;            // [12]
-
-  {
-    const float4* src = reinterpret_cast<const float4*>(
-        p.replicas + (long long)c * p.n_drift * wp);
-    float4* dst = reinterpret_cast<float4*>(reps);
-    for (int i = tid; i < p.n_drift * wp / 4; i += kThreads) dst[i] = src[i];
-  }
-  if (tid < 12) st[tid] = p.state_in[c * kFields + tid];
-  __syncthreads();
-
-  const long long start = p.starts[c];
+  const epoch::Smem s = epoch::load_channel(p, smem, c);
+  const long long start = f.starts[c];
+  const int K = f.k_epochs;
   const long long kk = (long long)K * p.n0;
   const int n_super = p.t_epochs / K;
   for (int j = 0; j < n_super; ++j) {
@@ -173,137 +53,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < K; ++e) {
       const int a_e = (e * p.n0 / 128) * 128;
       const int rem_e = e * p.n0 - a_e;
-      const Epoch q = epoch_nco(p, st, rem_e, rem_j);
-
-      // ---- stage 1: carrier trig factors ------------------------------
-      if (tid < 128) {
-        float th = q.step * (float)tid;
-        th = (th - floorf(th)) * kTwoPi;
-        b_cos[tid] = cosf(th);
-        b_sin[tid] = sinf(th);
-      } else if (tid - 128 < w128) {
-        int qd = tid - 128;
-        float th = q.phi0 + (q.step * 128.0f) * (float)qd;
-        th = (th - floorf(th)) * kTwoPi;
-        a_cos[qd] = cosf(th);
-        a_sin[qd] = sinf(th);
-      }
-      __syncthreads();
-
-      // ---- stage 2: mix the in-mask lanes, six correlations -----------
-      float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      const float start_lane =
+          ((s.st[9] + s.st[8]) + (float)rem_e) + (float)rem_j;
       const long long base = start + off + a_e;
-      const float end = q.start_lane + q.n_t;
-      for (int l = tid; l < wp; l += kThreads) {
-        const float lf = (float)l;
-        if (!(lf >= q.start_lane && lf < end)) continue;  // mask: adds 0
-        const int qd = l >> 7, r = l & 127;
-        const float ac = a_cos[qd], as = a_sin[qd];
-        const float cth = ac * b_cos[r] - as * b_sin[r];
-        const float sth = as * b_cos[r] + ac * b_sin[r];
-        const float wre = p.stream_re[base + l], wim = p.stream_im[base + l];
-        const float m_re = wre * cth + wim * sth;
-        const float m_im = wim * cth - wre * sth;
-        const int x = l - q.rem_i;
-        const float pe = prompt_at(reps, q, wp, x + p.el_shift);
-        const float pp = prompt_at(reps, q, wp, x);
-        const float pl = prompt_at(reps, q, wp, x - p.el_shift);
-        s[0] += m_re * pe;
-        s[1] += m_im * pe;
-        s[2] += m_re * pp;
-        s[3] += m_im * pp;
-        s[4] += m_re * pl;
-        s[5] += m_im * pl;
-      }
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        float v = s[k];
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) red[k * kWarps + warp] = v;
-      }
-      __syncthreads();
-
-      // ---- stage 3: discriminators, lock, loop filters (thread 0) -----
-      if (tid == 0) {
-        float corr[6];
-        for (int k = 0; k < 6; ++k) {
-          float v = 0.0f;
-          for (int w = 0; w < kWarps; ++w) v += red[k * kWarps + w];
-          corr[k] = v;
-        }
-        const float i_e = corr[0], q_e = corr[1], i_p = corr[2];
-        const float q_p = corr[3], i_l = corr[4], q_l = corr[5];
-        const float carr_freq = st[0], carr_phase = st[1], carr_err = st[2];
-        const float code_rate = st[3], chip_res = st[4], code_err = st[5];
-        const float lost = st[6], active = st[7], drift = st[8];
-        const float lock_ema = st[11];
-
-        const float power = i_p * i_p + q_p * q_p;
-        float new_le;
-        bool locked;
-        if (p.costas) {
-          const float alpha = (float)0.1;
-          float metric = (i_p * i_p - q_p * q_p) / fmaxf(power, (float)1e-12);
-          new_le = active > 0.5f ? (1.0f - alpha) * lock_ema + alpha * metric
-                                 : lock_ema;
-          locked = new_le > p.costas_thr;
-        } else {
-          new_le = lock_ema;
-          locked = power > p.lock_threshold;
-        }
-        float safe_ip = fabsf(i_p) < (float)1e-12 ? (float)1e-12 : i_p;
-        float pll = atan_poly(q_p / safe_ip) * kInvTwoPi;
-        float carr_nco = pll * p.pll_c1 + (pll - carr_err) * p.pll_c2;
-        float pe = sqrtf(i_e * i_e + q_e * q_e);
-        float pl = sqrtf(i_l * i_l + q_l * q_l);
-        float el_sum = pe + pl;
-        float dll = el_sum > 0.0f ? (pe - pl) / fmaxf(el_sum, (float)1e-12)
-                                  : 0.0f;
-        float code_nco = dll * p.dll_c1 + (dll - code_err) * p.dll_c2;
-
-        const bool act = active > 0.5f;
-        const bool upd = act && locked;
-        float new_cf = upd ? carr_freq + carr_nco : carr_freq;
-        float new_ce = upd ? pll : carr_err;
-        float new_cr = upd ? code_rate + code_nco : code_rate;
-        float new_de = upd ? dll : code_err;
-        float new_lost = act ? (locked ? 0.0f : lost + 1.0f) : lost;
-        bool died = new_lost >= p.max_lost_f;
-        float new_active = died ? 0.0f : active;
-        float ncp = fmaf(q.step, q.n_t, carr_phase);
-        float new_cp = ncp - floorf(ncp);
-        float new_chip = fmaf(q.dc, q.n_t, chip_res) - p.code_len;
-        float new_drift = (drift + q.n_t) - (float)p.n0;
-
-        const float wr = act ? 1.0f : 0.0f;
-        float* out = p.telem +
-                     ((long long)(j * K + e) * p.c_channels + c) * kTelem;
-        out[0] = i_e * wr;  out[1] = q_e * wr;
-        out[2] = i_p * wr;  out[3] = q_p * wr;
-        out[4] = i_l * wr;  out[5] = q_l * wr;
-        out[6] = power * wr;
-        out[7] = upd ? 1.0f : 0.0f;
-        out[8] = pll * wr;  out[9] = dll * wr;
-        out[10] = act ? new_cf : carr_freq;
-        out[11] = act ? new_cr : code_rate;
-        out[12] = q.n_t;    out[13] = drift;
-        out[14] = chip_res * wr;
-        out[15] = (died && act) ? 1.0f : 0.0f;
-        out[16] = wr;
-
-        if (act) {
-          st[0] = new_cf; st[1] = new_cp; st[2] = new_ce; st[3] = new_cr;
-          st[4] = new_chip; st[5] = new_de; st[6] = new_lost;
-          st[8] = new_drift;
-        }
-        st[7] = new_active;
-        st[11] = died ? 0.0f : new_le;  // 9 and 10 carry through
-      }
-      __syncthreads();
+      epoch::run_epoch(p, s, f.stream_re + base, f.stream_im + base,
+                       start_lane, rem_e + rem_j, j * K + e, c);
     }
   }
-  if (tid < kFields)
-    p.state_out[c * kFields + tid] = tid < 12 ? st[tid] : 0.0f;
+  epoch::store_channel(p, s, c);
 }
 
 }  // namespace
@@ -317,49 +74,18 @@ extern "C" int track_block_direct_launch(
     float dll_c1, float dll_c2, int el_shift, float aiding_scale,
     float if_freq, int costas, float costas_thr, int interp, void* stream) {
   (void)stream_len;  // the wrapper checks the read bound before launch
-  if (k_epochs < 1 || n_drift < 1 || n_drift > kMaxDrift || wp % 128 ||
-      wp / 128 > kThreads - 128 || t_epochs % k_epochs || c_channels < 1 ||
-      el_shift < 0 || el_shift >= wp)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.stream_re = static_cast<const float*>(stream_re);
-  p.stream_im = static_cast<const float*>(stream_im);
-  p.starts = static_cast<const int*>(starts);
-  p.replicas = static_cast<const float*>(replicas);
-  p.state_in = static_cast<const float*>(state_in);
-  p.telem = static_cast<float*>(telem);
-  p.state_out = static_cast<float*>(state_out);
-  p.c_channels = c_channels;
-  p.t_epochs = t_epochs;
-  p.k_epochs = k_epochs;
-  p.n0 = n0;
-  p.wp = wp;
-  p.n_drift = n_drift;
-  p.el_shift = el_shift;
-  // f32(fs) * f32(L) rounded once, as the plain version's constant
-  p.fs_code_len = fs * code_len;
-  p.inv_fs = 1.0f / fs;
-  p.code_len = code_len;
-  p.lock_threshold = lock_threshold;
-  p.max_lost_f = (float)max_lost;
-  p.pll_c1 = pll_c1;
-  p.pll_c2 = pll_c2;
-  p.dll_c1 = dll_c1;
-  p.dll_c2 = dll_c2;
-  p.aiding_scale = aiding_scale;
-  p.if_freq = if_freq;
-  p.costas_thr = costas_thr;
-  p.aiding = aiding_scale != 0.0f;
-  p.costas = costas;
-  p.interp = interp;
-  const int w128 = wp / 128;
-  size_t smem = (size_t)(n_drift * wp + 256 + 2 * w128 + 6 * kWarps + 12) *
-                sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      track_block_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  track_block_direct_kernel<<<c_channels, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  if (k_epochs < 1 || t_epochs % k_epochs) return (int)cudaErrorInvalidValue;
+  epoch::Params p;
+  int err = epoch::make_params(
+      p, replicas, state_in, telem, state_out, c_channels, t_epochs, n0, wp,
+      n_drift, fs, code_len, lock_threshold, max_lost, pll_c1, pll_c2,
+      dll_c1, dll_c2, el_shift, aiding_scale, if_freq, costas, costas_thr,
+      interp);
+  if (err) return err;
+  DirectFeed f;
+  f.stream_re = static_cast<const float*>(stream_re);
+  f.stream_im = static_cast<const float*>(stream_im);
+  f.starts = static_cast<const int*>(starts);
+  f.k_epochs = k_epochs;
+  return epoch::launch(track_block_direct_kernel, p, f, stream);
 }

@@ -3,8 +3,8 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``gnss_sdr_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads from the cache. ``build_all`` builds every source, one ``nvcc``
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads from the cache. ``build_all`` builds every source, one ``nvcc``
 each, all at once. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -48,7 +48,10 @@ def _target(name: str) -> tuple[Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"CUDA source {src} missing")
+    # the shared headers are part of every source's key
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

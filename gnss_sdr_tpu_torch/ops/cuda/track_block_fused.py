@@ -12,6 +12,10 @@ NCOs, f32 throughout. The CUDA source is
 ``gnss_sdr_tpu_torch/csrc/track_block_direct.cu``; its contract and
 design are under "the direct layout" below.
 
+The per-epoch layouts of the same kernel body (B4a windows, B4b seg fed
+by B4c ``gather_segments``, B6 resident) live in ``track_block_epoch``
+and are re-exported here under the JAX module's names.
+
 Contract kept from the mxu TPU kernel:
 
   * K-epoch supersteps with the NCO rates HELD at their superstep-start
@@ -71,8 +75,15 @@ import ctypes
 import numpy as np
 import torch
 
-from ..correlator import fma as _fma
+from ..correlator import fma as _fma  # noqa: F401  (fused_runner's scan)
 from . import _build
+from .track_block_epoch import (  # noqa: F401  (the JAX module's names)
+    MAX_WP, _atan_poly, _epoch_core_reference, build_replicas_shared,
+    gather_segments, gather_segments_reference, resident_chunk,
+    seg_length, slice_windows, track_block_fused,
+    track_block_fused_reference, track_block_fused_resident,
+    track_block_fused_resident_reference, track_block_fused_seg,
+    track_block_fused_seg_reference)
 
 N_FIELDS = 128
 N_TELEM = 21            # mxu telemetry columns
@@ -206,20 +217,6 @@ def build_replicas(codes3x: torch.Tensor, el_shift: int, n0: int, wp: int,
 # ---------------------------------------------------------------------------
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
-
-def _atan_poly(x: torch.Tensor) -> torch.Tensor:
-    """Branchless arctan (Abramowitz-Stegun 4.4.49, max error ~1e-5
-    rad) — the TPU kernel's PLL discriminator, kept as is."""
-    f = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
-    ax = torch.abs(x)
-    inv = ax > 1.0
-    z = torch.where(inv, 1.0 / torch.maximum(ax, f(1e-20)), ax)
-    t = z * z
-    p = z * (f(0.9998660) + t * (f(-0.3302995) + t * (f(0.1801410)
-             + t * (f(-0.0851330) + f(0.0208351) * t))))
-    r = torch.where(inv, f(np.pi / 2) - p, p)
-    return torch.where(x < 0.0, -r, r)
-
 
 def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
                          k_epochs, wp, n0, fs, code_len,
@@ -797,153 +794,19 @@ def track_block_fused_mxu(
 # bf16 appears nowhere in this layout.
 
 def _epoch_direct_reference(st, j, e, stream_re, stream_im, starts, reps, *,
-                            k_epochs, wp, n0, fs, code_len, lock_threshold,
-                            max_lost, pll_c1, pll_c2, dll_c1, dll_c2,
-                            el_shift, aiding_scale, if_freq, lock_mode,
-                            costas_thr, interp):
+                            k_epochs, **kw):
     """Epoch e of superstep j for all channels: (new state [C, 128],
-    telemetry row [C, 17]). Follows _epoch_core step by step."""
-    dev = st.device
-    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    c_channels = st.shape[0]
-    n_drift = reps.shape[1]
-    half = (n_drift - 1) // 2
-
-    def col(k):
-        return st[:, k:k + 1]                                   # [C, 1]
-
-    carr_freq, carr_phase, carr_err = col(0), col(1), col(2)
-    code_rate, chip_res, code_err = col(3), col(4), col(5)
-    lost, active, drift = col(6), col(7), col(8)
-    woff, frac0, lock_ema = col(9), col(10), col(11)
-
-    kk = k_epochs * n0
+    telemetry row [C, 17]), the direct feed of _epoch_core_reference."""
+    kk = k_epochs * kw["n0"]
     off = (j * kk // 128) * 128
     rem_j = j * kk - off
-    a_e = (e * n0 // 128) * 128
-    rem_e = e * n0 - a_e
-    rem_i = rem_e + rem_j
-    start_lane = woff + drift + f(rem_e) + f(rem_j)
-
-    fs_f = f(fs)
-    inv_fs = f(1.0) / fs_f
-    if aiding_scale != 0.0:
-        code_rate_eff = code_rate + (carr_freq - f(if_freq)) * f(aiding_scale)
-    else:
-        code_rate_eff = code_rate
-    dc = code_rate_eff * inv_fs
-    n_t_f = torch.round(fs_f * f(code_len) / code_rate_eff)
-
-    lane = torch.arange(wp, device=dev, dtype=torch.float32)[None, :]
-    mask = ((lane >= start_lane) & (lane < start_lane + n_t_f)).to(
-        torch.float32)
-
-    # carrier wipe-off from the outer-product trig factors
-    step = carr_freq * inv_fs
-    phi0 = carr_phase - start_lane * step
-    w128 = wp // 128
-    q_w = torch.arange(w128, device=dev, dtype=torch.float32)[None, :]
-    q128 = torch.arange(128, device=dev, dtype=torch.float32)[None, :]
-    th_a = phi0 + (step * f(128.0)) * q_w
-    th_a = (th_a - torch.floor(th_a)) * f(TWO_PI)
-    th_b = step * q128
-    th_b = (th_b - torch.floor(th_b)) * f(TWO_PI)
-    a_c, a_s = torch.cos(th_a), torch.sin(th_a)                 # [C, w128]
-    b_c, b_s = torch.cos(th_b), torch.sin(th_b)                 # [C, 128]
-    ra_c = a_c.repeat_interleave(128, dim=1)                    # lane // 128
-    ra_s = a_s.repeat_interleave(128, dim=1)
-    tb_c, tb_s = b_c.repeat(1, w128), b_s.repeat(1, w128)       # lane % 128
-    cth = ra_c * tb_c - ra_s * tb_s
-    sth = ra_s * tb_c + ra_c * tb_s
+    a_e = (e * kw["n0"] // 128) * 128
+    rem_e = e * kw["n0"] - a_e
+    start_lane = (st[:, 9:10] + st[:, 8:9]) + float(rem_e) + float(rem_j)
     pos = starts.to(torch.int64)[:, None] + (off + a_e) + torch.arange(
-        wp, device=dev, dtype=torch.int64)[None, :]
-    wre, wim = stream_re[pos], stream_im[pos]
-    re_w = (wre * cth + wim * sth) * mask
-    im_w = (wim * cth - wre * sth) * mask
-
-    # prompt select: at most two rows carry weight, so the weighted sum
-    # over rows rounds once whatever its order
-    q = (chip_res + frac0) / dc
-    q_floor = torch.floor(q)
-    shift = drift - q_floor
-    d_f = torch.arange(n_drift, device=dev,
-                       dtype=torch.float32)[None, :] - f(half)   # [1, R]
-    sel_d = (shift == d_f).to(torch.float32)                    # [C, R]
-    if interp:
-        f_sub = q - q_floor
-        sel_m = (shift == d_f + 1.0).to(torch.float32)
-        w = (1.0 - f_sub) * sel_d + f_sub * sel_m
-    else:
-        w = sel_d
-    prompt = torch.sum(w[:, :, None] * reps, dim=1)             # [C, wp]
-    prompt = torch.roll(prompt, rem_i, dims=1)
-    early = torch.roll(prompt, -el_shift, dims=1)   # early[l] = p[l+el]
-    late = torch.roll(prompt, el_shift, dims=1)     # late[l]  = p[l-el]
-    i_e = torch.sum(re_w * early, dim=1, keepdim=True)
-    q_e = torch.sum(im_w * early, dim=1, keepdim=True)
-    i_p = torch.sum(re_w * prompt, dim=1, keepdim=True)
-    q_p = torch.sum(im_w * prompt, dim=1, keepdim=True)
-    i_l = torch.sum(re_w * late, dim=1, keepdim=True)
-    q_l = torch.sum(im_w * late, dim=1, keepdim=True)
-
-    power = i_p * i_p + q_p * q_p
-    if lock_mode == "costas":
-        metric = (i_p * i_p - q_p * q_p) / torch.maximum(power, f(1e-12))
-        alpha = f(0.1)
-        new_lock_ema = torch.where(
-            active > 0.5, (1.0 - alpha) * lock_ema + alpha * metric,
-            lock_ema)
-        locked = new_lock_ema > f(costas_thr)
-    else:
-        new_lock_ema = lock_ema
-        locked = power > f(lock_threshold)
-    safe_ip = torch.where(torch.abs(i_p) < 1e-12, f(1e-12), i_p)
-    pll_err = _atan_poly(q_p / safe_ip) * f(1.0 / TWO_PI)
-    carr_nco = pll_err * f(pll_c1) + (pll_err - carr_err) * f(pll_c2)
-    pow_e = torch.sqrt(i_e * i_e + q_e * q_e)
-    pow_l = torch.sqrt(i_l * i_l + q_l * q_l)
-    el_sum = pow_e + pow_l
-    dll_err = torch.where(
-        el_sum > 0.0, (pow_e - pow_l) / torch.maximum(el_sum, f(1e-12)),
-        f(0.0))
-    code_nco = dll_err * f(dll_c1) + (dll_err - code_err) * f(dll_c2)
-
-    act = active > 0.5
-    upd = act & locked
-    new_carr_freq = torch.where(upd, carr_freq + carr_nco, carr_freq)
-    new_carr_err = torch.where(upd, pll_err, carr_err)
-    new_code_rate = torch.where(upd, code_rate + code_nco, code_rate)
-    new_code_err = torch.where(upd, dll_err, code_err)
-    zero = torch.zeros_like(lost)
-    new_lost = torch.where(act, torch.where(locked, zero, lost + 1.0), lost)
-    died = new_lost >= f(max_lost)
-    new_active = torch.where(died, zero, active)
-    ncp = _fma(step, n_t_f, carr_phase)
-    new_carr_phase = ncp - torch.floor(ncp)
-    new_chip_res = _fma(dc, n_t_f, chip_res) - f(code_len)
-    new_drift = drift + n_t_f - f(n0)
-
-    def sel(new, old):
-        return torch.where(act, new, old)
-
-    new = torch.zeros_like(st)
-    for k, v in ((0, sel(new_carr_freq, carr_freq)),
-                 (1, sel(new_carr_phase, carr_phase)),
-                 (2, sel(new_carr_err, carr_err)),
-                 (3, sel(new_code_rate, code_rate)),
-                 (4, sel(new_chip_res, chip_res)),
-                 (5, sel(new_code_err, code_err)), (6, sel(new_lost, lost)),
-                 (7, new_active), (8, sel(new_drift, drift)), (9, woff),
-                 (10, frac0), (11, torch.where(died, zero, new_lock_ema))):
-        new[:, k] = v.reshape(c_channels)
-    wr = act.to(torch.float32)
-    row = torch.cat([
-        i_e * wr, q_e * wr, i_p * wr, q_p * wr, i_l * wr, q_l * wr,
-        power * wr, upd.to(torch.float32), pll_err * wr, dll_err * wr,
-        sel(new_carr_freq, carr_freq), sel(new_code_rate, code_rate),
-        n_t_f, drift, chip_res * wr, (died & act).to(torch.float32), wr,
-    ], dim=1)                                                   # [C, 17]
-    return new, row
+        kw["wp"], device=st.device, dtype=torch.int64)[None, :]
+    return _epoch_core_reference(st, stream_re[pos], stream_im[pos], reps,
+                                 start_lane, rem_e + rem_j, **kw)
 
 
 def track_block_fused_direct_reference(
@@ -1027,9 +890,10 @@ def track_block_fused_direct(
                 lock_mode=lock_mode, starts_host=starts_host,
                 starts_bound=starts_bound, replica_dtype=torch.float32)
     c, n_drift = replicas.shape[0], replicas.shape[1]
-    if n_drift > 8 or wp > 128 * 128:
+    if n_drift > 8 or wp > MAX_WP:
         raise ValueError(f"the CUDA kernel takes <= 8 replica rows and "
-                         f"wp <= 16384, got {n_drift} and {wp}")
+                         f"wp <= {MAX_WP} (ROADMAP C6), got {n_drift} and "
+                         f"{wp}")
     if replicas.data_ptr() % 16:
         raise ValueError("replicas must start 16-byte aligned (the kernel "
                          "copies them in 16-byte pieces)")

@@ -6,7 +6,8 @@ carrier/chip accumulators, block-relative offsets) to the kernels'
 [C, 128] f32 column state and back, once per sample block:
 
   host ChannelState --anchor--> [C,128] matrix + window starts + anchors
-       -> build_replicas + track_block_fused_{mxu,direct} (one launch)
+       -> build_replicas + the layout's kernel (one launch; seg: a
+          segment gather, then one launch)
        -> EpochTelemetry + re-absorbed ChannelState
 
 Re-anchoring each block keeps the cross-block bookkeeping exact (u32)
@@ -15,9 +16,14 @@ while the in-block loop runs in f32 on the card. The multi-block scan
 torch ops on the card, block after block, with the ledger on the card
 and one download per span.
 
-Layouts: "mxu" (kernel B1, held-rate supersteps, bf16 contraction) and
-"direct" (kernel B3, exact per-epoch NCOs, f32). Telemetry wires of the
-scan: "f32" (bit-exact), "slim" and "slim2" (mxu only).
+Layouts: "mxu" (kernel B1, held-rate supersteps, bf16 contraction),
+"direct" (kernel B3, exact per-epoch NCOs, f32), "seg" (B4c gathers each
+channel's segment, B4b tracks from it; where a block's epoch count has
+no superstep pairing, mxu and direct fall to seg, as in the JAX package)
+and "windows" (slice_windows, then B4a). direct, seg and windows give the
+same telemetry and state. Telemetry wires of the scan: "f32"
+(bit-exact), "slim" and "slim2" (mxu only); the scan runs on mxu and
+direct only.
 
 Lifecycle corners handled here, not in the kernels:
 
@@ -34,9 +40,10 @@ Lifecycle corners handled here, not in the kernels:
 processed epoch and every period the walk skips (ROADMAP C1). Both the
 host path (run_block + rebase) and the scan keep this meaning.
 
-Not ported yet, and raising: the seg and windows layouts and odd block
-lengths (ROADMAP B4), ``shared_fetch`` (B2), a mesh (A14). The in-scan
-search of the JAX package's conv engine (``span_extra``) belongs to A11.
+Not ported yet, and raising: ``shared_fetch`` (B2), a mesh (A14). The
+in-scan search of the JAX package's conv engine (``span_extra``) belongs
+to A11. The per-epoch layouts (direct, seg, windows) reject windows wider
+than 16384 lanes (ROADMAP C6).
 """
 from __future__ import annotations
 
@@ -118,9 +125,9 @@ class _SpanDownload:
 class FusedTracker:
     """Per-receiver instance of the fused block step.
 
-    ``layout``: "mxu" (B1) or "direct" (B3); a block length with no mxu
-    superstep pairing goes to direct, and one with no direct pairing to
-    the seg layout, which raises (ROADMAP B4). ``wire`` selects the
+    ``layout``: "mxu" (B1), "direct" (B3), "seg" (B4c + B4b) or
+    "windows" (B4a); a block length with no mxu superstep pairing goes
+    to direct, and one with no direct pairing to seg. ``wire`` selects the
     scan's telemetry download: "f32" (bit-exact), "slim" (~4.5x fewer
     bytes) or "slim2" (mxu only, ~13x: 5 B/epoch/channel with a host
     replay of the ledger; on direct it becomes "slim").
@@ -143,11 +150,6 @@ class FusedTracker:
             raise ValueError(f"unknown fused layout {layout!r}")
         if wire not in ("f32", "slim", "slim2"):
             raise ValueError(f"unknown telemetry wire {wire!r}")
-        if layout in ("seg", "windows"):
-            raise NotImplementedError(
-                f"fused layout {layout!r} is not ported yet (ROADMAP B4: "
-                "track_block_fused_seg with gather_segments, "
-                "track_block_fused); use layout='mxu' or 'direct'")
         if shared_fetch:
             raise NotImplementedError(
                 "shared_fetch=True (kernel B2, _mxu_kernel_shared) is not "
@@ -162,11 +164,7 @@ class FusedTracker:
         if layout == "mxu" and fused.choose_k(t_epochs, mxu_k_max) is None:
             layout = "direct"
         if layout == "direct" and fused.choose_k(t_epochs) is None:
-            raise NotImplementedError(
-                f"t_epochs={t_epochs} has no superstep pairing: the JAX "
-                "package runs the seg layout there (B4b "
-                "track_block_fused_seg fed by B4c gather_segments), which "
-                "is not ported yet (ROADMAP B4)")
+            layout = "seg"          # odd t_epochs: no superstep pairing
         if wire == "slim2" and layout != "mxu":
             # slim2's host replay of the ledger rides the mxu kernel's
             # held-rate columns 17-20; direct changes rates per epoch
@@ -183,26 +181,45 @@ class FusedTracker:
         self.n0 = params.samples_per_code_nominal
         self.t_epochs = t_epochs
         self.layout = layout
-        # window: epoch + the 128-alignment residues (+384); the mxu bank
-        # adds 2*el_shift rows of preroll; rounded to 128 lanes
-        extra = 384 + (2 * params.el_shift if layout == "mxu" else 0)
+        # window: epoch + the 128-alignment residues (direct: rem_c0 +
+        # rem_e + rem_j, +384; seg: rem_c0 + rem_t, +256; windows: none);
+        # the mxu bank adds 2*el_shift rows of preroll; rounded to 128
+        extra = {"mxu": 384 + 2 * params.el_shift, "direct": 384,
+                 "seg": 256, "windows": 0}[layout]
         self.wp = ((params.window + extra + 63 + 127) // 128) * 128
+        if layout != "mxu" and self.wp > fused.MAX_WP:
+            raise ValueError(
+                f"fused layout {layout!r}: wp={self.wp} > {fused.MAX_WP} "
+                "(ROADMAP C6: the per-epoch kernels build at most 128 "
+                "carrier A factors, and the JAX _epoch_core breaks there); "
+                "use layout='mxu'")
         self.n_rows = (fused.mxu_rows(N_DRIFT, params.el_shift)
                        if layout == "mxu" else N_DRIFT)
         self.half = (self.n_rows - 1) // 2
         self.el_pad = params.el_shift + self.half
-        self.k_epochs = fused.choose_k(
-            t_epochs, mxu_k_max if layout == "mxu" else 16)
-        # worst window read end: a_c + off_last + span
-        #   <= off + (T-1)*n0 + wp - el_pad
-        self.max_offset = (buf_len - (t_epochs - 1) * self.n0
-                           - self.wp + self.el_pad - 1)
-        if self.max_offset <= self.el_pad + self.n0:
+        self.k_epochs = self.l_seg = None
+        if layout in ("mxu", "direct"):
+            self.k_epochs = fused.choose_k(
+                t_epochs, mxu_k_max if layout == "mxu" else 16)
+            # worst window read end: a_c + off_last + span
+            #   <= off + (T-1)*n0 + wp - el_pad
+            self.max_offset = (buf_len - (t_epochs - 1) * self.n0
+                               - self.wp + self.el_pad - 1)
             need = (t_epochs - 1) * self.n0 + self.wp + self.n0
+        elif layout == "seg":
+            self.l_seg = fused.seg_length(t_epochs, self.n0, self.wp)
+            # the gather reads [a_c, a_c + l_seg); a_c <= off - el_pad
+            self.max_offset = buf_len - self.l_seg + self.el_pad - 1
+            need = self.l_seg + self.n0 + 1 - self.el_pad
+        else:
+            # the last offset that still fits T+1 nominal epochs + window
+            self.max_offset = buf_len - (t_epochs * self.n0 + self.wp)
+            need = t_epochs * self.n0 + self.wp + self.n0
+        if self.max_offset <= self.el_pad + self.n0:
             raise ValueError(
                 f"buffer too short for fused tracking (layout={layout!r}): "
                 f"len={buf_len}, need > {need}")
-        if self.n0 <= self.el_pad + self.half + 128:
+        if layout != "windows" and self.n0 <= self.el_pad + self.half + 128:
             raise ValueError(
                 f"n0={self.n0} too small for the {layout} fused layout "
                 f"(need > {self.el_pad + self.half + 128})")
@@ -210,11 +227,12 @@ class FusedTracker:
         self.aiding_scale = (float(params.aiding_scale)
                              if cfg.carrier_aiding else 0.0)
         self.if_freq = float(params.if_freq_hz)
-        self._kernel = (fused.track_block_fused_mxu if layout == "mxu"
-                        else fused.track_block_fused_direct)
+        self._kernel = {"mxu": fused.track_block_fused_mxu,
+                        "direct": fused.track_block_fused_direct,
+                        "seg": self._seg_step,
+                        "windows": self._windows_step}[layout]
         self._kernel_kw = dict(
-            t_epochs=t_epochs, k_epochs=self.k_epochs, n0=self.n0,
-            wp=self.wp, fs=fs_hz, code_len=float(spec.code_length_chips),
+            n0=self.n0, fs=fs_hz, code_len=float(spec.code_length_chips),
             lock_threshold=cfg.lock_threshold,
             max_lost=cfg.max_lost_epochs,
             pll_c1=p1, pll_c2=p2, dll_c1=d1, dll_c2=d2,
@@ -224,11 +242,37 @@ class FusedTracker:
             costas_thr=cfg.costas_lock_threshold,
             interp=cfg.interp_code,
         )
+        # the block's shape, as each layout's kernel takes it (windows:
+        # from the windows' shape)
+        if layout != "windows":
+            self._kernel_kw.update(t_epochs=t_epochs, wp=self.wp)
+        if layout in ("mxu", "direct"):
+            self._kernel_kw.update(k_epochs=self.k_epochs)
 
     # ------------------------------------------------------------------
+    def _seg_step(self, block_re, block_im, starts, reps, mat, *,
+                  starts_host, **kw):
+        """The seg layout's block: B4c gathers each channel's [Lseg]
+        segment at its 128-aligned start, then B4b tracks T epochs."""
+        seg_re, seg_im = fused.gather_segments(
+            block_re, block_im, starts, self.l_seg, starts_host=starts_host)
+        return fused.track_block_fused_seg(seg_re, seg_im, reps, mat, **kw)
+
+    def _windows_step(self, block_re, block_im, offsets, reps, mat, *,
+                      starts_host, **kw):
+        """The windows layout's block: slice_windows cuts [T, C, wp]
+        windows at the channels' offsets (their host values), then B4a
+        tracks them."""
+        wre, wim = fused.slice_windows(block_re, block_im, starts_host,
+                                       self.t_epochs, self.n0, self.wp,
+                                       self.el_pad)
+        return fused.track_block_fused(wre, wim, reps, mat, **kw)
+
     def _replicas(self, codes_rows, anchor, lane_shift):
-        """The kernel's replica rows: the mxu bank in bf16, the direct
-        layout's N_DRIFT prompt rows in f32."""
+        """The kernel's replica rows: the mxu bank in bf16, the per-epoch
+        layouts' N_DRIFT prompt rows in f32 (windows: no lane shift)."""
+        if self.layout == "windows":
+            lane_shift = None
         reps = fused.build_replicas(
             codes_rows, self.params.el_shift, self.n0, self.wp,
             self.n_rows, anchor, lane_shift=lane_shift)
@@ -287,16 +331,23 @@ class FusedTracker:
         frac0 = cp0.astype(np.float32) - s_anchor.astype(np.float32) * dc0
         mat[:, 10] = frac0
         anchor = np.mod(s_anchor, self.n0).astype(np.int32)
-        # 128-aligned window starts; the residue rides col 9 (as
-        # el_pad + rem_c0 = off - a_c, the kernel's mask base) and
-        # shifts the replica (build_replicas lane_shift)
-        a_c = ((offset0 - self.el_pad) // 128) * 128
-        a_c = np.where(eligible, np.maximum(a_c, 0), 0)
-        mat[:, 9] = np.where(eligible, offset0 - a_c,
-                             self.el_pad).astype(np.float32)
-        mat[:, 12] = a_c.astype(np.float32)
+        if self.layout == "windows":
+            # the windows start el_pad before each offset (an ineligible
+            # channel's at 0, the JAX glue's clamped slice); col 12
+            # carries the offset, col 9 stays 0
+            starts = np.where(eligible, offset0, self.el_pad)
+            mat[:, 12] = np.where(eligible, offset0, 0).astype(np.float32)
+        else:
+            # 128-aligned window starts; the residue rides col 9 (as
+            # el_pad + rem_c0 = off - a_c, the kernel's mask base) and
+            # shifts the replica (build_replicas lane_shift)
+            a_c = ((offset0 - self.el_pad) // 128) * 128
+            starts = np.where(eligible, np.maximum(a_c, 0), 0)
+            mat[:, 9] = np.where(eligible, offset0 - starts,
+                                 self.el_pad).astype(np.float32)
+            mat[:, 12] = starts.astype(np.float32)
         mat[:, 13] = anchor.astype(np.float32)
-        return dict(mat=mat, starts=a_c.astype(np.int32), anchor=anchor,
+        return dict(mat=mat, starts=starts.astype(np.int32), anchor=anchor,
                     lane_shift=(mat[:, 9] - np.float32(self.el_pad)
                                 ).astype(np.int32),
                     eligible=eligible, offset0=offset0, epochs0=epochs0,
@@ -304,9 +355,9 @@ class FusedTracker:
 
     def kernel_args(self, anchored: dict, block_re, block_im, codes_rows):
         """(tensors, statics) of one block's kernel call on this
-        tracker's device: stream, starts, replicas, state. The statics
-        carry the host starts, so the launch checks its read bound
-        without waiting for the card."""
+        tracker's device: stream, starts (windows: the offsets), replicas,
+        state. The statics carry the host starts, so the launch checks
+        its read bound without waiting for the card."""
         dev = self.device
         as_dev = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
         reps = self._replicas(as_dev(codes_rows), anchored["anchor"],
@@ -635,6 +686,9 @@ class FusedTracker:
         span from the static bound the eligibility rule gives every
         start, and the span's telemetry (and, ``with_ledger``, its final
         ledger) leaves in one non-blocking copy. Returns a handle."""
+        if self.layout not in ("direct", "mxu"):
+            raise ValueError("run_blocks and the span API require "
+                             "layout='direct' or 'mxu'")
         led = (self._led_from_state(led_or_state)
                if hasattr(led_or_state, "_fields") else led_or_state)
         stream_re = self._as_stream(stream_re)

@@ -7,8 +7,10 @@
 
 Tracking runs one of two paths, as the JAX package chooses them: with
 ``correlator="fused"`` the fused whole-block kernel (one launch per full
-block, receiver/fused_runner.py), and otherwise (the default "shift",
-"exact", "slice", "pallas") the scanned tracker (tracking.track_block,
+block, on the seg layout after a segment gather; receiver/fused_runner.py:
+mxu, direct, seg or windows, and seg for a block whose epoch count has
+no superstep pairing), and otherwise (the default "shift", "exact",
+"slice", "pallas") the scanned tracker (tracking.track_block,
 ``epochs_per_block + 1`` epochs of torch ops on the card, "pallas" with
 one launch of kernel B5 per epoch). A partial last block (a short final
 read, zero-padded) always takes the scanned tracker with the slice
@@ -19,8 +21,9 @@ blanking, AGC; ops/frontend.py) conditions each raw block on the
 receiver's device, its state carried from block to block on the card.
 
 In steady state (``run(scan_blocks=k)``, fused tracker on the mxu or
-direct layout) spans of k blocks run through the multi-block scan, the
-ledger on the card and one download per span; ``span_pipeline=True``
+direct layout; seg and windows run single blocks) spans of k blocks run
+through the multi-block scan, the ledger on the card and one download
+per span; ``span_pipeline=True``
 chains the spans' ledger on the card and downloads each span's telemetry
 from a collector thread while the next span runs.
 

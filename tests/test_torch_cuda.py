@@ -153,10 +153,109 @@ def test_b5_bad_arguments_raise_on_card(card):
 def test_scan_receiver_on_card(card):
     """1.5 s of the 24-satellite scene through the scanned tracker with
     correlator="pallas": every PRN tracked within 40 Hz, B5 launched
-    once per epoch (blocks x 501), B1 and B3 never."""
+    once per epoch (blocks x 501), no other kernel."""
     sats, sig = chip_smoke._scene(1.5)
     rx, summary, launches = chip_smoke._run_receiver(
         torch, sats, sig, "test", correlator="pallas")
-    assert launches == {"track_block_fused_mxu": 0,
-                        "track_block_fused_direct": 0,
-                        "epl_correlate_pallas": 3 * 501}, launches
+    chip_smoke._expect_launches(launches, epl_correlate_pallas=3 * 501)
+
+
+# the per-epoch layouts: B4a (windows), B4b (seg) with B4c, B6 (resident)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("feed", ["windows", "seg", "resident"])
+def test_epoch_kernel_matches_plain_on_card(card, feed, variant):
+    """B4a and B6 at 20 ms blocks, B4b at 15 (an odd epoch count), 32
+    channels: each kernel against its plain version open loop (pieces of
+    10 epochs, seg 5, from the kernel's state) within the CPU kernel
+    tests' tolerances; B6 also against B4a, kernel to kernel."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    inp = chip_smoke.epoch_inputs(torch, feed, VARIANTS[variant],
+                                  device=card,
+                                  block_ms=15 if feed == "seg" else 20)
+    count = {"windows": "windows_launch_count", "seg": "seg_launch_count",
+             "resident": "resident_launch_count"}[feed]
+    before = getattr(ep, count)
+    tk, sk, _ = chip_smoke.epoch_open_loop(
+        torch, feed, inp["args"], inp["kw"], piece=5 if feed == "seg" else 10)
+    torch.cuda.synchronize()
+    assert getattr(ep, count) > before
+    active = sk[:, 7].cpu().numpy()
+    if variant == "forced_death":
+        assert not active.any()
+    else:
+        assert active[:24].all() and not active[24:].any()
+    if feed == "resident":
+        chip_smoke.resident_vs_windows(torch, inp, piece=10)
+
+
+@pytest.mark.cuda
+def test_gather_segments_matches_plain_on_card(card):
+    """B4c bit for bit against its plain version, on an aligned stream
+    (16-byte copies) and on one 4 bytes off (4-byte copies); one launch
+    counted per call, none for the plain."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    inp = chip_smoke.epoch_inputs(torch, "seg", {}, device=card, block_ms=15)
+    (sre, sim, starts, l_seg), g_kw = inp["gather"]
+    for shift in (0, 1):
+        re, im = sre[shift:], sim[shift:]
+        before = ep.gather_launch_count
+        got = fused.gather_segments(re, im, starts, l_seg, **g_kw)
+        ref = fused.gather_segments_reference(re, im, starts, l_seg, **g_kw)
+        torch.cuda.synchronize()
+        assert ep.gather_launch_count == before + 1
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_epoch_read_bounds_raise_on_card(card):
+    """A launch past its read bound raises before it launches."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    seg = chip_smoke.epoch_inputs(torch, "seg", {}, device=card, block_ms=15)
+    (sre, sim, starts, l_seg), g_kw = seg["gather"]
+    res = chip_smoke.epoch_inputs(torch, "resident", {}, device=card,
+                                  block_ms=20)
+    before = chip_smoke._launch_counts()
+    far = g_kw["starts_host"].copy()
+    far[0] = (sre.shape[0] - l_seg + 128) // 128 * 128
+    with pytest.raises(ValueError, match="out of bounds"):
+        fused.gather_segments(sre, sim, starts, l_seg, starts_host=far)
+    with pytest.raises(ValueError, match="starts_host|host copy"):
+        fused.gather_segments(sre, sim, starts, l_seg)
+    with pytest.raises(ValueError, match="out of bounds"):
+        fused.track_block_fused_seg(*seg["args"], **dict(
+            seg["kw"], t_epochs=seg["kw"]["t_epochs"] + 2))
+    with pytest.raises(ValueError, match="out of bounds"):
+        fused.track_block_fused_resident(*res["args"], **dict(
+            res["kw"], t_epochs=res["kw"]["t_epochs"] + 20))
+    assert chip_smoke._launch_counts() == before
+    assert ep.MAX_WP == 16384
+
+
+@pytest.mark.cuda
+def test_epoch_kernel_widest_window_on_card(card):
+    """B4b at the widest window the port takes (wp = 16384, ROADMAP C6),
+    whose replica rows (320 KB) no longer fit in shared memory and are
+    read from global memory: against its plain version, epoch by epoch,
+    on random segments and replicas."""
+    n0, wp, t_epochs, c = 8184, 16384, 4, 2
+    gen = torch.Generator(device=card).manual_seed(5)
+    l_seg = fused.seg_length(t_epochs, n0, wp)
+    seg = [torch.randn((c, l_seg), generator=gen, device=card)
+           for _ in range(2)]
+    reps = torch.sign(torch.randn((c, 5, wp), generator=gen, device=card))
+    st = torch.zeros((c, fused.N_FIELDS), device=card)
+    st[:, 0], st[:, 3], st[:, 7], st[:, 11] = 800.0, 1.023e6, 1.0, 1.0
+    st[:, 9] = torch.tensor([3.0, 100.0], device=card)
+    kw = dict(t_epochs=t_epochs, n0=n0, wp=wp, fs=8_184_000.0)
+    # within chip_smoke.compare's tolerances, epoch by epoch
+    chip_smoke.epoch_open_loop(torch, "seg", (*seg, reps, st), kw, piece=1)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="C6"):
+        fused.track_block_fused_seg(
+            *seg, torch.zeros((c, 5, wp + 128), device=card), st,
+            **dict(kw, wp=wp + 128))

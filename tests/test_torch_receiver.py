@@ -192,7 +192,7 @@ def test_receiver_defaults_to_cuda():
 @pytest.mark.parametrize("kw,item", [
     (dict(acq_kw=dict(engine="conv")), "A11"),
     (dict(par_kw=dict(channel_axis=2)), "A14"),
-    (dict(track_kw=dict(correlator="fused", fused_layout="seg")), "B4"),
+    (dict(acq_kw=dict(signal="galileo_e1b")), "A16"),
 ])
 def test_unported_receiver_options_raise(kw, item):
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,

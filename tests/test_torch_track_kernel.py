@@ -279,11 +279,12 @@ class TestConstruction:
         ft = self._ft()
         assert (ft.k_epochs, ft.n_rows, ft.wp % 128) == (5, 8, 0)
 
-    def test_odd_block_ms_raises(self):
-        # no superstep pairing on mxu or direct: the JAX package runs the
-        # seg layout there (B4b fed by B4c), not ported yet
-        with pytest.raises(NotImplementedError, match="B4"):
-            self._ft(t_epochs=7)
+    def test_odd_block_ms_resolves_to_seg(self):
+        # no superstep pairing on mxu or direct: seg (B4b fed by B4c), as
+        # the JAX package resolves it
+        ft = self._ft(t_epochs=7)
+        assert (ft.layout, ft.k_epochs, ft.n_rows) == ("seg", None, 5)
+        assert ft.l_seg == fused.seg_length(7, N0, ft.wp)
 
     def test_short_buffer_raises(self):
         with pytest.raises(ValueError, match="buffer too short"):
@@ -297,8 +298,7 @@ class TestConstruction:
                                  np.zeros(2, np.int32))
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(layout="seg"), "B4"), (dict(shared_fetch=True), "B2"),
-        (dict(layout="windows"), "B4"), (dict(mesh=object()), "A14")])
+        (dict(shared_fetch=True), "B2"), (dict(mesh=object()), "A14")])
     def test_unported_options_raise(self, kw, item):
         cfg = TrackConfig(n_channels=2, correlator="fused")
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
