@@ -67,7 +67,20 @@ GPU:
      seg, B4b and B4c once per block), and 500 ms blocks on the windows
      layout (B4a once per block) against the direct layout; every PRN
      tracked within 40 Hz;
- 18. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 18. kernel B2 (the shared fetch, FusedTracker(shared_fetch=True))
+     against its plain version at full width, open loop, in the power,
+     Costas and forced-death variants, full and lean telemetry, and
+     against B1 kernel to kernel, bit for bit, on the tracker's own
+     inputs with the base clamped at 0 and with the channels moved by
+     whole code periods to random starts across [base, base +
+     spread_cap] above a base of the guard's;
+ 19. B2's path on the 10 s scene: FusedTracker(shared_fetch=True) as
+     single blocks and as synchronous 8-block spans on the slim2 wire,
+     every downloaded array and the final ledger equal to the same run
+     with shared_fetch=False, B2 launched once per block and B1 never;
+ 20. B2's time per block beside B1's in turns, its plain version's and
+     its bound;
+ 21. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -183,52 +196,79 @@ def phase_build():
 
 
 def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
-                      block_ms=BLOCK_MS, layout="mxu"):
+                      block_ms=BLOCK_MS, layout="mxu", shared_fetch=False,
+                      spread_seed=None):
     """One block's kernel inputs at the receiver's full width: a
     24-satellite aligned ledger (channels started on each satellite's
     code boundary and true Doppler) plus idle channels, through the
-    FusedTracker's own host re-anchor."""
+    FusedTracker's own host re-anchor (``shared_fetch``: B2's [C + 1]
+    starts and ``spread_cap``; ``spread_seed``: see _scene_tracker)."""
     ft, args, kw, _ = _full_width(torch, device, cfg_kw, n_channels,
-                                  block_ms, layout)
+                                  block_ms, layout, shared_fetch,
+                                  spread_seed)
     return ft, args, kw
 
 
-def _full_width(torch, device, cfg_kw, n_channels, block_ms, layout):
+def _full_width(torch, device, cfg_kw, n_channels, block_ms, layout,
+                shared_fetch=False, spread_seed=None):
     """full_width_inputs, and the channels' code rows on the card."""
+    from gnss_sdr_tpu_torch.models import SatelliteScenario, synthesize
+
+    ft, st, rows, history = _scene_tracker(
+        torch, device, cfg_kw, n_channels, block_ms, spread_seed,
+        layout=layout, shared_fetch=shared_fetch)
+    sig = synthesize(scene_sats(SatelliteScenario),
+                     history + block_ms * ft.n0, FS, noise_std=1.0, seed=3)
+    anc = ft.anchor_block(st)
+    args, kw = ft.kernel_args(anc, np.real(sig).astype(np.float32),
+                              np.imag(sig).astype(np.float32), rows)
+    return ft, args, kw, rows
+
+
+def _scene_tracker(torch, device, cfg_kw, n_channels, block_ms,
+                   spread_seed=None, **ft_kw):
+    """A FusedTracker at 2.046 MHz over windows of [history | block]
+    (history: the acquisition's samples and two code periods), and the
+    24-satellite scene's ledger: each channel started where its
+    satellite's code phase crosses a period boundary, at its true
+    Doppler, the rest idle. With ``spread_seed`` each channel starts
+    whole code periods later instead, still on its satellite's code
+    boundary: in a random window [X, X + n0) deep in the history, some a
+    period further where that stays within 2304 samples of X, so the
+    window starts spread at random across less than B2's spread_cap
+    above a base the guard does not clamp. Returns (tracker, ledger, the
+    channels' code rows on ``device``, history)."""
     from gnss_sdr_tpu_torch.config import AcqConfig, TrackConfig
-    from gnss_sdr_tpu_torch.models import GPS_L1CA, SatelliteScenario, synthesize
+    from gnss_sdr_tpu_torch.models import GPS_L1CA, SatelliteScenario
     from gnss_sdr_tpu_torch.receiver import tracking as trk
     from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
     from gnss_sdr_tpu_torch.receiver.fused_runner import FusedTracker
 
     n0 = GPS_L1CA.samples_per_code(FS)
-    t_epochs = block_ms
     cfg = TrackConfig(n_channels=n_channels, correlator="fused", **cfg_kw)
     params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
-    acq_len = AcquisitionEngine(AcqConfig(), GPS_L1CA, FS,
-                                device="cpu").samples_needed
-    history = acq_len + 2 * n0
-    buf_len = history + t_epochs * n0
+    history = AcquisitionEngine(AcqConfig(), GPS_L1CA, FS,
+                                device="cpu").samples_needed + 2 * n0
     codes = trk.make_sampled_code_table(GPS_L1CA, FS, 32,
                                         window=params.window)
-    ft = FusedTracker(params, cfg, GPS_L1CA, FS, codes, t_epochs, buf_len,
-                      layout=layout, device=device)
-    sats = scene_sats(SatelliteScenario)
-    sig = synthesize(sats, buf_len, FS, noise_std=1.0, seed=3)
+    ft = FusedTracker(params, cfg, GPS_L1CA, FS, codes, block_ms,
+                      history + block_ms * n0, device=device, **ft_kw)
+    rng = None if spread_seed is None else np.random.default_rng(spread_seed)
+    x0 = 0 if rng is None else int(rng.integers(3 * n0, 10 * n0))
     st = trk.init_state(n_channels)
-    for ch, s in enumerate(sats[:n_channels]):
-        # sample where the code phase crosses a period boundary
+    for ch, s in enumerate(scene_sats(SatelliteScenario)[:n_channels]):
         off = int(round((1023.0 - s.code_phase_chips) % 1023.0
                         * FS / GPS_L1CA.code_rate_hz))
         if off <= ft.el_pad:
             off += n0
+        if rng is not None:
+            off += -(-(x0 - off) // n0) * n0
+            if off + n0 - x0 <= 2304 and rng.random() < 0.5:
+                off += n0
         st = trk.start_channel(st, ch, s.prn - 1, s.doppler_hz, off,
                                GPS_L1CA.code_rate_hz)
     rows = torch.from_numpy(codes[np.maximum(st.prn_idx, 0)]).to(device)
-    anc = ft.anchor_block(st)
-    args, kw = ft.kernel_args(anc, np.real(sig).astype(np.float32),
-                              np.imag(sig).astype(np.float32), rows)
-    return ft, args, kw, rows
+    return ft, st, rows, history
 
 
 def compare(tk, sk, tr, sr):
@@ -368,16 +408,7 @@ def _timed_turns(torch, kernel, plain, plain_passes=PLAIN_PASSES,
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
 
     def time_kernel(passes):
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(passes)]
-        for start, end in events:
-            flush.zero_()                    # evict the 50 MB L2
-            start.record()
-            kernel()
-            end.record()
-        torch.cuda.synchronize()
-        return [start.elapsed_time(end) for start, end in events]
+        return _time_queued(torch, kernel, passes, flush)
 
     def time_synced(fn, passes):
         times = []
@@ -401,6 +432,22 @@ def _timed_turns(torch, kernel, plain, plain_passes=PLAIN_PASSES,
     k2 = time_kernel(kernel_passes)
     p2 = time_synced(plain, plain_passes // 2)
     return k1 + k2, p1 + p2, time_synced(kernel, kernel_passes)
+
+
+def _time_queued(torch, kernel, passes, flush):
+    """Times (ms) of ``passes`` calls of ``kernel`` queued back to back,
+    CUDA events around each and ``flush`` zeroed before each (the 50 MB
+    L2 evicted), one synchronise at the end."""
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(passes)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        kernel()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
 
 
 def _bound(n_bytes, f32_ops, bf16_ops=0.0):
@@ -569,6 +616,7 @@ def _launch_counts():
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     return {"track_block_fused_mxu": fused.launch_count,
+            "_mxu_kernel_shared": fused.shared_launch_count,
             "track_block_fused_direct": fused.direct_launch_count,
             "epl_correlate_pallas": b5.launch_count,
             "track_block_fused": ep.windows_launch_count,
@@ -884,17 +932,27 @@ def phase_b5_timing(torch):
         n = sum(e.count for e in per)
         return us / 1e3, n
 
+    def profiled_whole():
+        """A profiled pass that saw all of the block's launches: a pass
+        whose trace lost some of them (the profiler's activity buffer can
+        drop events) is taken again, twice at most. Returns (ms, passes
+        taken)."""
+        for tries in range(1, 4):
+            ms, n = profiled()
+            if n == t_epochs and ms > 0:
+                return ms, tries
+        raise AssertionError(f"the profiler saw {n} of {t_epochs} B5 "
+                             f"launches ({ms} ms) in 3 passes")
+
     for args in inputs[:3]:
         b5.epl_correlate_pallas(*args, **kw)
         corr.epl_correlate_one_shift(*args, **kw)
     torch.cuda.synchronize()
     # in turns: plain, kernel, kernel, plain
     p1 = timed(corr.epl_correlate_one_shift)
-    k1_ms, k1_n = profiled()
-    k2_ms, k2_n = profiled()
+    k1_ms, k1_tries = profiled_whole()
+    k2_ms, k2_tries = profiled_whole()
     p2 = timed(corr.epl_correlate_one_shift)
-    assert k1_n == k2_n == t_epochs and k1_ms > 0 and k2_ms > 0, \
-        (k1_n, k2_n, k1_ms, k2_ms)
     ev = timed(b5.epl_correlate_pallas)
     # the host's side: 501 launches back to back, wall clock to the sync
     t0 = time.perf_counter()
@@ -905,6 +963,7 @@ def phase_b5_timing(torch):
     bound, bound_by, n_bytes, ops = _b5_bound(inputs[0], t_epochs)
     res = dict(
         ms=(k1_ms + k2_ms) / 2, ms_passes=[k1_ms, k2_ms],
+        profiled_tries=[k1_tries, k2_tries],
         ms_per_launch=(k1_ms + k2_ms) / 2 / t_epochs,
         events_ms_per_launch_median=statistics.median(ev),
         plain_ms=(sum(p1) + sum(p2)) / 2,
@@ -1360,6 +1419,300 @@ def phase_epoch_receivers(torch):
     return {"seg": ls, "windows": lw, "direct": ld}
 
 
+# ---------------------------------------------------------------------------
+# the shared fetch: B2 (FusedTracker(shared_fetch=True))
+# ---------------------------------------------------------------------------
+
+def shared_cases(torch, device, cfg_kw, block_ms=BLOCK_MS, seed=0):
+    """B2's full-width inputs through the tracker's own re-anchor, two
+    ways: "clamped", the scene's ledger (every window starts below
+    spread_cap, so the base is clamped at 0), and "spread", the ledger
+    moved by whole code periods to random starts across the cap above a
+    base of the guard's own (_scene_tracker's ``spread_seed``). Returns
+    {name: (args, kw)}."""
+    out = {}
+    for name, spread_seed in (("clamped", None), ("spread", seed)):
+        ft, args, kw = full_width_inputs(torch, device, cfg_kw,
+                                         block_ms=block_ms,
+                                         shared_fetch=True,
+                                         spread_seed=spread_seed)
+        host = np.asarray(kw["starts_host"])
+        c, cap = args[4].shape[0], kw["spread_cap"]
+        assert cap == 2560 and host.shape == (c + 1,)
+        dc = host[:c] - host[c]
+        if name == "clamped":
+            assert host[c] == 0, host
+        else:
+            assert host[c] > 0 and dc.max() == cap, host
+        assert (dc >= 0).all() and (dc <= cap).all()
+        out[name] = (args, kw)
+    return out
+
+
+def offcode_case(args, kw, seed):
+    """B2's inputs with every window start replaced by the base plus a
+    random 128-multiple in [0, spread_cap], the base a random 128-multiple
+    well above the cap: the ledger's code offsets stay as they were, so
+    no channel's code lines up with its window and every channel tracks
+    noise. B2 is held to B1 on it kernel to kernel; against the plain
+    version such channels' carrier rates part by more than compare's
+    1 mHz floor (tools/port_b2_offcode_probe.py, PERF.md section 7).
+    Returns (args, kw)."""
+    rng = np.random.default_rng(seed)
+    c, cap = args[4].shape[0], kw["spread_cap"]
+    host = np.empty(c + 1, np.int32)
+    host[c] = 128 * int(rng.integers(20, 100))
+    host[:c] = host[c] + 128 * rng.integers(0, cap // 128 + 1, size=c)
+    return ((args[0], args[1], args[2].new_tensor(host), *args[3:]),
+            dict(kw, starts_host=host))
+
+
+def direct_span_of(kw):
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    return fused.direct_span(kw["k_epochs"], kw["n0"], kw["wp"])
+
+
+def b1_of(args, kw):
+    """B1's arguments on the same windows as B2's ``args``/``kw``: the
+    starts without the base, no spread_cap."""
+    c = args[4].shape[0]
+    b1_kw = {k: v for k, v in kw.items() if k != "spread_cap"}
+    b1_kw["starts_host"] = np.asarray(kw["starts_host"])[:c]
+    return (args[0], args[1], args[2][:c].contiguous(), *args[3:]), b1_kw
+
+
+def b2_equals_b1(torch, args, kw):
+    """B2 on [C + 1] starts against B1 on starts[:C], kernel to kernel:
+    telemetry and state torch.equal. Returns the launches of each."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    before = (fused.shared_launch_count, fused.launch_count)
+    t2, s2 = fused.track_block_fused_mxu(*args, **kw)
+    b1_args, b1_kw = b1_of(args, kw)
+    t1, s1 = fused.track_block_fused_mxu(*b1_args, **b1_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(t2, t1), "B2 telemetry differs from B1's"
+    assert torch.equal(s2, s1), "B2 state differs from B1's"
+    return (fused.shared_launch_count - before[0],
+            fused.launch_count - before[1])
+
+
+def phase_shared_check(torch, block_ms=BLOCK_MS):
+    """B2 at full width (32 channels, 24 tracking and 8 idle), on the
+    clamped and the spread inputs of shared_cases, in full and lean
+    telemetry: against its plain version open loop (power, Costas and
+    forced death), and against B1 kernel to kernel, bit for bit, on those
+    and on offcode_case's. Returns the largest |error| of the
+    correlations against the plain version."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    max_abs = 0.0
+    for name, cfg_kw in VARIANTS_EPOCH.items():
+        cases = shared_cases(torch, "cuda", cfg_kw, block_ms=block_ms,
+                             seed=len(name))
+        runs = [(case, mode) for case in cases for mode in ("full", "lean")]
+        for case, mode in runs:
+            c_args, c_kw = cases[case]
+            c_kw = dict(c_kw, telem_mode=mode)
+            before = fused.shared_launch_count
+            tk, sk, err = open_loop_compare(torch, c_args, c_kw)
+            assert fused.shared_launch_count > before
+            active = sk[:, 7].cpu().numpy()
+            if name == "forced_death":
+                assert not active.any(), "forced death left a channel alive"
+            else:
+                # from the scene's own starts every satellite tracks;
+                # moved by whole code periods a channel starts at another
+                # carrier phase, and one that starts a few degrees from
+                # the Costas loop's +-90 degree point can lose its lock,
+                # as in the JAX kernel (PERF.md section 7); compare holds
+                # the kernel's states to the plain version's
+                assert not active[24:].any()
+                assert case == "spread" or active[:24].all(), active
+            max_abs = max(max_abs, err["corr_max_abs"])
+            lost = np.flatnonzero(active[:24] < 0.5).tolist()
+            print(f"B2 kernel vs plain, open loop [{name}, {case} base "
+                  f"{int(c_kw['starts_host'][-1])}, {mode}]: "
+                  + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()})
+                  + (f"; channels lost {lost}" if lost and
+                     name != "forced_death" else ""))
+        cases["offcode"] = offcode_case(*cases["clamped"], seed=len(name))
+        for case, (c_args, c_kw) in cases.items():
+            for mode in ("full", "lean"):
+                n2, n1 = b2_equals_b1(torch, c_args,
+                                      dict(c_kw, telem_mode=mode))
+                assert (n2, n1) == (1, 1), (n2, n1)
+        print(f"B2 vs B1, kernel to kernel [{name}]: telemetry and state "
+              f"equal bit for bit, {len(cases)} start layouts x full/lean")
+    return max_abs
+
+
+def _drive_tracker(torch, sig, shared, wire, span):
+    """FusedTracker on ``sig`` (the 24-satellite scene, 32 channels, 500 ms
+    blocks, the ledger of full_width_inputs), as single blocks (span 1:
+    run_block + rebase) or as synchronous spans of ``span`` blocks
+    (submit_span, each from the last one's ledger on the card). The
+    launch counts are set to 0 just before and read just after. Returns
+    (the downloaded arrays of every block or span, the final ledger as
+    arrays, whether each channel is active at the end, launches,
+    blocks, seconds)."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    ft, st, rows, history = _scene_tracker(
+        torch, "cuda", {}, N_CHANNELS, BLOCK_MS, layout="mxu", wire=wire,
+        shared_fetch=shared)
+    assert ft.spread_cap == (2560 if shared else 0)
+    block = BLOCK_MS * ft.n0
+    sre = np.ascontiguousarray(sig.real, dtype=np.float32)
+    sim = np.ascontiguousarray(sig.imag, dtype=np.float32)
+    n_blocks = (sre.size - history) // block
+    out = []
+    _reset_launch_counts()                  # this path starts here
+    t0 = time.perf_counter()
+    if span == 1:
+        for b in range(n_blocks):
+            w = slice(b * block, b * block + history + block)
+            st, tl = ft.run_block(st, sre[w], sim[w], rows)
+            out.append([np.asarray(v) for v in tl])
+            st = trk.rebase(st, block)
+        led = [np.asarray(v) for v in st]
+        active = np.asarray(st.active)
+    else:
+        led_dev, b0 = st, 0
+        while b0 < n_blocks:
+            n = min(span, n_blocks - b0)
+            w = slice(b0 * block, b0 * block + history + n * block)
+            h = ft.submit_span(led_dev, sre[w], sim[w], rows, n,
+                               with_ledger=True)
+            out.append(h.ys.fetch())
+            led_dev, b0 = h.led, b0 + n
+        led = out[-1][-6:]
+        active = led[0] > 0.5
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, led, active, _launch_counts(), n_blocks, seconds
+
+
+def phase_shared_path(torch, seconds=STEADY_S, span=STEADY_SPAN):
+    """B2's path on the 24-satellite scene, 10 s: FusedTracker with
+    shared_fetch=True as single blocks (f32 telemetry, full mode) and as
+    synchronous ``span``-block spans on the slim2 wire (lean mode), each
+    against
+    the same run with shared_fetch=False: every downloaded array and the
+    final ledger equal bit for bit; B2 launched once per block, B1 never
+    (and B1 once per block in the comparison run). Returns B2's
+    launches on the span run."""
+    _, sig = _scene(seconds)
+    res = {}
+    for label, wire, n_span in (("single-block", "f32", 1),
+                                ("spans", "slim2", span)):
+        for shared in (True, False):
+            res[shared] = _drive_tracker(torch, sig, shared, wire, n_span)
+        (out_s, led_s, active, l_s, n, sec_s), \
+            (out_b, led_b, _, l_b, _, sec_b) = res[True], res[False]
+        _expect_launches(l_s, _mxu_kernel_shared=n)
+        _expect_launches(l_b, track_block_fused_mxu=n)
+        assert len(out_s) == len(out_b)
+        n_arrays = 0
+        for xs, ys in zip(out_s + [led_s], out_b + [led_b]):
+            assert len(xs) == len(ys)
+            for x, y in zip(xs, ys):
+                assert np.array_equal(x, y), label
+                n_arrays += 1
+        assert active[:24].all() and not active[24:].any(), active
+        print(f"B2 path [{label}, wire {wire}]: {n} blocks, {n_arrays} "
+              f"arrays equal bit for bit to shared_fetch=False, 24 channels "
+              f"tracking; launches {json.dumps(l_s)}; wall {sec_s:.3f} s "
+              f"(B1 {sec_b:.3f} s)")
+    return l_s["_mxu_kernel_shared"]
+
+
+SHARED_CLUSTERS = (2, 4, 8, 1)          # B2 cluster sizes timed
+
+
+def phase_shared_timing(torch):
+    """B2's time per 500 ms block at full width beside B1's, in turns
+    (B1, then B2 at each cluster size of SHARED_CLUSTERS, then the same
+    backwards; events around each queued launch, the L2 flushed, median
+    of 30 each), on the tracker's own inputs, each cluster size's result
+    equal to B1's bit for bit; its plain version's (two passes); its
+    bound, B1's function on the same samples: each input read once (the
+    stream, [C + 1] starts, bank, state) and the telemetry and state
+    written once, against B1's operations. The slices the clusters read
+    (one [span + spread_cap] slice per cluster per superstep) are
+    reported beside it as ``slice_bytes``, at the wrapper's first
+    cluster size."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    ft, args, kw = full_width_inputs(torch, "cuda", {}, shared_fetch=True)
+    c = args[4].shape[0]
+    b1_args, b1_kw = b1_of(args, kw)
+    cs = fused.shared_cluster_sizes(c)[0]
+    assert cs == SHARED_CLUSTERS[0], cs
+
+    def b1():
+        return fused.track_block_fused_mxu(*b1_args, **b1_kw)
+
+    def b2_at(n):
+        def run():
+            # the cluster sizes the wrapper tries: n alone, for this launch
+            default = fused.shared_cluster_sizes
+            fused.shared_cluster_sizes = lambda c_channels: (n,)
+            try:
+                return fused.track_block_fused_mxu(*args, **kw)
+            finally:
+                fused.shared_cluster_sizes = default
+        return run
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    t_ref, s_ref = b1()
+    for n in SHARED_CLUSTERS:
+        t_n, s_n = b2_at(n)()
+        assert torch.equal(t_n, t_ref) and torch.equal(s_n, s_ref), n
+    for _ in range(3):
+        b1()
+    torch.cuda.synchronize()
+    times = {0: []} | {n: [] for n in SHARED_CLUSTERS}
+    order = (0,) + SHARED_CLUSTERS
+    for n in order + order[::-1]:
+        times[n] += _time_queued(torch, b1 if n == 0 else b2_at(n),
+                                 KERNEL_PASSES, flush)
+    t1, t2 = times[0], times[cs]
+    ps = []
+    for _ in range(2):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused.track_block_fused_mxu_reference(*args, **kw)
+        torch.cuda.synchronize()
+        ps.append((time.perf_counter() - t0) * 1e3)
+    telem, st = b2_at(cs)()
+    lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
+    r_rows = args[3].shape[1]
+    span_u = direct_span_of(kw) + kw["spread_cap"]
+    n_super = kw["t_epochs"] // kw["k_epochs"]
+    slice_bytes = (c // cs) * n_super * span_u * 2 * 4
+    n_bytes = _nbytes(*args, telem, st)
+    bf16_ops = 2.0 * 2 * r_rows * lanes
+    f32_ops = MIX_OPS_PER_LANE * lanes
+    bound, bound_by = _bound(n_bytes, f32_ops, bf16_ops)
+    res = dict(ms=statistics.median(t2), ms_min=min(t2), ms_max=max(t2),
+               b1_ms_in_turns=statistics.median(t1), b1_min=min(t1),
+               b1_max=max(t1),
+               ms_by_cluster={n: statistics.median(times[n])
+                              for n in SHARED_CLUSTERS},
+               plain_ms=statistics.median(ps),
+               plain_passes=ps, bound_ms=bound, bound_by=bound_by,
+               bytes=n_bytes, slice_bytes=slice_bytes, cluster=cs,
+               span_u=span_u, mixed_lanes=lanes, bf16_ops=bf16_ops,
+               f32_ops=f32_ops, library_ms=None)
+    print("timing [B2 shared fetch] (ms per 500 ms block, 32 ch): "
+          + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in res.items()}))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1386,6 +1739,9 @@ def main() -> int:
     epoch_abs, resident_launches = phase_epoch_check(torch)
     etiming = phase_epoch_timing(torch)
     epoch_rx = phase_epoch_receivers(torch)
+    shared_abs = phase_shared_check(torch)
+    shared_launches = phase_shared_path(torch)
+    stiming = phase_shared_timing(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -1406,6 +1762,21 @@ def main() -> int:
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "_mxu_kernel_shared",
+        "route": "cuda",
+        "source": src + "track_block_mxu.cu",
+        "replaces": replaces + "1713",
+        # its path: FusedTracker(shared_fetch=True), synchronous spans
+        "launches": shared_launches,
+        "max_abs_err": shared_abs,
+        "equals_b1_bit_for_bit": True,
+        "ms": stiming["ms"],
+        "b1_ms_in_turns": stiming["b1_ms_in_turns"],
+        "plain_ms": stiming["plain_ms"],
+        "bound_ms": stiming["bound_ms"],
+        "bound_by": stiming["bound_by"],
         "library_ms": None,
     }, {
         "name": "track_block_fused_direct",

@@ -27,6 +27,26 @@
 // where wanted. The correlations' f32 sums run in another order than
 // the plain version's, so the two differ by ulps there.
 //
+// Shared fetch (kernel B2, replacing _mxu_kernel_shared :1713, which
+// the TPU wrapper selects with spread_cap > 0): the template flag
+// kShared. The TPU kernel makes one DMA of [span + spread_cap] samples
+// per superstep for all channels instead of C overlapping window DMAs.
+// Here the grid is still one block per channel, launched in thread-block
+// clusters of `cs` blocks (cudaLaunchKernelEx with a cluster dimension);
+// each cluster holds the superstep's slice [base + off_j, + span_u) of
+// both components in its distributed shared memory, block rank r the
+// part [r * chunk, (r + 1) * chunk), chunk a power of two (a sample's
+// owner is a shift, its place a mask). Per superstep: a cluster barrier
+// (the slice is staged), stage 1a, stage 1b reading sample
+// dc + a_e + m of the slice (dc = starts[c] - base) from the owning
+// block's shared memory, a second cluster barrier (every block is done
+// with the slice), then each block stages its part of the next slice
+// while it runs stages 2-4. Every block runs every superstep (idle
+// channels run masked), so every block reaches every barrier, and none
+// exits while another can still read its shared memory. Only where the
+// samples are read from differs from B1, so the result is B1's bit for
+// bit. The wrapper checks the slices' read bound on the host.
+//
 // Telemetry modes: the template flag kLean selects which columns the
 // kernel stores (full: all 21 per epoch; lean: the slim2 wire's feed,
 // see the wrapper's docstring) and nothing else, so both modes run the
@@ -36,9 +56,12 @@
 // stream, replicas and telemetry over 3.35 TB/s). This kernel uses C of
 // the 132 SMs and a serial per-channel chain, so it sits far above it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -48,6 +71,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8;
 constexpr int kMaxR = 16;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
 // constants rounded double -> float, as torch.tensor(x, float32) does
 constexpr float kTwoPi = (float)6.283185307179586;
@@ -67,6 +91,10 @@ struct Params {
   float pll_c1, pll_c2, dll_c1, dll_c2, el_f;
   float aiding_scale, if_freq, costas_thr;
   int aiding, costas, interp;
+  // shared fetch (B2): the cluster size, each block's part of the slice
+  // (a power of two, 2^chunk_shift) and the slice's length, span +
+  // spread_cap (samples)
+  int cs, chunk, span_u, chunk_shift;
 };
 
 __device__ float atan_poly(float x) {
@@ -313,10 +341,29 @@ __device__ void chain(const Params& p, float* st, const float* corr,
   st[11] = le_f;  // 9 (window offset) and 10 (frac0) carry through
 }
 
-template <bool kLean>
+// B2: this block's part of superstep j's slice, from global memory
+// into its shared memory (the cluster barrier that follows publishes it)
+__device__ void stage_slice(const Params& p, long long base, int j, int rank,
+                            float* slot_re, float* slot_im) {
+  const long long off = ((long long)j * p.k_epochs * p.n0 / 128) * 128;
+  const int lo = rank * p.chunk;
+  const int n = min(p.chunk, p.span_u - lo);
+  const float* sre = p.stream_re + base + off + lo;
+  const float* sim = p.stream_im + base + off + lo;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    slot_re[i] = sre[i];
+    slot_im[i] = sim[i];
+  }
+}
+
+template <bool kLean, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     track_block_mxu_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // B2: every cluster block's slice part, as pointers into its shared
+  // memory (distributed shared memory)
+  __shared__ const float* peer_re[kMaxCluster];
+  __shared__ const float* peer_im[kMaxCluster];
   const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = p.k_epochs, R = p.r_rows, wp = p.wp, QK = 2 * K;
@@ -330,6 +377,23 @@ __global__ void __launch_bounds__(kThreads)
   float* a_cos = b_sin + 128;                                // [K, w128]
   float* a_sin = a_cos + K * w128;
   float* st = a_sin + K * w128;                              // [12]
+  float* slot_re = st + 12;                                  // B2: [chunk]
+  float* slot_im = slot_re + p.chunk;
+
+  // B2: the shared base and this channel's offset from it
+  long long base = 0;
+  int dc = 0, rank = 0;
+  if constexpr (kShared) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = (int)cluster.block_rank();
+    base = p.starts[p.c_channels];
+    dc = (int)(p.starts[c] - base);
+    if (tid < p.cs) {
+      peer_re[tid] = cluster.map_shared_rank(slot_re, (unsigned)tid);
+      peer_im[tid] = cluster.map_shared_rank(slot_im, (unsigned)tid);
+    }
+    stage_slice(p, base, 0, rank, slot_re, slot_im);
+  }
 
   // replica bank -> shared memory (16-byte copies; wp % 128 == 0)
   {
@@ -341,9 +405,11 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < 12) st[tid] = p.state_in[c * kFields + tid];
   __syncthreads();
 
-  const long long start = p.starts[c];
+  const long long start = kShared ? 0 : p.starts[c];
   const int n_super = p.t_epochs / K;
   for (int j = 0; j < n_super; ++j) {
+    // B2: every block of the cluster has staged its part of slice j
+    if constexpr (kShared) cg::this_cluster().sync();
     const Held h = held(p, st, j);
 
     // ---- stage 1a: carrier trig factors ------------------------------
@@ -374,8 +440,19 @@ __global__ void __launch_bounds__(kThreads)
       float ac = a_cos[e * w128 + q], as = a_sin[e * w128 + q];
       float cth = ac * b_cos[r] - as * b_sin[r];
       float sth = as * b_cos[r] + ac * b_sin[r];
-      long long g = start + h.off + (long long)((e * p.n0 / 128) * 128) + m;
-      float wre = p.stream_re[g], wim = p.stream_im[g];
+      float wre, wim;
+      if constexpr (kShared) {
+        // sample dc + a_e + m of the slice, in its owner's shared memory
+        int s = dc + (e * p.n0 / 128) * 128 + m;
+        int owner = s >> p.chunk_shift;
+        int i_own = s & (p.chunk - 1);
+        wre = peer_re[owner][i_own];
+        wim = peer_im[owner][i_own];
+      } else {
+        long long g = start + h.off + (long long)((e * p.n0 / 128) * 128) + m;
+        wre = p.stream_re[g];
+        wim = p.stream_im[g];
+      }
       float lf = (float)m;
       float mask = (lf >= sl && lf < sl + h.n_t) ? 1.0f : 0.0f;
       float m_re = (wre * cth + wim * sth) * mask;
@@ -383,7 +460,13 @@ __global__ void __launch_bounds__(kThreads)
       tile[e * wp + l] = __float2bfloat16_rn(m_re);
       tile[(K + e) * wp + l] = __float2bfloat16_rn(m_im);
     }
-    __syncthreads();
+    if constexpr (kShared) {
+      // every block is done with slice j: refill this block's part
+      cg::this_cluster().sync();
+      if (j + 1 < n_super) stage_slice(p, base, j + 1, rank, slot_re, slot_im);
+    } else {
+      __syncthreads();
+    }
 
     // ---- stage 2: [2K, wp] x [wp, R], bf16 in, f32 accumulation ------
     {
@@ -448,10 +531,17 @@ extern "C" int track_block_mxu_launch(
     float lock_threshold, int max_lost, float pll_c1, float pll_c2,
     float dll_c1, float dll_c2, int el_shift, float aiding_scale,
     float if_freq, int costas, float costas_thr, int interp, int lean,
-    void* stream) {
-  (void)stream_len;  // the wrapper checks the read bound before launch
+    int spread_cap, int cluster, void* stream) {
+  // returns a CUDA error code, or -1 when no cluster of `cluster` blocks
+  // fits on the card, -2 when the launch needs more shared memory than a
+  // block can have (found before anything is launched: the wrapper then
+  // tries its next cluster size, whose part of the slice is smaller)
+  (void)stream_len;  // the wrapper checks the read bounds before launch
+  const bool shared = spread_cap > 0;
   if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 || r_rows > kMaxR ||
-      wp % 128 || t_epochs % k_epochs || c_channels < 1)
+      wp % 128 || t_epochs % k_epochs || c_channels < 1 ||
+      (shared && (spread_cap % 128 || cluster < 1 || cluster > kMaxCluster ||
+                  c_channels % cluster)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.stream_re = static_cast<const float*>(stream_re);
@@ -483,15 +573,66 @@ extern "C" int track_block_mxu_launch(
   p.aiding = aiding_scale != 0.0f;
   p.costas = costas;
   p.interp = interp;
+  // B2's slice: span + spread_cap samples, cut into `cluster` parts of
+  // a power of two each, so stage 1b finds a sample's owner by a shift
+  // and not by a division (the parts of the highest ranks may be empty)
+  const int span = ((k_epochs - 1) * n0 / 128) * 128 + wp;
+  p.cs = shared ? cluster : 1;
+  p.span_u = shared ? span + spread_cap : 0;
+  p.chunk = 0;
+  p.chunk_shift = 0;
+  if (shared) {
+    const int need = (p.span_u + p.cs - 1) / p.cs;
+    p.chunk = 128;
+    p.chunk_shift = 7;
+    while (p.chunk < need) {
+      p.chunk *= 2;
+      ++p.chunk_shift;
+    }
+  }
   const int qk = 2 * k_epochs, w128 = wp / 128;
   size_t smem = (size_t)(r_rows + qk) * wp * sizeof(__nv_bfloat16) +
-                (size_t)(qk * r_rows + 256 + 2 * k_epochs * w128 + 12) *
+                (size_t)(qk * r_rows + 256 + 2 * k_epochs * w128 + 12 +
+                         2 * p.chunk) *
                     sizeof(float);
-  auto kernel = lean ? track_block_mxu_kernel<true>
-                     : track_block_mxu_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<c_channels, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // the static peer pointer tables sit beside the dynamic memory
+  if (smem + 2 * kMaxCluster * sizeof(void*) > (size_t)smem_max) return -2;
+  auto kernel = shared ? (lean ? track_block_mxu_kernel<true, true>
+                               : track_block_mxu_kernel<false, true>)
+                       : (lean ? track_block_mxu_kernel<true, false>
+                               : track_block_mxu_kernel<false, false>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shared) {
+    kernel<<<c_channels, kThreads, smem, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c_channels, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n_clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (n_clusters < 1) return -1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

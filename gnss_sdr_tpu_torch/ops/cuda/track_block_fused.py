@@ -6,6 +6,12 @@ block (T epochs x C channels), in two layouts.
 kernel body ``_mxu_kernel`` :1603 driving ``_mxu_run_k`` :969). The CUDA
 source is ``gnss_sdr_tpu_torch/csrc/track_block_mxu.cu``.
 
+**mxu, shared fetch** (kernel B2) replaces ``_mxu_kernel_shared``
+(:1713), which the same wrapper selects with ``spread_cap > 0``: B1's
+arithmetic, with each superstep's windows cut from one shared slice of
+the stream (below, "the shared fetch"). Same CUDA source, a template
+flag.
+
 **direct** (kernel B3) replaces ``track_block_fused_direct`` (:848,
 ``_direct_kernel`` :687 over ``_epoch_core`` :76): exact per-epoch
 NCOs, f32 throughout. The CUDA source is
@@ -61,12 +67,23 @@ per-epoch discriminator / lock / loop-filter chain. Only C of 132 SMs work and t
 chain is serial, so the kernel sits far above its bound; wgmma, TMA and
 more channels per SM are later work.
 
+The shared fetch (B2): on the TPU one DMA of [span + spread_cap]
+samples per superstep replaces C overlapping per-channel window DMAs.
+On the card a thread-block cluster (``shared_cluster_sizes`` picks its
+size; one block per channel) stages the superstep's slice once in its distributed shared
+memory, each block a contiguous part of it; after a cluster barrier
+every block reads its channel's window from the owning blocks' shared
+memory at dc = starts[c] - base, and a second barrier lets the slice be
+refilled. Only where a sample is read from changes, so B2 equals B1 bit
+for bit. The slice's read bound is checked on the host (``_check_shared``,
+ROADMAP C3): with the base clamped at 0 it reaches past every channel's
+own window.
+
 What the port drops from the TPU kernel: the C-fold block-diagonal
 contraction and its selection matmuls (on the card it is a per-channel
 [R, wp] x [wp, 2K] product), the identity-matmul transposes, the lane
 rolls (an indexed read reproduces the roll's lane mapping), the
-``ablate`` hooks, the ``pin`` barriers and the shared-fetch variant
-(ROADMAP B2).
+``ablate`` hooks and the ``pin`` barriers.
 """
 from __future__ import annotations
 
@@ -92,15 +109,15 @@ TWO_PI = 6.283185307179586
 TELEM_MODES = ("full", "lean")
 
 # launches of each CUDA kernel (plain ints; the plain versions never
-# count): B1 (mxu) and B3 (direct)
+# count): B1 (mxu), B2 (mxu, shared fetch) and B3 (direct)
 launch_count = 0
+shared_launch_count = 0
 direct_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count, direct_launch_count
-    launch_count = 0
-    direct_launch_count = 0
+    global launch_count, shared_launch_count, direct_launch_count
+    launch_count = shared_launch_count = direct_launch_count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -218,14 +235,37 @@ def build_replicas(codes3x: torch.Tensor, el_shift: int, n0: int, wp: int,
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
+def _superstep_windows(stream_re, stream_im, starts, j, *, k_epochs, n0,
+                       wp, spread_cap=0):
+    """Each channel's [span] window of superstep j, [C, span] per
+    component. B1 reads it at starts[c] + off_j in the stream; B2
+    (``spread_cap > 0``, starts [C + 1], the last the base) slices the
+    superstep's shared [span + spread_cap] at base + off_j and cuts each
+    channel's window out of it at dc = starts[c] - base, as
+    _mxu_kernel_shared does. The samples are the same either way."""
+    span = direct_span(k_epochs, n0, wp)
+    off = (j * k_epochs * n0 // 128) * 128
+    s64 = starts.to(torch.int64)
+    lanes = torch.arange(span, device=starts.device, dtype=torch.int64)
+    if spread_cap:
+        c = starts.shape[0] - 1
+        slot = s64[c] + off + torch.arange(span + spread_cap,
+                                           device=starts.device)
+        sl_re, sl_im = stream_re[slot], stream_im[slot]
+        idx = (s64[:c] - s64[c])[:, None] + lanes[None, :]
+        return sl_re[idx], sl_im[idx]
+    idx = s64[:, None] + off + lanes[None, :]
+    return stream_re[idx], stream_im[idx]
+
+
+def _superstep_reference(st, j, win_re, win_im, bank, *,
                          k_epochs, wp, n0, fs, code_len,
                          lock_threshold, max_lost, pll_c1, pll_c2,
                          dll_c1, dll_c2, el_shift, aiding_scale, if_freq,
                          lock_mode, costas_thr, interp):
-    """One K-epoch superstep for all channels: returns (new state
-    [C, 128], telemetry [K, C, 21]). Follows _mxu_run_k's arithmetic
-    step by step."""
+    """One K-epoch superstep for all channels from their [C, span]
+    windows (_superstep_windows): returns (new state [C, 128], telemetry
+    [K, C, 21]). Follows _mxu_run_k's arithmetic step by step."""
     dev = st.device
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     c_channels = st.shape[0]
@@ -264,7 +304,6 @@ def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
     rem_j_f = f(rem_j)
 
     # ---- stage 1: carrier mix + mask + bf16 window tile ---------------
-    off = (j * kk // 128) * 128
     w128 = wp // 128
     lane = torch.arange(wp, device=dev, dtype=torch.float32)[None, :]
     q128 = torch.arange(128, device=dev, dtype=torch.float32)[None, :]
@@ -272,8 +311,6 @@ def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
     th_b = step * q128
     th_b = (th_b - torch.floor(th_b)) * f(TWO_PI)
     b_c, b_s = torch.cos(th_b), torch.sin(th_b)                 # [C, 128]
-    pos = starts.to(torch.int64)[:, None] + off + torch.arange(
-        wp, device=dev, dtype=torch.int64)[None, :]
     tiles = []
     for e in range(k_epochs):
         a_e = (e * n0 // 128) * 128
@@ -294,8 +331,8 @@ def _superstep_reference(st, j, stream_re, stream_im, starts, bank, *,
         tb_c, tb_s = b_c.repeat(1, w128), b_s.repeat(1, w128)   # lane % 128
         cth = ra_c * tb_c - ra_s * tb_s
         sth = ra_s * tb_c + ra_c * tb_s
-        wre = stream_re[pos + a_e]
-        wim = stream_im[pos + a_e]
+        wre = win_re[:, a_e:a_e + wp]
+        wim = win_im[:, a_e:a_e + wp]
         mask = ((lane >= sl) & (lane < sl + n_t_f)).to(torch.float32)
         m_re = (wre * cth + wim * sth) * mask
         m_im = (wim * cth - wre * sth) * mask
@@ -528,9 +565,10 @@ def _lean_from_full(telem, k_epochs, first_superstep, costas):
 def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
                 t_epochs, k_epochs, n0, wp, lock_mode, starts_host=None,
                 starts_bound=None, first_superstep=0,
-                replica_dtype=torch.bfloat16):
+                replica_dtype=torch.bfloat16, spread_cap=0):
     """Types, shapes, devices, contiguity and the read bound of one
-    launch of either layout (they share the window feed)."""
+    launch of either layout (they share the window feed); with
+    ``spread_cap > 0`` (B2) also the shared slices' read bound."""
     if wp % 128:
         raise ValueError(f"the fused kernels require wp % 128 == 0, "
                          f"got {wp}")
@@ -539,6 +577,9 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
                          f"2*k_epochs={2 * k_epochs}")
     if lock_mode not in ("power", "costas"):
         raise ValueError(f"unknown lock_mode {lock_mode!r}")
+    if spread_cap < 0 or spread_cap % 128:
+        raise ValueError(f"spread_cap must be a 128-multiple >= 0, got "
+                         f"{spread_cap}")
     dev = state_in.device
     for name, t, dt in (("stream_re", stream_re, torch.float32),
                         ("stream_im", stream_im, torch.float32),
@@ -554,13 +595,16 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     c = state_in.shape[0]
+    n_starts = c + 1 if spread_cap else c
     if state_in.shape != (c, N_FIELDS):
         raise ValueError(f"state_in must be [C, {N_FIELDS}], "
                          f"got {tuple(state_in.shape)}")
     if stream_re.ndim != 1 or stream_im.shape != stream_re.shape:
         raise ValueError("stream_re / stream_im must be matching [L]")
-    if starts.shape != (c,):
-        raise ValueError(f"starts must be [C={c}], got {tuple(starts.shape)}")
+    if starts.shape != (n_starts,):
+        what = "[C + 1] (the last the shared base)" if spread_cap else "[C]"
+        raise ValueError(f"starts must be {what}, C={c}, got "
+                         f"{tuple(starts.shape)}")
     if replicas.ndim != 3 or replicas.shape[0] != c or \
             replicas.shape[2] != wp:
         raise ValueError(f"replicas must be [C, R, wp={wp}], "
@@ -573,11 +617,13 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
     # computes its starts on the card and knows only this bound)
     if starts_host is not None and starts_bound is not None:
         raise ValueError("give starts_host or starts_bound, not both")
+    host = None                     # the start values, where known here
     if starts_bound is not None:
         lo, hi = 0, int(starts_bound)
         if starts.device.type == "cpu" and starts.numel():
             # on the host the guarantee itself is checked too
-            s_lo, s_hi = int(starts.min()), int(starts.max())
+            host = starts.numpy()
+            s_lo, s_hi = int(host[:c].min()), int(host[:c].max())
             if s_lo < 0 or s_hi > hi:
                 raise ValueError(f"starts in [{s_lo}, {s_hi}] break their "
                                  f"bound [0, {hi}]")
@@ -591,10 +637,10 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
             host = starts.numpy()
         else:
             host = np.asarray(starts_host)
-            if host.shape != (c,):
-                raise ValueError(f"starts_host must be [C={c}], "
+            if host.shape != (n_starts,):
+                raise ValueError(f"starts_host must be [{n_starts}] (C={c}), "
                                  f"got {host.shape}")
-        lo, hi = int(host.min()), int(host.max())
+        lo, hi = int(host[:c].min()), int(host[:c].max())
     span = direct_span(k_epochs, n0, wp)
     j_last = first_superstep + t_epochs // k_epochs - 1
     last = (j_last * k_epochs * n0 // 128) * 128
@@ -603,6 +649,40 @@ def _check_args(stream_re, stream_im, starts, replicas, state_in, *,
             f"window read out of bounds: starts in [{lo}, {hi}], last "
             f"superstep reads to {hi + last + span} > "
             f"len(stream)={stream_re.shape[0]}")
+    if spread_cap:
+        _check_shared(host, c, spread_cap, starts_bound, last + span,
+                      stream_re.shape[0])
+
+
+def _check_shared(host, c, spread_cap, starts_bound, tail, length):
+    """B2's slices: every channel's window inside the shared slice
+    (dc = starts[c] - base a 128-multiple in [0, spread_cap], base a
+    128-multiple >= 0) and the last superstep's slice inside the stream,
+    base + spread_cap + ``tail`` <= ``length`` (ROADMAP C3). The per-
+    channel bound does not imply it when the base is clamped at 0
+    (max(starts) < spread_cap): the slice then reads past every window.
+    From a static bound (the scan, whose base is max(0, max(starts) -
+    spread_cap)) the slice ends by max(bound, spread_cap) + tail."""
+    ends = []
+    if host is not None:
+        base = int(host[c])
+        dc = host[:c].astype(np.int64) - base
+        if base < 0 or base % 128:
+            raise ValueError(f"shared base {base} must be a 128-multiple "
+                             ">= 0")
+        if (dc % 128).any() or dc.min() < 0 or dc.max() > spread_cap:
+            raise ValueError(
+                f"shared-fetch starts must lie in [base, base + spread_cap="
+                f"{spread_cap}] on 128-sample steps, got offsets from the "
+                f"base {dc.tolist()}")
+        ends.append(base + spread_cap + tail)
+    if starts_bound is not None:
+        ends.append(max(int(starts_bound), spread_cap) + tail)
+    if max(ends) > length:
+        raise ValueError(
+            f"shared window read out of bounds (ROADMAP C3): the last "
+            f"superstep's [span + spread_cap] slice reads to {max(ends)} > "
+            f"len(stream)={length}")
 
 
 def track_block_fused_mxu_reference(
@@ -611,11 +691,16 @@ def track_block_fused_mxu_reference(
     max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0, dll_c2=0.0,
     el_shift=1, aiding_scale=0.0, if_freq=0.0, lock_mode="power",
     costas_thr=0.4, interp=False, telem_mode="full", starts_host=None,
-    starts_bound=None, first_superstep=0,
+    starts_bound=None, first_superstep=0, spread_cap=0,
 ):
     """The plain PyTorch version of the mxu kernel, on any device: the
     same arithmetic, step by step, one Python iteration per superstep.
     Returns (telemetry [T, C, 21] f32, state [C, 128] f32).
+
+    ``spread_cap > 0`` is B2's (``_mxu_kernel_shared``): ``starts`` is
+    [C + 1], the last the shared base; each superstep slices
+    [base + off_j, + span + spread_cap) and cuts every channel's window
+    out of it at starts[c] - base, then runs B1's arithmetic.
 
     ``first_superstep`` > 0 runs supersteps ``first_superstep ..`` of a
     longer block from ``state_in`` (their window offsets in the block),
@@ -626,13 +711,17 @@ def track_block_fused_mxu_reference(
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
-                starts_bound=starts_bound, first_superstep=first_superstep)
+                starts_bound=starts_bound, first_superstep=first_superstep,
+                spread_cap=spread_cap)
     st = state_in
     telems = []
     for j in range(first_superstep,
                    first_superstep + t_epochs // k_epochs):
+        win_re, win_im = _superstep_windows(
+            stream_re, stream_im, starts, j, k_epochs=k_epochs, n0=n0,
+            wp=wp, spread_cap=spread_cap)
         st, tl = _superstep_reference(
-            st, j, stream_re, stream_im, starts, replicas,
+            st, j, win_re, win_im, replicas,
             k_epochs=k_epochs, wp=wp, n0=n0, fs=fs,
             code_len=code_len, lock_threshold=lock_threshold,
             max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
@@ -662,9 +751,26 @@ def _lib():
     fn.argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                    _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                   _F, _F, _I, _F, _I, _I, _VP]
+                   _F, _F, _I, _F, _I, _I, _I, _I, _VP]
     fn.restype = _I
     return fn
+
+
+# track_block_mxu_launch's own error codes (CUDA's are >= 0)
+_ERR_NO_CLUSTER = -1        # cudaOccupancyMaxActiveClusters gave 0
+_ERR_SMEM = -2              # more shared memory than a block can have
+
+
+def shared_cluster_sizes(c_channels: int) -> tuple[int, ...]:
+    """B2's thread-block cluster sizes, in the order the wrapper tries
+    them: the divisors of C from 2 to 8 (8 the portable maximum; a
+    divisor, so the grid of C blocks, one per channel, is a whole number
+    of clusters), smallest first, as the cluster barriers cost more the
+    more blocks they span (PERF.md section 6). The first whose part of
+    the slice fits in a block's shared memory beside the bank and the
+    tile is launched. A C with no such divisor (1, or a prime > 8) gives
+    1: each block then stages the whole slice alone."""
+    return tuple(d for d in range(2, 9) if c_channels % d == 0) or (1,)
 
 
 def _direct_lib():
@@ -706,17 +812,26 @@ def track_block_fused_mxu(
     telem_mode: str = "full",
     starts_host=None,          # [C] host copy of starts (numpy)
     starts_bound=None,         # or: int, 0 <= every start <= it
+    spread_cap: int = 0,       # > 0: B2, starts [C + 1] (last = base)
 ):
     """mxu fused tracking: T epochs, ONE kernel launch. Returns
     (telemetry [T, C, 21] f32, full or lean, state [C, 128] f32).
 
+    ``spread_cap > 0`` launches B2, the shared-fetch kernel
+    (``_mxu_kernel_shared``): ``starts`` is [C + 1] with starts[C] the
+    base, every starts[c] - base a 128-multiple in [0, spread_cap]; each
+    superstep's [span + spread_cap] slice at base + off_j is staged once
+    per thread-block cluster and every channel cuts its window out of
+    it. The result equals B1's on ``starts[:C]`` bit for bit.
+
     CPU tensors run the plain version; CUDA tensors launch the CUDA
     kernel or raise (failed build, refused launch, bad argument). There
-    is no fallback from the card to the plain version. The read bound
-    is checked on the host before the launch, from ``starts_host`` (the
-    values ``starts`` was uploaded from) or ``starts_bound`` (one of
-    them is required on the card), so the launch never waits for the
-    card."""
+    is no fallback from the card to the plain version, nor from B2 to
+    B1. The read bound (with ``spread_cap``, also the shared slices',
+    ROADMAP C3) is checked on the host before the launch, from
+    ``starts_host`` (the values ``starts`` was uploaded from) or
+    ``starts_bound`` (one of them is required on the card), so the
+    launch never waits for the card."""
     kw = dict(t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp, fs=fs,
               code_len=code_len, lock_threshold=lock_threshold,
               max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
@@ -724,7 +839,7 @@ def track_block_fused_mxu(
               aiding_scale=aiding_scale, if_freq=if_freq,
               lock_mode=lock_mode, costas_thr=costas_thr, interp=interp,
               telem_mode=telem_mode, starts_host=starts_host,
-              starts_bound=starts_bound)
+              starts_bound=starts_bound, spread_cap=spread_cap)
     if state_in.device.type == "cpu":
         return track_block_fused_mxu_reference(
             stream_re, stream_im, starts, replicas, state_in, **kw)
@@ -735,7 +850,7 @@ def track_block_fused_mxu(
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
-                starts_bound=starts_bound)
+                starts_bound=starts_bound, spread_cap=spread_cap)
     c, r_rows = replicas.shape[0], replicas.shape[1]
     if k_epochs > 8 or r_rows > 16:
         raise ValueError(f"the CUDA kernel takes K <= 8 and R <= 16, got "
@@ -748,18 +863,38 @@ def track_block_fused_mxu(
     state_out = torch.empty_like(state_in)
     with torch.cuda.device(state_in.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
-                 stream_re.shape[0], starts.data_ptr(), replicas.data_ptr(),
-                 state_in.data_ptr(), telem.data_ptr(), state_out.data_ptr(),
-                 c, t_epochs, k_epochs, n0, wp, r_rows,
-                 fs, code_len, lock_threshold, int(max_lost),
-                 pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
-                 aiding_scale, if_freq, int(lock_mode == "costas"),
-                 costas_thr, int(bool(interp)), int(lean), stream)
+        # the launcher refuses a size whose shared memory does not fit
+        # before it launches anything; the next size then has a try
+        for cluster in shared_cluster_sizes(c) if spread_cap else (1,):
+            err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
+                     stream_re.shape[0], starts.data_ptr(),
+                     replicas.data_ptr(), state_in.data_ptr(),
+                     telem.data_ptr(), state_out.data_ptr(),
+                     c, t_epochs, k_epochs, n0, wp, r_rows,
+                     fs, code_len, lock_threshold, int(max_lost),
+                     pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
+                     aiding_scale, if_freq, int(lock_mode == "costas"),
+                     costas_thr, int(bool(interp)), int(lean),
+                     int(spread_cap), cluster, stream)
+            if err != _ERR_SMEM:
+                break
+    name = "track_block_mxu (B2, shared fetch)" if spread_cap else \
+        "track_block_mxu"
+    if err == _ERR_NO_CLUSTER:
+        raise RuntimeError(
+            f"{name}: no cluster of {cluster} blocks fits on the card "
+            "(cudaOccupancyMaxActiveClusters = 0)")
+    if err == _ERR_SMEM:
+        raise RuntimeError(f"{name}: the launch needs more shared memory "
+                           "than a block can have (wp, K, R or spread_cap "
+                           "too large)")
     if err != 0:
-        raise RuntimeError(f"track_block_mxu launch failed: CUDA error {err}")
-    global launch_count
-    launch_count += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    global launch_count, shared_launch_count
+    if spread_cap:
+        shared_launch_count += 1
+    else:
+        launch_count += 1
     return telem, state_out
 
 

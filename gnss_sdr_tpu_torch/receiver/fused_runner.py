@@ -40,10 +40,16 @@ Lifecycle corners handled here, not in the kernels:
 processed epoch and every period the walk skips (ROADMAP C1). Both the
 host path (run_block + rebase) and the scan keep this meaning.
 
-Not ported yet, and raising: ``shared_fetch`` (B2), a mesh (A14). The
-in-scan search of the JAX package's conv engine (``span_extra``) belongs
-to A11. The per-epoch layouts (direct, seg, windows) reject windows wider
-than 16384 lanes (ROADMAP C6).
+``shared_fetch=True`` (mxu only, as in the JAX package) runs kernel B2:
+each superstep's windows come from one shared slice of the stream per
+thread-block cluster, anchored at base = max(0, max(eligible starts) -
+spread_cap); a channel whose start lies below the base defers one block,
+as one past ``max_offset`` does. Its results equal B1's bit for bit.
+
+Not ported yet, and raising: a mesh (A14). The in-scan search of the
+JAX package's conv engine (``span_extra``) belongs to A11. The per-epoch
+layouts (direct, seg, windows) reject windows wider than 16384 lanes
+(ROADMAP C6).
 """
 from __future__ import annotations
 
@@ -150,10 +156,6 @@ class FusedTracker:
             raise ValueError(f"unknown fused layout {layout!r}")
         if wire not in ("f32", "slim", "slim2"):
             raise ValueError(f"unknown telemetry wire {wire!r}")
-        if shared_fetch:
-            raise NotImplementedError(
-                "shared_fetch=True (kernel B2, _mxu_kernel_shared) is not "
-                "ported yet (ROADMAP B2)")
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP A14)")
@@ -248,6 +250,16 @@ class FusedTracker:
             self._kernel_kw.update(t_epochs=t_epochs, wp=self.wp)
         if layout in ("mxu", "direct"):
             self._kernel_kw.update(k_epochs=self.k_epochs)
+        # shared-fetch window feed (B2, opt-in, mxu only): the cap bounds
+        # how far below the highest eligible window start the shared
+        # slice reaches (about one code period plus walk and drift
+        # margin); a channel further below defers one block, which the
+        # steady state never meets (its windows start within
+        # [el_pad, el_pad + n0) of the block)
+        self.spread_cap = 0
+        if shared_fetch and layout == "mxu":
+            self.spread_cap = ((self.n0 + 512 + 127) // 128) * 128
+            self._kernel_kw.update(spread_cap=self.spread_cap)
 
     # ------------------------------------------------------------------
     def _seg_step(self, block_re, block_im, starts, reps, mat, *,
@@ -343,9 +355,22 @@ class FusedTracker:
             # shifts the replica (build_replicas lane_shift)
             a_c = ((offset0 - self.el_pad) // 128) * 128
             starts = np.where(eligible, np.maximum(a_c, 0), 0)
-            mat[:, 9] = np.where(eligible, offset0 - starts,
+            if self.spread_cap:
+                # B2's guard: the shared base anchors to the highest
+                # eligible start, so the slice never reads past it by
+                # more than the kernel's window span; a channel more than
+                # the cap below it defers one block (state passes
+                # through), an idle one reads at the base; the base rides
+                # last in the kernel's [C + 1] starts
+                mx = int(starts[eligible].max()) if eligible.any() else 0
+                base = max(0, mx - self.spread_cap)
+                eligible = eligible & (starts >= base)
+                starts = np.append(np.where(eligible, starts, base), base)
+                mat[:, 7] = eligible.astype(np.float32)
+            a_own = starts[:c]
+            mat[:, 9] = np.where(eligible, offset0 - a_own,
                                  self.el_pad).astype(np.float32)
-            mat[:, 12] = starts.astype(np.float32)
+            mat[:, 12] = a_own.astype(np.float32)
         mat[:, 13] = anchor.astype(np.float32)
         return dict(mat=mat, starts=starts.astype(np.int32), anchor=anchor,
                     lane_shift=(mat[:, 9] - np.float32(self.el_pad)
@@ -355,9 +380,10 @@ class FusedTracker:
 
     def kernel_args(self, anchored: dict, block_re, block_im, codes_rows):
         """(tensors, statics) of one block's kernel call on this
-        tracker's device: stream, starts (windows: the offsets), replicas,
-        state. The statics carry the host starts, so the launch checks
-        its read bound without waiting for the card."""
+        tracker's device: stream, starts (windows: the offsets; shared
+        fetch: [C + 1], the base last), replicas, state. The statics carry
+        the host starts, so the launch checks its read bound without
+        waiting for the card."""
         dev = self.device
         as_dev = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
         reps = self._replicas(as_dev(codes_rows), anchored["anchor"],
@@ -695,14 +721,18 @@ class FusedTracker:
         stream_im = self._as_stream(stream_im)
         block_len = self.t_epochs * self.n0
         # every start of block b is <= b*block + max_offset - el_pad
-        # (eligibility: offset_w <= max_offset; a = floor128(off - el_pad))
+        # (eligibility: offset_w <= max_offset; a = floor128(off - el_pad));
+        # the shared slice reads from base = max(0, max start - spread_cap)
+        # to spread_cap past it (ROADMAP C3: with the base clamped at 0,
+        # past every window)
         bound = (n_blocks - 1) * block_len + self.max_offset - self.el_pad
         span = fused.direct_span(self.k_epochs, self.n0, self.wp)
         last = ((self.t_epochs - self.k_epochs) * self.n0 // 128) * 128
-        if bound + last + span > stream_re.shape[0]:
+        end = max(bound, self.spread_cap) + last + span
+        if end > stream_re.shape[0]:
             raise ValueError(
                 f"span stream too short: {stream_re.shape[0]} samples for "
-                f"{n_blocks} blocks (reads to {bound + last + span})")
+                f"{n_blocks} blocks (reads to {end})")
         codes_rows = torch.as_tensor(codes_rows).to(self.device)
         outs = []
         for b in range(n_blocks):
@@ -750,6 +780,14 @@ class FusedTracker:
         off_abs = offset_w + b * block_len
         a_abs = torch.where(
             eligible, torch.clamp(((off_abs - el_pad) >> 7) << 7, min=0), 0)
+        starts_arg = a_abs
+        if self.spread_cap:
+            # B2's guard (anchor_block's), as torch ops: no host sync
+            mx = torch.where(eligible, a_abs, 0).max()
+            sh_base = torch.clamp(mx - self.spread_cap, min=0)
+            eligible = eligible & (a_abs >= sh_base)
+            a_abs = torch.where(eligible, a_abs, sh_base)
+            starts_arg = torch.cat([a_abs, sh_base[None]])
         col9 = torch.where(eligible, (off_abs - a_abs).to(torch.float32),
                            float(el_pad))
         zero = torch.zeros_like(rate)
@@ -766,7 +804,7 @@ class FusedTracker:
             # slim2 reads diagnostics at superstep starts only
             kw["telem_mode"] = "lean"
         telem, mat_out = self._kernel(stream_re, stream_im,
-                                      a_abs.to(torch.int32).contiguous(),
+                                      starts_arg.to(torch.int32).contiguous(),
                                       reps, mat.contiguous(), **kw)
         # ---- absorb (run_block's numpy, as torch ops) -----------------
         s = cf + mat_out[:, 4]          # |cf| < 1, |delta| < ~4: the

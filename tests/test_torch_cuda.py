@@ -259,3 +259,92 @@ def test_epoch_kernel_widest_window_on_card(card):
         fused.track_block_fused_seg(
             *seg, torch.zeros((c, 5, wp + 128), device=card), st,
             **dict(kw, wp=wp + 128))
+
+
+# the shared fetch: B2 (FusedTracker(shared_fetch=True))
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["power", "costas", "forced_death"])
+def test_shared_kernel_matches_plain_and_b1_on_card(card, variant):
+    """B2 at 32 channels, 20 ms blocks, with the base clamped at 0 and
+    with random starts across [base, base + spread_cap] (the tracker's
+    own inputs, chip_smoke.shared_cases): against its plain version open
+    loop in full and lean telemetry, and against B1 kernel to kernel,
+    bit for bit, on those and on starts off the channels' codes
+    (chip_smoke.offcode_case)."""
+    cases = chip_smoke.shared_cases(torch, card, VARIANTS[variant],
+                                    block_ms=20)
+    for name, (c_args, c_kw) in cases.items():
+        for mode in ("full", "lean"):
+            m_kw = dict(c_kw, telem_mode=mode)
+            before = fused.shared_launch_count
+            chip_smoke.open_loop_compare(torch, c_args, m_kw)
+            assert fused.shared_launch_count > before
+            assert chip_smoke.b2_equals_b1(torch, c_args, m_kw) == (1, 1)
+    o_args, o_kw = chip_smoke.offcode_case(*cases["clamped"], seed=1)
+    for mode in ("full", "lean"):
+        assert chip_smoke.b2_equals_b1(
+            torch, o_args, dict(o_kw, telem_mode=mode)) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_shared_cluster_size_falls_back_on_card(card, monkeypatch):
+    """A cluster size whose part of the slice does not fit in a block's
+    shared memory is refused before any launch and the next size is
+    launched; with no size that fits the wrapper raises. A spread_cap of
+    6144 makes the slice 16,768 samples: one block's whole slice (a
+    32,768-sample part, 256 KB) does not fit, half of it does."""
+    _, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20,
+                                               shared_fetch=True)
+    kw = dict(kw, spread_cap=6144)
+    b1_args, b1_kw = chip_smoke.b1_of(args, kw)
+    t1, s1 = fused.track_block_fused_mxu(*b1_args, **b1_kw)
+    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (1, 2))
+    before = fused.shared_launch_count
+    t2, s2 = fused.track_block_fused_mxu(*args, **kw)
+    assert fused.shared_launch_count == before + 1
+    assert torch.equal(t2, t1) and torch.equal(s2, s1)
+    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (1,))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        fused.track_block_fused_mxu(*args, **kw)
+    assert fused.shared_launch_count == before + 1
+
+
+@pytest.mark.cuda
+def test_shared_bounds_raise_on_card(card):
+    """B2's checks raise before any launch: a window off the slice, no
+    host copy of the starts, and the clamped base's slice past the end
+    of a stream that holds every channel's windows (ROADMAP C3)."""
+    ft, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20,
+                                                shared_fetch=True)
+    sre, sim, starts, reps, mat = args
+    host = kw["starts_host"]
+    c, cap = mat.shape[0], kw["spread_cap"]
+    span = chip_smoke.direct_span_of(kw)
+    last = ((kw["t_epochs"] - kw["k_epochs"]) * kw["n0"] // 128) * 128
+    before = chip_smoke._launch_counts()
+    off = host.copy()
+    off[0] = cap + 128
+    with pytest.raises(ValueError, match="128-sample steps"):
+        fused.track_block_fused_mxu(*args, **dict(kw, starts_host=off))
+    with pytest.raises(ValueError, match="starts_host"):
+        fused.track_block_fused_mxu(*args, **dict(kw, starts_host=None))
+    n = int(host[:c].max()) + last + span
+    assert n < cap + last + span                # the base is clamped
+    with pytest.raises(ValueError, match="C3"):
+        fused.track_block_fused_mxu(sre[:n].contiguous(),
+                                    sim[:n].contiguous(), *args[2:], **kw)
+    with pytest.raises(ValueError, match="C3"):
+        fused.track_block_fused_mxu(
+            sre[:n].contiguous(), sim[:n].contiguous(), *args[2:],
+            **dict(kw, starts_host=None, starts_bound=int(host.max())))
+    assert chip_smoke._launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_shared_tracker_equals_b1_tracker_on_card(card):
+    """FusedTracker(shared_fetch=True) over 3 blocks of the 24-satellite
+    scene, single blocks and one 3-block span on the slim2 wire: every
+    downloaded array and the final ledger equal shared_fetch=False's bit
+    for bit; B2 once per block, B1 never."""
+    assert chip_smoke.phase_shared_path(torch, seconds=2.0, span=3) == 3

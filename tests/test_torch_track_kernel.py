@@ -297,8 +297,7 @@ class TestConstruction:
             fused.build_replicas(short, 1, N0, ft.wp, 8,
                                  np.zeros(2, np.int32))
 
-    @pytest.mark.parametrize("kw,item", [
-        (dict(shared_fetch=True), "B2"), (dict(mesh=object()), "A14")])
+    @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])
     def test_unported_options_raise(self, kw, item):
         cfg = TrackConfig(n_channels=2, correlator="fused")
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
