@@ -36,22 +36,32 @@ GPU:
      4.092 MHz (W=4100, shift 2) and Galileo E1B at 8.184 MHz (two
      samples per chip), interp off and on, partial and idle epoch masks,
      random u32 phases; each sum's largest difference over its column's
-     largest |value|;
- 11. B5's time per launch and per 500 ms block (501 launches, fresh
-     inputs, the L2 flushed before each; the kernel's device time from
-     the profiler, events around each launch beside it), the plain
-     version's and the bound;
+     largest |value|; the block-reading entry (the windows read from a
+     block at each channel's start, as the tracker calls it) equal to
+     the [C, W] entry bit for bit;
+ 11. B5's time per launch and per 500 ms block (501 launches of the
+     block-reading entry, fresh inputs, the L2 flushed before each; the
+     kernel's device time from the profiler, events around each launch
+     beside it), the plain version's and the bound;
  12. the scanned receiver (the JAX package's default tracker) on the
      24-satellite scene, 5 s from a cold start: correlator="pallas" (B5
      launched blocks x 501 times, B1 and B3 never) and the default
-     "shift" (no kernel launch); every PRN tracked within 40 Hz; then
-     one track_block of the pallas receiver queued with the sync debug
-     mode at "error" (only the final download waits);
+     "shift" (no kernel launch), each twice, on the eager loop and on
+     its CUDA graph (the first block the warm-up, the second the
+     capture and a replay, apart from the later blocks'), the two runs'
+     telemetry and summaries equal; every PRN tracked within 40 Hz; one
+     block of each profiled (host launch calls, device kernels per
+     epoch, busy share, B5's launches and time inside the replay); then
+     the graph against the eager loop block by block, bit for bit in
+     the state and the 17 telemetry fields, 3 blocks and a 200 ms tail
+     on the same graph, the replays with the sync debug mode at "error";
  13. the IF capture: an int8 real file at 16.368 MHz with a 4.092 MHz
      IF, DC removal, mixed and decimated 4x on the card, 2 s,
-     correlator="pallas": every PRN tracked within 40 Hz;
+     correlator="pallas": every PRN tracked within 40 Hz, eager and
+     graph runs equal;
  14. the fused receiver on a stream that ends in a partial block: the
-     full blocks through B1, the tail through the scanned tracker;
+     full blocks through B1, the tail through the scanned tracker,
+     eager and graph runs equal;
  15. the per-epoch kernels against their plain versions at full width
      (32 channels, 24 tracking and 8 idle), open loop (pieces of 20-25
      epochs, each from the kernel's own state), power, Costas and
@@ -645,12 +655,14 @@ def _expect_launches(launches, **counts):
 def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
                   span_pipeline=False, on_block=None, device="cuda",
                   correlator="fused", source=None, rf_kw=None,
-                  n_blocks=None, block_ms=BLOCK_MS):
+                  n_blocks=None, block_ms=BLOCK_MS, scan_graph=True):
     """One receiver run from a cold start on ``sig`` (or ``source``):
     checks every PRN tracked within 40 Hz and all blocks processed;
     prints its real-time factor and stage shares. The launch counts are
-    set to 0 just before the run and read just after. Returns (receiver,
-    summary, launches)."""
+    set to 0 just before the run and read just after. ``scan_graph``:
+    the scanned tracker's CUDA graph (True) or its eager loop. Returns
+    (receiver, summary with the run's wall time "wall_s" added,
+    launches)."""
     from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
         TrackConfig
     from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
@@ -666,7 +678,7 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
                               fused_layout=layout),
             block_ms=block_ms),
         source if source is not None else ArraySource(sig, FS),
-        device=device)
+        device=device, scan_graph=scan_graph)
     assert rx.device.type == device
     _reset_launch_counts()                  # this path starts here
     t0 = time.perf_counter()
@@ -684,7 +696,8 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     signal_s = (n_blocks * block_ms / 1000.0 if sig is None
                 else sig.size / FS)
     path = (f"layout {rx.fused.layout}, wire {rx.fused.wire}"
-            if rx.fused is not None else "scanned tracker")
+            if rx.fused is not None else
+            f"scanned tracker, {'graph' if scan_graph else 'eager'}")
     print(f"receiver [{label}: correlator {correlator}, {path}, "
           f"block_ms {block_ms}, scan_blocks {scan_blocks}, "
           f"span_pipeline {span_pipeline}]: "
@@ -700,6 +713,7 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     assert summary["tracked_prns"] == list(range(1, 25)), summary
     assert max(abs(e) for e in errs.values()) < 40.0, errs
     assert summary["blocks"] == n_blocks
+    summary["wall_s"] = wall
     return rx, summary, launches
 
 
@@ -850,9 +864,32 @@ def _b5_bound(args, n_epochs):
             else "operations", n_epochs * n_bytes, n_epochs * ops)
 
 
+def b5_block_form(torch, args, seed=0, gap=37):
+    """The [C, W] windows of B5 arguments ``args`` placed in one sample
+    block in a shuffled order, ``gap`` noise samples apart (the first
+    window at the block's start, the last at its end): (block_re,
+    block_im, starts int32, the largest start allowed)."""
+    re, im = args[0], args[1]
+    c, w = re.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    order = torch.randperm(c, generator=gen, device="cuda")
+    n = c * w + (c - 1) * gap
+    block_re = torch.randn(n, generator=gen, device="cuda")
+    block_im = torch.randn(n, generator=gen, device="cuda")
+    starts = torch.empty(c, dtype=torch.int32, device="cuda")
+    starts[order] = (torch.arange(c, device="cuda") * (w + gap)).to(
+        torch.int32)
+    idx = starts.long()[:, None] + torch.arange(w, device="cuda")
+    block_re[idx] = re
+    block_im[idx] = im
+    return block_re, block_im, starts, n - w
+
+
 def phase_b5_check(torch):
     """B5 against its plain version on the card, every case of B5_CASES
-    with the idle masks and with the partial masks."""
+    with the idle masks and with the partial masks; the block-reading
+    entry equal to the [C, W] entry bit for bit on the same windows
+    placed in a block."""
     from gnss_sdr_tpu_torch.ops import correlator as corr
     from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
 
@@ -866,10 +903,18 @@ def phase_b5_check(torch):
                       interp=interp)
             before = b5.launch_count
             got = b5.epl_correlate_pallas(*args, **kw)
+            block_re, block_im, starts, max_start = b5_block_form(
+                torch, args, seed=idle)
+            from_block = b5.epl_correlate_block(
+                block_re, block_im, starts, *args[2:], window=st["window"],
+                max_start=max_start, **kw)
             torch.cuda.synchronize()
-            assert b5.launch_count == before + 1
+            assert b5.launch_count == before + 2
+            for f in fields:
+                assert torch.equal(getattr(from_block, f),
+                                   getattr(got, f)), (name, f)
             ref = corr.epl_correlate_one_shift(*args, **kw)
-            assert b5.launch_count == before + 1   # the plain never counts
+            assert b5.launch_count == before + 2   # the plain never counts
             rel = {}
             for f in fields:
                 a, b = getattr(got, f).double(), getattr(ref, f).double()
@@ -881,17 +926,21 @@ def phase_b5_check(torch):
                   f"{'idle' if idle else 'partial'} masks]: "
                   + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()}))
             assert max(rel.values()) < B5_TOL, (name, rel)
+    print("B5 block entry: equal to the [C, W] entry bit for bit in every "
+          "case")
     return max_abs
 
 
 def phase_b5_timing(torch):
     """B5 at the operating point (32 channels, 2.046 MHz, 24 tracking and
-    8 idle masks): per launch and per 500 ms block (501 launches), each
-    launch on fresh inputs with the L2 flushed before it; the plain
-    version's time; the bound. A launch of B5 is shorter than the
-    wrapper's host work, so events around it would also hold the card's
-    wait for the host: the kernel's own time is the profiler's device
-    time of the kernel, summed over the block's launches."""
+    8 idle masks), through the block-reading entry the tracker calls:
+    per launch and per 500 ms block (501 launches), each launch on fresh
+    inputs with the L2 flushed before it; the plain version's time; the
+    bound (the windows' bytes, not the block's). A launch of B5 is
+    shorter than the wrapper's host work, so events around it would also
+    hold the card's wait for the host: the kernel's own time is the
+    profiler's device time of the kernel, summed over the block's
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from gnss_sdr_tpu_torch.ops import correlator as corr
@@ -901,6 +950,18 @@ def phase_b5_timing(torch):
     inputs, st = b5_inputs(torch, "gps_l1ca", FS, n_epochs=t_epochs, seed=7)
     kw = dict(shift=st["shift"], oversample=st["oversample"])
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    # the kernel as the tracker calls it: windows read from a block
+    blocks = [b5_block_form(torch, args, seed=k)
+              for k, args in enumerate(inputs)]
+
+    def kernel(k):
+        block_re, block_im, starts, max_start = blocks[k]
+        return b5.epl_correlate_block(
+            block_re, block_im, starts, *inputs[k][2:], window=st["window"],
+            max_start=max_start, **kw)
+
+    def plain(k):
+        return corr.epl_correlate_one_shift(*inputs[k], **kw)
 
     def timed(fn):
         """Events around each call (the plain version: its interval holds
@@ -908,10 +969,10 @@ def phase_b5_timing(torch):
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in inputs]
-        for args, (start, end) in zip(inputs, events):
+        for k, (start, end) in enumerate(events):
             flush.zero_()                    # evict the 50 MB L2
             start.record()
-            fn(*args, **kw)
+            fn(k)
             end.record()
         torch.cuda.synchronize()
         return [start.elapsed_time(end) for start, end in events]
@@ -920,9 +981,9 @@ def phase_b5_timing(torch):
         """The kernel's device time per launch (ms), from the profiler."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for args in inputs:
+            for k in range(t_epochs):
                 flush.zero_()
-                b5.epl_correlate_pallas(*args, **kw)
+                kernel(k)
             torch.cuda.synchronize()
         per = [e for e in prof.key_averages()
                if "epl_correlator_kernel" in e.key]
@@ -944,20 +1005,20 @@ def phase_b5_timing(torch):
         raise AssertionError(f"the profiler saw {n} of {t_epochs} B5 "
                              f"launches ({ms} ms) in 3 passes")
 
-    for args in inputs[:3]:
-        b5.epl_correlate_pallas(*args, **kw)
-        corr.epl_correlate_one_shift(*args, **kw)
+    for k in range(3):
+        kernel(k)
+        plain(k)
     torch.cuda.synchronize()
     # in turns: plain, kernel, kernel, plain
-    p1 = timed(corr.epl_correlate_one_shift)
+    p1 = timed(plain)
     k1_ms, k1_tries = profiled_whole()
     k2_ms, k2_tries = profiled_whole()
-    p2 = timed(corr.epl_correlate_one_shift)
-    ev = timed(b5.epl_correlate_pallas)
+    p2 = timed(plain)
+    ev = timed(kernel)
     # the host's side: 501 launches back to back, wall clock to the sync
     t0 = time.perf_counter()
-    for args in inputs:
-        b5.epl_correlate_pallas(*args, **kw)
+    for k in range(t_epochs):
+        kernel(k)
     torch.cuda.synchronize()
     wall_block = (time.perf_counter() - t0) * 1e3
     bound, bound_by, n_bytes, ops = _b5_bound(inputs[0], t_epochs)
@@ -976,78 +1037,218 @@ def phase_b5_timing(torch):
     return res
 
 
+_RUN_ONLY = ("stage_timing", "track_realtime_factor", "wall_s")
+
+
+def _same_run(label, a, b):
+    """Two receiver runs ``a``, ``b`` = (receiver, summary) gave the same
+    telemetry, bit for bit, and the same summary (but for its timing)."""
+    from gnss_sdr_tpu_torch.utils.telemetry import _FIELDS
+
+    ta, tb = a[0].telemetry.all_traces(), b[0].telemetry.all_traces()
+    assert [t.prn for t in ta] == [t.prn for t in tb], label
+    for x, y in zip(ta, tb):
+        for f in _FIELDS:
+            assert (np.asarray(getattr(x, f)).tobytes()
+                    == np.asarray(getattr(y, f)).tobytes()), (label, x.prn, f)
+
+    def plain(summary):
+        return json.dumps({k: v for k, v in summary.items()
+                           if k not in _RUN_ONLY}, sort_keys=True, default=str)
+    assert plain(a[1]) == plain(b[1]), label
+    print(f"{label}: graph and eager runs equal: {len(ta)} traces bit for "
+          "bit, summaries equal")
+
+
+def _profile(torch, fn):
+    """``fn()`` under the profiler, then a synchronise: the wall time (ms,
+    profiler on), the device's kernels (count and summed device ms, B5's
+    among them) and the host's launch calls by name (cudaGraphLaunch,
+    cudaLaunchKernel and their kin)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = dict(wall_ms=wall * 1e3, kernels=0, kernel_ms=0.0, b5_kernels=0,
+               b5_ms=0.0, host_calls={})
+    for e in prof.key_averages():
+        name = e.key
+        if name.startswith(("cudaGraphLaunch", "cuGraphLaunch",
+                            "cudaLaunchKernel", "cuLaunchKernel")):
+            res["host_calls"][name] = res["host_calls"].get(name, 0) + e.count
+        elif (str(e.device_type).endswith("CUDA")
+              and not name.startswith(("Memcpy", "Memset"))):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            res["kernels"] += e.count
+            res["kernel_ms"] += us / 1e3
+            if "epl_correlator_kernel" in name:
+                res["b5_kernels"] += e.count
+                res["b5_ms"] += us / 1e3
+    res["host_launch_calls"] = sum(res["host_calls"].values())
+    res["busy_share"] = res["kernel_ms"] / res["wall_ms"]
+    return res
+
+
+def _scan_run(torch, sats, sig, label, correlator, scan_graph, **kw):
+    """One scanned receiver run (_run_receiver) with its first two blocks
+    apart from the rest: on the graph path the first block is the eager
+    warm-up and the second the capture and a replay, where this run's
+    key is new. Reports each one's ``track`` seconds, the later blocks'
+    per block, the whole run's real-time factor and the later blocks'
+    (from the on_block marks), and the key's warm-up and capture
+    seconds. Returns (receiver, summary, launches, stats)."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    marks = []
+    logged = set(trk.GRAPH_LOG)
+    rx, summary, launches = _run_receiver(
+        torch, sats, sig, label, correlator=correlator,
+        scan_graph=scan_graph, on_block=lambda r: marks.append(
+            (time.perf_counter(), r.timers.stats["track"].total_s)), **kw)
+    n = len(marks)
+    track = summary["stage_timing"]["track"]["total_s"]
+    block_s = BLOCK_MS / 1000.0
+    stats = dict(
+        wall_s=summary["wall_s"], rtf=n * block_s / summary["wall_s"],
+        block1_track_s=marks[0][1],
+        block2_track_s=marks[1][1] - marks[0][1],
+        later_track_s_per_block=(track - marks[1][1]) / (n - 2),
+        later_rtf=(n - 2) * block_s / (marks[-1][0] - marks[1][0]))
+    new = [k for k in trk.GRAPH_LOG if k not in logged]
+    if new:
+        stats["graph"] = trk.GRAPH_LOG[new[-1]]
+    print(f"  [{label}, {correlator}, {'graph' if scan_graph else 'eager'}] "
+          + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in stats.items()}))
+    return rx, summary, launches, stats
+
+
+def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
+    """The scanned tracker's CUDA graph against its eager loop on the
+    card, bit for bit in the [13, C] state and the 17 telemetry fields:
+    ``n_full`` 500 ms blocks and then a tail of ``tail_ms`` valid ms
+    through the same graph, each pair from the same ledger (the scene's
+    first 32 satellites started on their code boundaries), the graph
+    calls after the second (the first two warm up and capture, where the
+    key is new) with the sync debug mode at "error". B5's launches are
+    counted from the replays (501 per block with "pallas"). Returns the
+    number of blocks compared."""
+    from gnss_sdr_tpu_torch.config import AcqConfig, TrackConfig
+    from gnss_sdr_tpu_torch.models import GPS_L1CA
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    n0 = GPS_L1CA.samples_per_code(FS)
+    block = BLOCK_MS * n0
+    t_epochs = BLOCK_MS + 1
+    params = trk.TrackParams.create(
+        TrackConfig(n_channels=N_CHANNELS, correlator=correlator), GPS_L1CA,
+        FS)
+    history = AcquisitionEngine(AcqConfig(), GPS_L1CA, FS,
+                                device="cpu").samples_needed + 2 * n0
+    assert sig.size >= history + (n_full + 1) * block, sig.size
+    st = trk.init_state(N_CHANNELS)
+    for ch, s in enumerate(sats[:N_CHANNELS]):
+        off = int(round((1023.0 - s.code_phase_chips) % 1023.0
+                        * FS / GPS_L1CA.code_rate_hz))
+        st = trk.start_channel(st, ch, s.prn - 1, s.doppler_hz, off,
+                               GPS_L1CA.code_rate_hz)
+    codes = torch.from_numpy(trk.make_code_table(GPS_L1CA, 32)[
+        np.maximum(st.prn_idx, 0)]).cuda()
+    per_replay = t_epochs if correlator == "pallas" else 0
+    graphs = set()
+    for k in range(n_full + 1):
+        x = sig[k * block:k * block + history + block]
+        re = torch.from_numpy(np.ascontiguousarray(x.real,
+                                                   dtype=np.float32)).cuda()
+        im = torch.from_numpy(np.ascontiguousarray(x.imag,
+                                                   dtype=np.float32)).cuda()
+        valid = None if k < n_full else history + tail_ms * n0
+        eager = trk.track_block_device(params, codes, st, re, im, t_epochs,
+                                       valid, graph=False)
+        before = b5.launch_count
+        torch.cuda.synchronize()
+        if k >= 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay = trk.track_block_device(params, codes, st, re, im,
+                                            t_epochs, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # the tail block too replays the graph of its key
+        graphs.add(trk._GRAPHS[trk.graph_key(params, codes, st, re,
+                                             t_epochs)])
+        assert b5.launch_count - before == per_replay
+        assert torch.equal(replay, eager), (correlator, k)
+        end, tl = trk.unpack_block(replay, N_CHANNELS, t_epochs)
+        assert tl.processed.any(axis=0)[:len(sats)].all(), (correlator, k)
+        st = trk.rebase(end, block)
+    (g,) = graphs
+    assert g.graph is not None and g.key in trk.GRAPH_LOG
+    print(f"scanned tracker graph vs eager [{correlator}]: {n_full} blocks "
+          f"and a {tail_ms} ms tail on the same graph equal bit for bit "
+          "(state and 17 telemetry fields); blocks 3 on under sync debug "
+          f"mode 'error'; B5 launches counted from the replays: {per_replay} "
+          "per block")
+    return n_full + 1
+
+
 def phase_scan_receiver(torch):
     """The scanned receiver at the operating point, cold start, 5 s:
-    correlator="pallas" through B5, then the default "shift" (torch ops
-    only); then one track_block of the pallas receiver queued with the
-    sync debug mode at "error"."""
+    correlator="pallas" through B5 and the default "shift", each on its
+    eager loop and on its CUDA graph (first block apart), the two runs'
+    telemetry equal; one block of each profiled (host launch calls,
+    device kernels, busy share); the graph against the eager loop block
+    by block, bit for bit, with a tail block on the same graph."""
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     sats, sig = _scene(SCAN_S)
     n_blocks = sig.size // (BLOCK_MS * 2046)
-    per_block = n_blocks * (BLOCK_MS + 1)
-    rx_p, sum_p, lp = _run_receiver(torch, sats, sig, "scan",
-                                    correlator="pallas")
-    _expect_launches(lp, epl_correlate_pallas=per_block)
-    _, sum_s, ls = _run_receiver(torch, sats, sig, "scan",
-                                 correlator="shift")
-    assert not any(ls.values()), ls
-    ch_p = {c["prn"]: c for c in sum_p["channels"]}
-    ch_s = {c["prn"]: c for c in sum_s["channels"]}
+    t_epochs = BLOCK_MS + 1
+    out = {}
+    for correlator in ("pallas", "shift"):
+        runs = {}
+        for graph in (False, True):
+            rx, summary, launches, stats = _scan_run(
+                torch, sats, sig, "scan", correlator, graph)
+            _expect_launches(launches, epl_correlate_pallas=(
+                n_blocks * t_epochs if correlator == "pallas" else 0))
+            codes = rx._codes_for_state()
+            prof = _profile(torch, lambda: trk.track_block(
+                rx.params, codes, rx.state, rx.window.re, rx.window.im,
+                t_epochs, valid_len=rx.history + rx.block, graph=graph))
+            assert prof["b5_kernels"] == (t_epochs if correlator == "pallas"
+                                          else 0), prof
+            stats["profiled_block"] = prof
+            print(f"  profiled block [{correlator}, "
+                  f"{'graph' if graph else 'eager'}]: wall "
+                  f"{prof['wall_ms']:.3f} ms (profiler on), host launch "
+                  f"calls {prof['host_launch_calls']} "
+                  f"{json.dumps(prof['host_calls'])}, device kernels "
+                  f"{prof['kernels']} ({prof['kernels'] / t_epochs:.1f} per "
+                  f"epoch) {prof['kernel_ms']:.3f} ms, busy share "
+                  f"{prof['busy_share']:.4f}, B5 {prof['b5_kernels']} "
+                  f"kernels {prof['b5_ms']:.3f} ms")
+            runs[graph] = (rx, summary, launches, stats)
+        _same_run(f"scanned receiver [{correlator}]", runs[False][:2],
+                  runs[True][:2])
+        assert runs[True][3]["profiled_block"]["host_launch_calls"] <= 10
+        out[correlator] = runs
+    ch_p = {c["prn"]: c for c in out["pallas"][True][1]["channels"]}
+    ch_s = {c["prn"]: c for c in out["shift"][True][1]["channels"]}
     worst = max(abs(ch_p[p]["last_doppler_hz"] - ch_s[p]["last_doppler_hz"])
                 for p in range(1, 25))
     print(f"pallas vs shift receiver: |Doppler difference| <= {worst:.4f} Hz")
-
-    # one block of the pallas receiver with the sync debug mode at "error"
-    rx = rx_p
-    codes = rx._codes_for_state()
-    t_epochs = rx.epochs_per_block + 1
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        buf = trk.track_block_device(rx.params, codes, rx.state, rx.window.re,
-                                     rx.window.im, t_epochs,
-                                     valid_len=rx.history + rx.block)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    st, tl = trk.unpack_block(buf, N_CHANNELS, t_epochs)
-    assert tl.processed[:, np.asarray(rx.state.active)].any(axis=0).all()
-    print(f"track_block under sync debug mode 'error': {t_epochs} epochs "
-          "queued without a host sync (only the final download waits)")
-
-    # the device's busy share over one block of the scanned tracker: the
-    # kernels' summed time (profiler) over the block's wall time
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trk.track_block(rx.params, codes, rx.state, rx.window.re,
-                        rx.window.im, t_epochs,
-                        valid_len=rx.history + rx.block)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in events)
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    b5_us = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-                for e in events if "epl_correlator" in e.key)
-    if dev_us > 0:
-        print(f"profiled block of the scanned tracker [pallas]: wall "
-              f"{wall * 1e3:.3f} ms (profiler on), device kernels "
-              f"{dev_us / 1e3:.3f} ms (busy share "
-              f"{dev_us / 1e6 / wall:.4f}), B5 {b5_us / 1e3:.3f} ms, "
-              f"{launches} kernel launches ({launches / t_epochs:.1f} per "
-              "epoch)")
-    else:
-        print("profiled block of the scanned tracker: the profiler saw no "
-              "device time (busy share not measured)")
-    return {"pallas": lp, "shift": ls, "summary_pallas": sum_p,
-            "summary_shift": sum_s}
+    for correlator in ("pallas", "shift"):
+        scan_graph_vs_eager(torch, correlator, sats, sig)
+    return out
 
 
 def phase_if_capture(torch):
@@ -1068,23 +1269,28 @@ def phase_if_capture(torch):
     print(f"IF capture: {IF_S} s of int8 real samples at {FS_IF_IN:g} Hz, "
           f"IF {F_IF:g} Hz, rendered in {time.perf_counter() - t0:.1f} s")
     n_blocks = IF_S * 1000 // BLOCK_MS
+    runs = {}
     with tempfile.TemporaryDirectory() as d:
         path = f"{d}/capture.bin"
         with open(path, "wb") as f:
             f.write(raw.tobytes())
-        src = FileSource(path, FS_IF_IN, "int8_real")
-        try:
-            rx, summary, launches = _run_receiver(
-                torch, sats, None, "IF capture", correlator="pallas",
-                source=src, n_blocks=n_blocks,
-                rf_kw=dict(freq_if_hz=F_IF, output_sample_rate_hz=F_IF,
-                           enable_dc_removal=True, enable_mixing=True,
-                           decimation=IF_DECIM))
-        finally:
-            src.close()
-    assert rx.fs == FS_IF_IN / IF_DECIM and rx.f_if == 0.0
-    assert launches["epl_correlate_pallas"] == n_blocks * (BLOCK_MS + 1)
-    return launches
+        for graph in (False, True):
+            src = FileSource(path, FS_IF_IN, "int8_real")
+            try:
+                rx, summary, launches, stats = _scan_run(
+                    torch, sats, None, "IF capture", "pallas", graph,
+                    source=src, n_blocks=n_blocks,
+                    rf_kw=dict(freq_if_hz=F_IF, output_sample_rate_hz=F_IF,
+                               enable_dc_removal=True, enable_mixing=True,
+                               decimation=IF_DECIM))
+            finally:
+                src.close()
+            assert rx.fs == FS_IF_IN / IF_DECIM and rx.f_if == 0.0
+            assert launches["epl_correlate_pallas"] == n_blocks * (
+                BLOCK_MS + 1)
+            runs[graph] = (rx, summary, launches, stats)
+    _same_run("IF capture", runs[False][:2], runs[True][:2])
+    return runs
 
 
 def phase_fused_tail(torch):
@@ -1095,14 +1301,21 @@ def phase_fused_tail(torch):
     block = BLOCK_MS * 2046
     n_full = 3
     tail = sig[:n_full * block + 200 * 2046]
-    rx, summary, launches = _run_receiver(torch, sats, tail, "fused tail",
-                                          n_blocks=n_full + 1)
-    _expect_launches(launches, track_block_fused_mxu=n_full)
-    ends = [int(t.global_sample[-1]) for t in rx.telemetry.all_traces()]
-    assert min(ends) >= n_full * block, ends
+    runs = {}
+    for graph in (False, True):
+        rx, summary, launches = _run_receiver(
+            torch, sats, tail, "fused tail", n_blocks=n_full + 1,
+            scan_graph=graph)
+        _expect_launches(launches, track_block_fused_mxu=n_full)
+        ends = [int(t.global_sample[-1]) for t in rx.telemetry.all_traces()]
+        assert min(ends) >= n_full * block, ends
+        runs[graph] = (rx, summary, launches)
+    _same_run("fused receiver, partial tail", runs[False][:2],
+              runs[True][:2])
     print(f"fused receiver, partial tail: {summary['blocks']} blocks, the "
           f"tail's epochs processed (last epoch starts >= sample "
           f"{min(ends)}, full blocks end at {n_full * block})")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1736,6 +1949,7 @@ def main() -> int:
     scan = phase_scan_receiver(torch)
     phase_if_capture(torch)
     phase_fused_tail(torch)
+    b5_graph = scan["pallas"][True][3]["profiled_block"]
     epoch_abs, resident_launches = phase_epoch_check(torch)
     etiming = phase_epoch_timing(torch)
     epoch_rx = phase_epoch_receivers(torch)
@@ -1795,10 +2009,16 @@ def main() -> int:
         "route": "cuda",
         "source": src + "epl_correlator.cu",
         "replaces": "gnss_sdr_tpu/ops/pallas/epl_correlator.py:104",
-        # the slice's main path: the scanned receiver, correlator="pallas"
-        "launches": scan["pallas"]["epl_correlate_pallas"],
+        # the slice's main path: the scanned receiver, correlator="pallas",
+        # on its CUDA graph (launches counted from the replays)
+        "launches": scan["pallas"][True][2]["epl_correlate_pallas"],
+        "launches_eager": scan["pallas"][False][2]["epl_correlate_pallas"],
         "max_abs_err": b5_abs,
         "ms": b5_timing["ms"],
+        "ms_per_launch": b5_timing["ms_per_launch"],
+        "graph_replay_ms_per_block": b5_graph["b5_ms"],
+        "graph_replay_ms_per_launch": (b5_graph["b5_ms"]
+                                       / b5_graph["b5_kernels"]),
         "plain_ms": b5_timing["plain_ms"],
         "bound_ms": b5_timing["bound_ms"],
         "bound_by": b5_timing["bound_by"],

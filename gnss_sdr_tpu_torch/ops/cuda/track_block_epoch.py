@@ -81,15 +81,15 @@ import numpy as np
 import torch
 
 from ..correlator import fma as _fma
-from . import _build
+from . import _build, launches
 
 N_FIELDS = 128
 N_TELEM = 17            # telemetry columns (fused_runner.N_TELEM_COLS)
 TWO_PI = 6.283185307179586
 MAX_WP = 128 * 128      # ROADMAP C6
 
-# launches of each CUDA kernel (plain ints; the plain versions never
-# count): B4a (windows), B4b (seg), B4c (gather) and B6 (resident)
+# launches of each CUDA kernel (plain ints, counted by launches.record;
+# the plain versions never count): B4a (windows), B4b (seg), B4c (gather) and B6 (resident)
 windows_launch_count = 0
 seg_launch_count = 0
 gather_launch_count = 0
@@ -697,8 +697,7 @@ def track_block_fused(
     t_epochs, _, wp = windows_re.shape
     out = _launch_epoch("windows", windows_re, windows_im, 0, 1, replicas,
                         state_in, t_epochs=t_epochs, wp=wp, **kw)
-    global windows_launch_count
-    windows_launch_count += 1
+    launches.record(__name__, "windows_launch_count")
     return out
 
 
@@ -742,8 +741,7 @@ def track_block_fused_seg(
                wp=wp, lock_mode=lock_mode)
     out = _launch_epoch("seg", seg_re, seg_im, seg_re.shape[1], 1, replicas,
                         state_in, **kw)
-    global seg_launch_count
-    seg_launch_count += 1
+    launches.record(__name__, "seg_launch_count")
     return out
 
 
@@ -790,8 +788,7 @@ def track_block_fused_resident(
     out = _launch_epoch("resident", block_re, block_im, 0,
                         resident_chunk(t_epochs, k_epochs), replicas,
                         state_in, **kw)
-    global resident_launch_count
-    resident_launch_count += 1
+    launches.record(__name__, "resident_launch_count")
     return out
 
 
@@ -818,6 +815,5 @@ def gather_segments(block_re: torch.Tensor, block_im: torch.Tensor,
                  out_re.data_ptr(), out_im.data_ptr(), c, l_seg, stream)
     if err != 0:
         raise RuntimeError(f"gather_segments launch failed: CUDA error {err}")
-    global gather_launch_count
-    gather_launch_count += 1
+    launches.record(__name__, "gather_launch_count")
     return out_re, out_im

@@ -93,7 +93,7 @@ import numpy as np
 import torch
 
 from ..correlator import fma as _fma  # noqa: F401  (fused_runner's scan)
-from . import _build
+from . import _build, launches
 from .track_block_epoch import (  # noqa: F401  (the JAX module's names)
     MAX_WP, _atan_poly, _epoch_core_reference, build_replicas_shared,
     gather_segments, gather_segments_reference, resident_chunk,
@@ -108,8 +108,8 @@ N_TELEM_DIRECT = 17     # direct telemetry columns (fused_runner.N_TELEM_COLS)
 TWO_PI = 6.283185307179586
 TELEM_MODES = ("full", "lean")
 
-# launches of each CUDA kernel (plain ints; the plain versions never
-# count): B1 (mxu), B2 (mxu, shared fetch) and B3 (direct)
+# launches of each CUDA kernel (plain ints, counted by launches.record;
+# the plain versions never count): B1 (mxu), B2 (mxu, shared fetch) and B3 (direct)
 launch_count = 0
 shared_launch_count = 0
 direct_launch_count = 0
@@ -890,11 +890,8 @@ def track_block_fused_mxu(
                            "too large)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    global launch_count, shared_launch_count
-    if spread_cap:
-        shared_launch_count += 1
-    else:
-        launch_count += 1
+    launches.record(__name__, "shared_launch_count" if spread_cap
+                    else "launch_count")
     return telem, state_out
 
 
@@ -1049,6 +1046,5 @@ def track_block_fused_direct(
     if err != 0:
         raise RuntimeError(
             f"track_block_direct launch failed: CUDA error {err}")
-    global direct_launch_count
-    direct_launch_count += 1
+    launches.record(__name__, "direct_launch_count")
     return telem, state_out

@@ -11,8 +11,9 @@ block, on the seg layout after a segment gather; receiver/fused_runner.py:
 mxu, direct, seg or windows, and seg for a block whose epoch count has
 no superstep pairing), and otherwise (the default "shift", "exact",
 "slice", "pallas") the scanned tracker (tracking.track_block,
-``epochs_per_block + 1`` epochs of torch ops on the card, "pallas" with
-one launch of kernel B5 per epoch). A partial last block (a short final
+``epochs_per_block + 1`` epochs of torch ops on the card, replayed as one
+CUDA graph per block shape, "pallas" with one launch of kernel B5 per
+epoch). A partial last block (a short final
 read, zero-padded) always takes the scanned tracker with the slice
 correlator, over its valid samples only.
 
@@ -59,8 +60,12 @@ from .stream import DeviceStreamWindow, SampleSource, StreamWindow
 
 class Receiver:
     def __init__(self, cfg: ReceiverConfig, source: SampleSource,
-                 device=None):
+                 device=None, scan_graph: bool = True):
+        """``scan_graph=False`` runs the scanned tracker's eager loop on
+        the card instead of its CUDA graph (tracking.track_block_device),
+        for checks that hold the two to each other."""
         self.cfg = cfg
+        self.scan_graph = scan_graph
         self.source = source
         self.device = resolve_device(device)
         self.spec = get_signal(cfg.acq.signal)
@@ -271,7 +276,7 @@ class Receiver:
                 self.state, telem = trk.track_block(
                     self.params, codes, self.state, self.window.re,
                     self.window.im, self.epochs_per_block + 1,
-                    valid_len=self.history + n_valid)
+                    valid_len=self.history + n_valid, graph=self.scan_graph)
 
         with self.timers.stage("nav", self.block):
             self.telemetry.append_block(telem, self.window.global_start)

@@ -12,13 +12,16 @@ per block.
 The scanned path (``track_block``): ``n_epochs`` epochs of
 ``epoch_step`` over one resident sample block, sequential in time,
 batched over channels, as torch ops on the block's device. Each epoch
-gathers the channels' windows, correlates them (``params.correlator``:
-"shift", "exact", "slice"/"fused" as torch ops, "pallas" through the
-CUDA kernel B5), runs the discriminators, lock detector and loop
-filters, and advances the exact ledger; lock and loss transitions are
-masked selects. Nothing in the epoch loop waits for the card: the state
-goes up in one packed copy and comes back, with the [T, C] telemetry,
-in one copy at the end.
+correlates the channels' windows (``params.correlator``: "shift",
+"exact", "slice"/"fused" as torch ops on gathered windows, "pallas"
+through the CUDA kernel B5, which reads the windows from the block),
+runs the discriminators, lock detector and loop filters, and advances
+the exact ledger; lock and loss transitions are masked selects. Nothing
+in the epoch loop waits for the card: the state goes up in one packed
+copy and comes back, with the [T, C] telemetry, in one copy at the end.
+On CUDA the loop is captured once per block shape as a CUDA graph and
+replayed (track_block_device), as the JAX package jits its scan: about
+180 small ops per epoch would otherwise each cost a launch from Python.
 
 Arithmetic as the JAX package's jitted graph computes it on the CPU
 (checked bit for bit against it on the integer ledger): a division by
@@ -29,6 +32,9 @@ fused multiply-adds.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +50,8 @@ from ..ops.correlator import (
     f32_to_i32,
     fma,
 )
-from ..ops.cuda.epl_correlator import epl_correlate_pallas
+from ..ops.cuda import launches
+from ..ops.cuda.epl_correlator import epl_correlate_block
 
 _U32_SCALE = 4294967296.0
 CORRELATORS = ("shift", "exact", "slice", "fused", "pallas")
@@ -281,15 +288,16 @@ _TELEM_BOOL = ("processed", "locked", "lost_event")
 _TELEM_INT = ("start_offset", "epoch_index")
 
 
-def _pack_state(state: ChannelState) -> np.ndarray:
-    """[13, C] int32: each ledger field's bits (bool as 0/1), the one
-    array uploaded per block."""
+def _pack_inputs(state: ChannelState, limit: int) -> np.ndarray:
+    """[13 * C + 1] int32: each ledger field's bits (bool as 0/1), row by
+    row, then ``limit`` (the valid samples of the block): the one array
+    uploaded per block."""
     rows = []
     for f in ChannelState._fields:
         a = np.asarray(getattr(state, f), dtype=_FIELD_DTYPES[f])
         rows.append(a.astype(np.int32) if a.dtype == np.bool_
                     else a.view(np.int32))
-    return np.stack(rows)
+    return np.concatenate(rows + [np.array([limit], np.int32)])
 
 
 def _device_state(packed: torch.Tensor) -> ChannelState:
@@ -351,29 +359,34 @@ def epoch_step(params: TrackParams, codes: torch.Tensor,
     # the +1 catch-up epoch of the next block
     can = (state.active & (state.offset >= 0)
            & (state.offset + p.window <= limit))
-    start = torch.clamp(state.offset, 0, block_len - p.window).to(torch.int64)
-    idx = start[:, None] + torch.arange(p.window, device=block_re.device)
-    win_re, win_im = block_re[idx], block_im[idx]
+    start = torch.clamp(state.offset, 0, block_len - p.window)
 
     carr_step = nco.cycles_to_step(state.carr_freq * inv_fs)
     chips_per_sample = code_rate_eff * inv_fs
     chip_frac_f = state.chip_frac_u32.to(torch.float32) * (1.0 / _U32_SCALE)
-    args = (win_re, win_im, n_t, state.carr_acc, carr_step, state.chip_int,
-            chip_frac_f, chips_per_sample, codes)
-    if p.correlator in ("slice", "fused"):
-        sums = epl_correlate_one_slice(*args, shift=p.el_shift,
-                                       n0=p.samples_per_code_nominal)
-    elif p.correlator == "pallas":
-        sums = epl_correlate_pallas(*args, shift=p.el_shift,
-                                    oversample=p.oversample,
-                                    interp=p.interp_code)
-    elif p.correlator == "shift":
-        sums = epl_correlate_one_shift(*args, shift=p.el_shift,
-                                       oversample=p.oversample,
-                                       interp=p.interp_code)
+    per_channel = (n_t, state.carr_acc, carr_step, state.chip_int,
+                   chip_frac_f, chips_per_sample, codes)
+    if p.correlator == "pallas":
+        # B5 reads each window from the block at its start
+        sums = epl_correlate_block(block_re, block_im, start, *per_channel,
+                                   window=p.window, shift=p.el_shift,
+                                   oversample=p.oversample,
+                                   interp=p.interp_code,
+                                   max_start=block_len - p.window)
     else:
-        sums = epl_correlate_one(*args, el_space=p.el_space,
-                                 oversample=p.oversample)
+        idx = start.to(torch.int64)[:, None] + torch.arange(
+            p.window, device=block_re.device)
+        args = (block_re[idx], block_im[idx]) + per_channel
+        if p.correlator in ("slice", "fused"):
+            sums = epl_correlate_one_slice(*args, shift=p.el_shift,
+                                           n0=p.samples_per_code_nominal)
+        elif p.correlator == "shift":
+            sums = epl_correlate_one_shift(*args, shift=p.el_shift,
+                                           oversample=p.oversample,
+                                           interp=p.interp_code)
+        else:
+            sums = epl_correlate_one(*args, el_space=p.el_space,
+                                     oversample=p.oversample)
 
     power = sums.i_p * sums.i_p + sums.q_p * sums.q_p
     if p.lock_mode == "costas":
@@ -468,30 +481,16 @@ def epoch_step(params: TrackParams, codes: torch.Tensor,
     return new_state, telem
 
 
-def track_block_device(params: TrackParams, codes, state: ChannelState,
-                       block_re, block_im, n_epochs: int,
-                       valid_len: int | None = None) -> torch.Tensor:
-    """``n_epochs`` epochs over one resident sample block, as torch ops
-    on the block's device, from the host ledger ``state``. Returns ONE
-    int32 tensor on that device: the end state's [13, C] field bits,
-    then the [17, T, C] telemetry bits (``unpack_block`` reads it). The
-    state goes up in one copy from pinned memory, and nothing here waits
-    for the card."""
-    if params.correlator not in CORRELATORS:
-        raise ValueError(f"unknown correlator {params.correlator!r}; "
-                         f"expected one of {CORRELATORS}")
-    block_re = torch.as_tensor(block_re, dtype=torch.float32)
-    block_im = torch.as_tensor(block_im, dtype=torch.float32,
-                               device=block_re.device)
-    dev = block_re.device
-    codes = torch.as_tensor(codes, dtype=torch.float32).to(dev).contiguous()
-    packed = torch.from_numpy(_pack_state(state))
-    if dev.type == "cuda":
-        packed = packed.pin_memory().to(dev, non_blocking=True)
-    st = _device_state(packed)
-    limit = block_re.shape[0]
-    if valid_len is not None:
-        limit = min(limit, int(valid_len))
+def _run_epochs(params: TrackParams, codes: torch.Tensor, ins: torch.Tensor,
+                block_re: torch.Tensor, block_im: torch.Tensor,
+                n_epochs: int) -> torch.Tensor:
+    """The block's epochs as torch ops on the inputs' device, from the
+    packed inputs ``ins`` (_pack_inputs; ``limit`` stays a 0-d tensor, so
+    a tail block runs the same ops as a full one). Returns the int32
+    result of track_block_device."""
+    c = (ins.shape[0] - 1) // len(ChannelState._fields)
+    st = _device_state(ins[:-1].view(-1, c))
+    limit = ins[-1]
     rows = []
     for _ in range(n_epochs):
         st, tl = epoch_step(params, codes, st, block_re, block_im, limit)
@@ -501,6 +500,153 @@ def track_block_device(params: TrackParams, codes, state: ChannelState,
         _bits32(torch.stack([getattr(r, f) for r in rows]))
         for f in EpochTelemetry._fields])
     return torch.cat([state_bits.reshape(-1), telem_bits.reshape(-1)])
+
+
+def graph_key(params: TrackParams, codes, state: ChannelState, block_re,
+              n_epochs: int) -> tuple:
+    """The static key of a block's CUDA graph (from track_block_device's
+    arguments): the parameters, the epoch count, the channels, the block
+    length, the codes' width and the device. Not ``valid_len``: the limit
+    is an input of the graph, so a tail block replays the full block's
+    graph."""
+    dev = (block_re.device if isinstance(block_re, torch.Tensor)
+           else torch.device("cpu"))
+    return (params, int(n_epochs), int(np.asarray(state.active).shape[0]),
+            int(block_re.shape[0]), int(codes.shape[1]), dev)
+
+
+# the graphs by graph_key, the least recently used first: a receiver
+# replays one key (its tail block too), and the second place keeps the
+# previous receiver's graph where two take turns in a process. Per key,
+# GRAPH_LOG holds the warm-up's and the capture's seconds (trace_s: the
+# epochs' ops recorded; the rest of capture_s instantiates the graph) and
+# the device memory the capture reserved for the graph's pool.
+_GRAPH_CACHE_SIZE = 2
+_GRAPHS: OrderedDict = OrderedDict()
+GRAPH_LOG: dict = {}
+
+
+class _BlockGraph:
+    """One key's block of epochs as a CUDA graph: the fixed buffers it
+    reads (the packed ledger and limit, the block, the codes) and the
+    result buffer it writes. The key's first call runs the epochs
+    eagerly on a side stream (PyTorch's warm-up before a capture) and
+    returns that result; its second call captures them and replays, and
+    so does every later call without the capture. A key used once (a
+    stream's short last block) so never pays for a capture. One graph
+    holds the whole block, not one epoch, so a block costs the host one
+    graph launch instead of one per epoch; its capture is the dearer
+    for it (about 1.4-2.3 s on the H100 at 32 channels, PERF.md)."""
+
+    def __init__(self, key: tuple):
+        params, n_epochs, c, n, n_code, dev = key
+        self.key, self.params, self.n_epochs = key, params, n_epochs
+        self.ins = torch.empty(len(ChannelState._fields) * c + 1,
+                               dtype=torch.int32, device=dev)
+        self.re = torch.empty(n, dtype=torch.float32, device=dev)
+        self.im = torch.empty_like(self.re)
+        self.codes = torch.empty((c, n_code), dtype=torch.float32,
+                                 device=dev)
+        self.warm = False
+        self.graph = None
+        self.out = None
+
+    def load(self, ins, block_re, block_im, codes) -> None:
+        """Copy one call's inputs into the fixed buffers (on the current
+        stream; ``ins`` from pinned memory)."""
+        self.ins.copy_(ins, non_blocking=True)
+        self.re.copy_(block_re)
+        self.im.copy_(block_im)
+        self.codes.copy_(codes)
+
+    def eager(self) -> torch.Tensor:
+        return _run_epochs(self.params, self.codes, self.ins, self.re,
+                           self.im, self.n_epochs)
+
+    def run(self, ins, block_re, block_im, codes) -> torch.Tensor:
+        self.load(ins, block_re, block_im, codes)
+        if not self.warm:
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream(device=self.re.device)
+            side.wait_stream(cur)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                out = self.eager()
+            cur.wait_stream(side)
+            out.record_stream(cur)
+            self.warm = True
+            GRAPH_LOG[self.key] = {"warmup_s": time.perf_counter() - t0}
+            return out
+        if self.graph is None:
+            graph = launches.Graph()
+            dev = self.re.device
+            t0 = time.perf_counter()
+            # what torch.cuda.graph does on entry, done first so that the
+            # reserved memory's growth is the graph's pool alone
+            torch.cuda.synchronize(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            # thread-local: another thread's CUDA calls (a span collector)
+            # cannot break this capture
+            with graph.capture(capture_error_mode="thread_local"):
+                static_out = self.eager()
+                t1 = time.perf_counter()
+            self.graph, self.out = graph, static_out
+            GRAPH_LOG[self.key].update(
+                capture_s=time.perf_counter() - t0, trace_s=t1 - t0,
+                pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+                launches={f"{m.rsplit('.', 1)[-1]}.{n}": k
+                          for (m, n), k in graph.launches.items()})
+        self.graph.replay()
+        # a later replay overwrites self.out: the caller gets a copy
+        return self.out.clone()
+
+
+def track_block_device(params: TrackParams, codes, state: ChannelState,
+                       block_re, block_im, n_epochs: int,
+                       valid_len: int | None = None,
+                       graph: bool = True) -> torch.Tensor:
+    """``n_epochs`` epochs over one resident sample block, on the
+    block's device, from the host ledger ``state``. Returns ONE int32
+    tensor on that device: the end state's [13, C] field bits, then the
+    [17, T, C] telemetry bits (``unpack_block`` reads it). The ledger and
+    the limit go up in one copy from pinned memory, and nothing here
+    waits for the card.
+
+    On CUDA the epochs run as one CUDA graph per graph_key (the
+    counterpart of the JAX package's jitted scan): a key's first call is
+    the eager warm-up, its second captures, and every call from the
+    second on replays; each call copies its inputs into the graph's
+    buffers, and the result is a copy of the graph's. A capture that
+    fails raises.
+    ``graph=False`` runs the eager loop of torch ops instead, which the
+    checks hold the replay to; on the CPU the eager loop always runs."""
+    if params.correlator not in CORRELATORS:
+        raise ValueError(f"unknown correlator {params.correlator!r}; "
+                         f"expected one of {CORRELATORS}")
+    block_re = torch.as_tensor(block_re, dtype=torch.float32)
+    block_im = torch.as_tensor(block_im, dtype=torch.float32,
+                               device=block_re.device)
+    dev = block_re.device
+    codes = torch.as_tensor(codes, dtype=torch.float32).to(dev).contiguous()
+    limit = block_re.shape[0]
+    if valid_len is not None:
+        limit = min(limit, int(valid_len))
+    ins = torch.from_numpy(_pack_inputs(state, limit))
+    if dev.type != "cuda":
+        return _run_epochs(params, codes, ins, block_re, block_im, n_epochs)
+    ins = ins.pin_memory()
+    if not graph:
+        return _run_epochs(params, codes, ins.to(dev, non_blocking=True),
+                           block_re, block_im, n_epochs)
+    key = graph_key(params, codes, state, block_re, n_epochs)
+    g = _GRAPHS.pop(key, None) or _BlockGraph(key)
+    out = g.run(ins, block_re, block_im, codes)
+    _GRAPHS[key] = g                    # the newest last
+    while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    return out
 
 
 def unpack_block(buf, n_channels: int,
@@ -530,15 +676,15 @@ def unpack_block(buf, n_channels: int,
 
 
 def track_block(params: TrackParams, codes, state: ChannelState, block_re,
-                block_im, n_epochs: int, valid_len: int | None = None
-                ) -> tuple[ChannelState, EpochTelemetry]:
+                block_im, n_epochs: int, valid_len: int | None = None,
+                graph: bool = True) -> tuple[ChannelState, EpochTelemetry]:
     """Run ``n_epochs`` tracking epochs over one resident sample block
     (track_block_device) and download the result in one copy. Returns
     the host ledger and [T, C] telemetry. The caller picks ``n_epochs =
     block_ms / code_period_ms + 1``: the +1 lets a channel that fell
     behind catch up one epoch per block. ``valid_len`` (a Python int)
     bounds processing when the block's tail is zero padding (a short
-    final read)."""
+    final read). ``graph``: as in track_block_device."""
     buf = track_block_device(params, codes, state, block_re, block_im,
-                             n_epochs, valid_len)
+                             n_epochs, valid_len, graph)
     return unpack_block(buf, np.asarray(state.active).shape[0], n_epochs)

@@ -150,10 +150,71 @@ def test_b5_bad_arguments_raise_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.B5_CASES))
+def test_b5_block_entry_equals_windows_entry_on_card(card, case):
+    """The block-reading entry (windows at each channel's start in a
+    shuffled block) equal to the [C, W] entry bit for bit, idle and
+    partial masks; one launch counted per call."""
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+
+    signal, fs, interp = chip_smoke.B5_CASES[case]
+    for idle in (8, 0):
+        (args,), st = chip_smoke.b5_inputs(torch, signal, fs, idle=idle)
+        kw = dict(shift=st["shift"], oversample=st["oversample"],
+                  interp=interp)
+        block_re, block_im, starts, max_start = chip_smoke.b5_block_form(
+            torch, args, seed=idle)
+        before = b5.launch_count
+        got = b5.epl_correlate_block(block_re, block_im, starts, *args[2:],
+                                     window=st["window"], **kw)
+        ref = b5.epl_correlate_pallas(*args, **kw)
+        torch.cuda.synchronize()
+        assert b5.launch_count == before + 2
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_b5_window_past_block_raises_on_card(card):
+    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+
+    (args,), st = chip_smoke.b5_inputs(torch, "gps_l1ca", chip_smoke.FS)
+    block_re, block_im, starts, max_start = chip_smoke.b5_block_form(
+        torch, args)
+    kw = dict(window=st["window"], shift=st["shift"])
+    before = b5.launch_count
+    past = starts.clone()
+    past[3] = max_start + 1
+    with pytest.raises(ValueError, match="out of bounds"):
+        b5.epl_correlate_block(block_re, block_im, past, *args[2:], **kw)
+    past[3] = -1
+    with pytest.raises(ValueError, match="out of bounds"):
+        b5.epl_correlate_block(block_re, block_im, past, *args[2:], **kw)
+    with pytest.raises(ValueError, match="out of bounds"):
+        b5.epl_correlate_block(block_re, block_im, starts, *args[2:],
+                               max_start=max_start + 1, **kw)
+    assert b5.launch_count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("correlator", ["shift", "pallas"])
+def test_scan_graph_equals_eager_on_card(card, correlator):
+    """The scanned tracker's CUDA graph against its eager loop, bit for
+    bit in the [13, C] state and the 17 telemetry fields, over 3 blocks
+    and a 200 ms tail block on the same graph; the calls after the
+    warm-up and the capture run with the sync debug mode at "error";
+    B5's launches counted from the replays."""
+    sats, sig = chip_smoke._scene(2.5)
+    assert chip_smoke.scan_graph_vs_eager(torch, correlator, sats,
+                                          sig) == 4
+
+
+@pytest.mark.cuda
 def test_scan_receiver_on_card(card):
     """1.5 s of the 24-satellite scene through the scanned tracker with
-    correlator="pallas": every PRN tracked within 40 Hz, B5 launched
-    once per epoch (blocks x 501), no other kernel."""
+    correlator="pallas" (on its CUDA graph): every PRN tracked within 40
+    Hz, B5 launched once per epoch (blocks x 501, counted from the
+    replays), no other kernel."""
     sats, sig = chip_smoke._scene(1.5)
     rx, summary, launches = chip_smoke._run_receiver(
         torch, sats, sig, "test", correlator="pallas")
