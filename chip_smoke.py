@@ -10,11 +10,16 @@ GPU:
      2.046 MHz, 24 satellites tracked and 8 channels idle), in the
      power-lock, Costas-lock and forced-death variants, open loop: the
      plain version runs every pair of supersteps from the kernel's own
-     state at its start;
+     state at its start; then the alignment edges of the window copy
+     (power lock): the same windows with every start moved to each
+     residue mod 4 and the stream cut where the last window ends, each
+     against the plain version open loop and equal to the unmoved run
+     bit for bit;
   4. the kernel's time per block (CUDA events around each launch, the
      launches queued back to back, median of 30 passes with a fresh
      state each and the L2 flushed), the plain version's time and the
-     least time the card could take for the same work;
+     least time the card could take for the same work; the kernel's
+     registers and stack per instantiation (ptxas);
   5. the end-to-end receiver, ``Receiver(cfg, source).run()``, on a
      24-satellite scene: every PRN tracked within 40 Hz, and the
      kernel's launch count equal to the number of blocks;
@@ -27,7 +32,9 @@ GPU:
   9. the steady-state receiver, ``run(scan_blocks=k)``, on the
      24-satellite scene: (a) 10 s, 8-block spans, pipelined, the auto
      layout and wire (mxu, slim2); (b) the same, synchronous spans,
-     against a single-block run of the same scene; (c) 5 s, the direct
+     against a single-block run of the same scene (epochs equal per
+     PRN, every PRN's Doppler over the last block, the mean of its
+     last 500 epochs, within 1 Hz); (c) 5 s, the direct
      layout, 4-block spans; every PRN tracked, launches equal to
      blocks, then one chained span submitted with the sync debug mode
      at "error" (the submit path never waits for the card);
@@ -83,13 +90,14 @@ GPU:
      against B1 kernel to kernel, bit for bit, on the tracker's own
      inputs with the base clamped at 0 and with the channels moved by
      whole code periods to random starts across [base, base +
-     spread_cap] above a base of the guard's;
+     spread_cap] above a base of the guard's, and on those with the
+     stream cut where the last slice ends (equal to the uncut run);
  19. B2's path on the 10 s scene: FusedTracker(shared_fetch=True) as
      single blocks and as synchronous 8-block spans on the slim2 wire,
      every downloaded array and the final ledger equal to the same run
      with shared_fetch=False, B2 launched once per block and B1 never;
  20. B2's time per block beside B1's in turns, its plain version's and
-     its bound;
+     its bound, the registers and stack of B1's and B2's instantiations;
  21. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
@@ -132,6 +140,9 @@ B5_OPS_PER_LANE = 24
 B5_TOL = 1e-4                       # of each sum's column max
 DIRECT_S = 5                        # ... and the direct run
 STEADY_SPAN = 8                     # blocks per span, mxu runs
+# a channel's Doppler measured over the last block: the mean of its
+# carrier-frequency trace over the last 500 epochs (phase 9)
+SETTLED_EPOCHS = 500
 DIRECT_SPAN = 4                     # ... and the direct run
 # the per-epoch layouts (phases 15-17)
 WINDOWS_BLOCK_MS = 500              # B4a and B6: T = 500
@@ -203,6 +214,41 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print("   ", line.strip())
     return logs
+
+
+def ptxas_summary(log):
+    """Registers, stack frame and spills per kernel from ``nvcc -Xptxas
+    -v``'s output (``_build.BUILD_LOG[name]["ptxas"]``): {entry name:
+    {"registers", "stack", "spill_stores", "spill_loads"}}."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def mxu_ptxas():
+    """ptxas_summary of the mxu source's four instantiations (B1 and B2,
+    full and lean), as the build of this run reported them."""
+    from gnss_sdr_tpu_torch.ops.cuda import _build
+
+    return {k: v for k, v in ptxas_summary(
+        _build.BUILD_LOG["track_block_mxu"]["ptxas"]).items()
+        if "track_block_mxu_kernel" in k}
 
 
 def full_width_inputs(torch, device, cfg_kw, n_channels=N_CHANNELS,
@@ -400,6 +446,70 @@ def phase_kernel_check(torch):
         max_abs = max(max_abs, err["corr_max_abs"])
         print(f"kernel vs plain, open loop [{name}, K={kw['k_epochs']}]: "
               + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()}))
+    _, args, kw = full_width_inputs(torch, "cuda", {})
+    max_abs = max(max_abs, edge_check(torch, args, kw))
+    return max_abs
+
+
+def prefetch_span(start, j, k_epochs, n0, wp, spread_cap=0):
+    """The samples the mxu kernel (csrc/track_block_mxu.cu, stage_window
+    and stage_slice) copies into shared memory for superstep ``j`` of a
+    window that starts at ``start`` (an int or an integer tensor; B2:
+    the shared base, with its ``spread_cap``): (origin, length, offset),
+    the span [origin, origin + length) of the stream and the window's
+    offset in it. The origin is the 4-sample (16-byte) floor of
+    start + off_j, as a bulk copy needs; the kernel copies the span's
+    first ``length // 4 * 4`` samples by TMA and the last 0-3 by plain
+    loads, so the span ends where the window does. The receiver's starts
+    and bases are 128-multiples (offset 0); the other residues come from
+    direct callers of the wrapper."""
+    g = start + (j * k_epochs * n0 // 128) * 128
+    origin = (g // 4) * 4
+    offset = g - origin
+    span = ((k_epochs - 1) * n0 // 128) * 128 + wp
+    return origin, offset + span + spread_cap, offset
+
+
+def edge_case(torch, args, kw, r):
+    """B1's arguments with the same windows at starts moved to residue
+    ``r`` mod 4: ``r`` samples put before the stream and added to every
+    start, and the stream cut where the last superstep's window of the
+    highest start ends (that start the last valid one). The state and
+    replicas stay, so the kernel sees the same samples: the window copy
+    starts 0-3 samples before its window and ends with plain loads of
+    the last 0-3 samples (prefetch_span)."""
+    sre, sim, starts, reps, st = args
+    host = (np.asarray(kw["starts_host"]) + r).astype(np.int32)
+    j_last = kw["t_epochs"] // kw["k_epochs"] - 1
+    origin, length, _ = prefetch_span(
+        int(host.max()), j_last, kw["k_epochs"], kw["n0"], kw["wp"])
+    end = origin + length
+    pad = sre.new_zeros(r)
+    return ((torch.cat([pad, sre])[:end].contiguous(),
+             torch.cat([pad, sim])[:end].contiguous(),
+             starts.new_tensor(host), reps, st),
+            dict(kw, starts_host=host))
+
+
+def edge_check(torch, args, kw):
+    """B1 at the window copy's alignment edges (edge_case, r = 0..3):
+    against its plain version open loop, and equal bit for bit to the
+    run on the unmoved stream. Returns the largest |error| of the
+    correlations against the plain version."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    t0, s0 = fused.track_block_fused_mxu(*args, **kw)
+    max_abs = 0.0
+    for r in range(4):
+        e_args, e_kw = edge_case(torch, args, kw, r)
+        tk, sk, err = open_loop_compare(torch, e_args, e_kw)
+        assert torch.equal(tk, t0) and torch.equal(sk, s0), r
+        max_abs = max(max_abs, err["corr_max_abs"])
+        print(f"kernel vs plain, open loop [starts at residue {r} mod 4, "
+              f"stream cut at {e_args[0].shape[0]}, the last window's "
+              "end]: " + json.dumps({k: float(f"{v:.3e}")
+                                     for k, v in err.items()})
+              + "; equal to the unmoved run bit for bit")
     return max_abs
 
 
@@ -507,6 +617,8 @@ def phase_timing(torch, layout="mxu"):
         bound_ms=bound, bound_by=bound_by,
         bytes=n_bytes, mixed_lanes=lanes, bf16_ops=bf16_ops,
         f32_ops=f32_ops)
+    if layout == "mxu":
+        res["ptxas"] = mxu_ptxas()
     print(f"timing [{layout}] (ms per 500 ms block, 32 ch): " + json.dumps(
         {k: (round(v, 6) if isinstance(v, float) else v)
          for k, v in res.items()}))
@@ -717,6 +829,15 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     return rx, summary, launches
 
 
+def settled_doppler(rx, n_epochs=SETTLED_EPOCHS):
+    """Per PRN of a receiver's open channels, the mean Doppler (Hz) over
+    the last ``n_epochs`` epochs of its carrier-frequency trace, where
+    the loop's output of one superstep jitters by a few Hz."""
+    return {t.prn: float(np.mean(t.carr_freq[-n_epochs:], dtype=np.float64))
+            - rx.f_if for t in rx.telemetry.traces.values()
+            if t.carr_freq.size}
+
+
 def _submit_without_sync(torch, rx, sig, n_span=STEADY_SPAN):
     """One span of the pipelined submit path (window framing with the
     fresh blocks' upload, the codes, two chained submits) with the sync
@@ -754,11 +875,11 @@ def phase_steady(torch):
     single-block run of the same scene, (c) the direct layout."""
     sats, sig = _scene(STEADY_S)
     n_blocks = sig.size // (BLOCK_MS * 2046)
-    _, single, _ = _run_receiver(torch, sats, sig, "single-block")
+    rx_1, single, _ = _run_receiver(torch, sats, sig, "single-block")
     rx_a, sum_a, la = _run_receiver(torch, sats, sig, "a", scan_blocks=
                                     STEADY_SPAN, span_pipeline=True)
-    _, sum_b, lb = _run_receiver(torch, sats, sig, "b",
-                                 scan_blocks=STEADY_SPAN)
+    rx_b, sum_b, lb = _run_receiver(torch, sats, sig, "b",
+                                    scan_blocks=STEADY_SPAN)
     n_direct = int(DIRECT_S * 1000 / BLOCK_MS)
     sig_c = sig[:n_direct * BLOCK_MS * 2046]
     _, sum_c, lc = _run_receiver(torch, sats, sig_c, "c", layout="direct",
@@ -772,16 +893,32 @@ def phase_steady(torch):
     ch_1 = {c["prn"]: c for c in single["channels"]}
     ch_a = {c["prn"]: c for c in sum_a["channels"]}
     ch_b = {c["prn"]: c for c in sum_b["channels"]}
-    worst = 0.0
+    # the two runs mix each window on another 128-sample grid (a span's
+    # blocks sit 24 samples apart on it), so their bf16 roundings
+    # differ and a few channels' closed loops take other E/P/L picks:
+    # one superstep's held rate (the last Doppler) then parts by up to
+    # 6-8 Hz between the runs, also in the plain version's two runs, and
+    # its mean over 50 epochs by up to 1.14 Hz; over the last block
+    # loops locked to the same carrier agree, by up to 0.31 Hz in the
+    # plain version (tools/port_steady_probe.py, ROADMAP C10): that
+    # mean is held per PRN
+    settled_1 = settled_doppler(rx_1)
+    settled_b = settled_doppler(rx_b)
+    diff, last = {}, {}
     for prn in range(1, 25):
         assert ch_b[prn]["epochs"] == ch_1[prn]["epochs"], prn
         assert abs(ch_a[prn]["epochs"] - ch_b[prn]["epochs"]) <= 1, prn
-        d = abs(ch_b[prn]["last_doppler_hz"] - ch_1[prn]["last_doppler_hz"])
-        assert d < 1.0, (prn, d)
-        worst = max(worst, d)
+        diff[prn] = abs(settled_b[prn] - settled_1[prn])
+        last[prn] = abs(ch_b[prn]["last_doppler_hz"]
+                        - ch_1[prn]["last_doppler_hz"])
+    worst = max(diff, key=diff.get)
+    assert diff[worst] < 1.0, diff
     print(f"steady (b) vs single-block: epochs equal for all 24 PRNs, "
-          f"|Doppler difference| <= {worst:.4f} Hz; (a) epochs within 1 "
-          "of (b)")
+          f"Doppler over the last block (mean of {SETTLED_EPOCHS} epochs) "
+          f"within {diff[worst]:.4f} Hz for every PRN (PRN {worst}); last "
+          f"held rate: median {statistics.median(last.values()):.4f} Hz, "
+          f"largest {max(last.values()):.4f} Hz (PRN "
+          f"{max(last, key=last.get)}); (a) epochs within 1 of (b)")
     _submit_without_sync(torch, rx_a, sig)
     return {"a": la, "b": lb, "c": lc}
 
@@ -1751,14 +1888,37 @@ def phase_shared_check(torch, block_ms=BLOCK_MS):
                   + (f"; channels lost {lost}" if lost and
                      name != "forced_death" else ""))
         cases["offcode"] = offcode_case(*cases["clamped"], seed=len(name))
+        for case in ("clamped", "spread"):
+            cases[case + "_cut"] = shared_edge_case(torch, *cases[case])
         for case, (c_args, c_kw) in cases.items():
             for mode in ("full", "lean"):
                 n2, n1 = b2_equals_b1(torch, c_args,
                                       dict(c_kw, telem_mode=mode))
                 assert (n2, n1) == (1, 1), (n2, n1)
+        for case in ("clamped", "spread"):
+            whole = fused.track_block_fused_mxu(*cases[case][0],
+                                                **cases[case][1])
+            cut = fused.track_block_fused_mxu(*cases[case + "_cut"][0],
+                                              **cases[case + "_cut"][1])
+            assert all(torch.equal(x, y) for x, y in zip(whole, cut)), case
         print(f"B2 vs B1, kernel to kernel [{name}]: telemetry and state "
-              f"equal bit for bit, {len(cases)} start layouts x full/lean")
+              f"equal bit for bit, {len(cases)} start layouts x full/lean "
+              "(the cut streams' runs equal to the uncut ones)")
     return max_abs
+
+
+def shared_edge_case(torch, args, kw):
+    """B2's arguments with the stream cut where the last superstep's
+    slice ends (prefetch_span of the base with spread_cap): the
+    last multicast part then ends at the stream's last sample."""
+    base = int(np.asarray(kw["starts_host"])[-1])
+    origin, length, offset = prefetch_span(
+        base, kw["t_epochs"] // kw["k_epochs"] - 1, kw["k_epochs"],
+        kw["n0"], kw["wp"], kw["spread_cap"])
+    assert offset == 0
+    end = origin + length
+    return ((args[0][:end].contiguous(), args[1][:end].contiguous(),
+             *args[2:]), kw)
 
 
 def _drive_tracker(torch, sig, shared, wire, span):
@@ -1919,7 +2079,7 @@ def phase_shared_timing(torch):
                plain_passes=ps, bound_ms=bound, bound_by=bound_by,
                bytes=n_bytes, slice_bytes=slice_bytes, cluster=cs,
                span_u=span_u, mixed_lanes=lanes, bf16_ops=bf16_ops,
-               f32_ops=f32_ops, library_ms=None)
+               f32_ops=f32_ops, library_ms=None, ptxas=mxu_ptxas())
     print("timing [B2 shared fetch] (ms per 500 ms block, 32 ch): "
           + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                         for k, v in res.items()}))
@@ -1971,6 +2131,7 @@ def main() -> int:
             "steady_pipelined": steady["a"]["track_block_fused_mxu"],
             "steady_sync": steady["b"]["track_block_fused_mxu"]},
         "lean_mode_checked": True,
+        "registers_stack": timing["ptxas"],
         "max_abs_err": max_abs,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

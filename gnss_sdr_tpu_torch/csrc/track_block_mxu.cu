@@ -9,52 +9,90 @@
 //
 // Design: one thread block per channel walks the channel's T/K
 // supersteps in order (GPU blocks run in no order, so the TPU's
-// sequential grid becomes this loop). Per superstep:
-//   1. every thread derives the held NCO rates from the block's state;
-//      threads build the carrier's outer-product trig factors (B per
-//      lane mod 128, A per 128-lane group and epoch) in shared memory;
-//   2. threads mix the K epoch windows straight from global memory,
-//      mask them to the epoch and write the bf16 [2K, wp] tile in
-//      shared memory, already in the aligned lane frame (the TPU
-//      kernel's left roll by rem_i becomes an indexed read);
-//   3. each warp forms dot products of one or two tile rows against the
-//      [R, wp] bf16 replica bank held in shared memory (bf16 in, f32
-//      accumulation, as the TPU kernel's contraction);
-//   4. thread 0 runs the E/P/L picks, discriminators, lock chain and
-//      loop filters over the K epochs, writes telemetry and the state.
-// Built with --fmad=false so the scalar steps round as the plain
-// version's (and the JAX kernel's) separate ops do; fma is explicit
-// where wanted. The correlations' f32 sums run in another order than
-// the plain version's, so the two differ by ulps there.
+// sequential grid becomes this loop). The addresses a superstep reads
+// do not depend on the channel's state (only the mask and the carrier
+// do), so superstep j + 1's window span is staged into shared memory
+// while superstep j computes. Per superstep:
+//   1a. every thread derives the held NCO rates from the block's state;
+//       threads build the carrier's outer-product trig factors (B per
+//       lane mod 128, A per 128-lane group and epoch) in shared memory;
+//   1b. each warp mixes its own slice of the wp lanes for the K epochs
+//       from the staged window, masks them to the epoch and writes them
+//       as bf16 into its columns of the [2K, wp] tile, already in the
+//       aligned lane frame (the TPU kernel's left roll by rem_i becomes
+//       an indexed read);
+//   2.  the same warp contracts its columns of the tile with the [R, wp]
+//       bf16 replica bank on the tensor cores (mma.sync m16n8k16, bf16
+//       in, f32 accumulation, as the TPU kernel's contraction; the 2K
+//       tile rows padded to 16 with a zero row); warp 0 adds the warps'
+//       [16, 8] partial sums in warp order;
+//   3-4. warp 0 runs the E/P/L picks and discriminators, lane e for
+//       epoch e; lane 0 runs the lock and loop-filter recurrences over
+//       the K epochs in registers; lane e stores epoch e's telemetry
+//       row; meanwhile warp 1 issues the next superstep's window copy.
+// 16 warps, so that the mix has four warps per scheduler to switch
+// between (8 warps took 10% longer).
+// Staging: a 1-D cp.async.bulk (TMA) of each component from global to
+// shared memory, completing on an mbarrier (expect-tx of the span's
+// bytes, one phase per superstep), issued as soon as every warp is done
+// with the window (after stage 2's barrier), so it lands during the
+// chain and stage 1a. A bulk copy takes 16-byte-aligned addresses and
+// lengths, so it starts at the 4-sample floor of starts[c] + off_j and
+// ends at the 4-sample floor of the span's end; the last 0-3 samples go
+// by plain loads. The copy thus reads no sample past the channel's
+// windows, and the wrapper's read bound stays the plain version's.
+// Where the windows do not fit in shared memory beside the bank and the
+// tile (wider windows, e.g. 4.092 MHz's wp = 4608, or a bank of more
+// than 8 rows beside B2's slice), the launcher clears Params::staged and
+// the mix reads the same samples from global memory, as it did before
+// the staging; the result is the same. Only the mix's source and whether
+// copies are issued and waited for differ. No smaller staging
+// unit covers those geometries either: at 4.092 MHz B2's slice for one
+// epoch (wp + spread_cap = 9,216 samples, 74 KB) does not fit beside a
+// 9-row bank (83 KB) and the tile (92 KB) in the 227 KB a block may have.
+// Tile and bank rows are padded by 8 bf16 (16 bytes), so the ldmatrix
+// rows of one 8x8 matrix fall on distinct banks and the mix's tile
+// stores on consecutive ones.
+//
+// Why not wgmma: it multiplies 64-row tiles per warpgroup, and the tile
+// here has 2K <= 16 rows, so at least 75% of its rows would be padding;
+// the contraction is ~0.3 MFLOP per superstep, and mma.sync takes less
+// of a superstep than the mix or the chain (PERF.md section 6).
 //
 // Shared fetch (kernel B2, replacing _mxu_kernel_shared :1713, which
 // the TPU wrapper selects with spread_cap > 0): the template flag
 // kShared. The TPU kernel makes one DMA of [span + spread_cap] samples
 // per superstep for all channels instead of C overlapping window DMAs.
-// Here the grid is still one block per channel, launched in thread-block
-// clusters of `cs` blocks (cudaLaunchKernelEx with a cluster dimension);
-// each cluster holds the superstep's slice [base + off_j, + span_u) of
-// both components in its distributed shared memory, block rank r the
-// part [r * chunk, (r + 1) * chunk), chunk a power of two (a sample's
-// owner is a shift, its place a mask). Per superstep: a cluster barrier
-// (the slice is staged), stage 1a, stage 1b reading sample
-// dc + a_e + m of the slice (dc = starts[c] - base) from the owning
-// block's shared memory, a second cluster barrier (every block is done
-// with the slice), then each block stages its part of the next slice
-// while it runs stages 2-4. Every block runs every superstep (idle
-// channels run masked), so every block reaches every barrier, and none
-// exits while another can still read its shared memory. Only where the
-// samples are read from differs from B1, so the result is B1's bit for
-// bit. The wrapper checks the slices' read bound on the host.
+// Here the blocks (one per channel) launch in thread-block clusters of
+// `cs`; each block holds the cluster's whole slice [base + off_j,
+// + span_u) in its own shared memory, and each block issues its part
+// of the slice (1/cs of it) as one cp.async.bulk .multicast::cluster
+// into every block of the cluster; each block's mbarrier expects the
+// whole slice's bytes. Stage 1b reads sample dc + a_e + m of its own
+// copy (dc = starts[c] - base). A cluster barrier per superstep (every
+// thread arrives after stage 1b and waits after stage 2) keeps a block
+// from multicasting the next slice into a block that still reads the
+// current one. Every block runs every superstep (idle channels run
+// masked), so every block reaches every barrier. Only where the samples
+// are read from differs from B1, so the result is B1's bit for bit. The
+// wrapper checks the slices' read bound on the host.
 //
 // Telemetry modes: the template flag kLean selects which columns the
 // kernel stores (full: all 21 per epoch; lean: the slim2 wire's feed,
 // see the wrapper's docstring) and nothing else, so both modes run the
 // identical arithmetic and leave the identical state.
 //
-// Bound on the H100: a few microseconds per 500 ms block (bytes of
-// stream, replicas and telemetry over 3.35 TB/s). This kernel uses C of
-// the 132 SMs and a serial per-channel chain, so it sits far above it.
+// Built with --fmad=false so the scalar steps round as the plain
+// version's (and the JAX kernel's) separate ops do; fma is explicit
+// where wanted. The correlations' f32 sums run in another order than
+// the plain version's (the tensor cores' and the warps'), so the two
+// differ by ulps there.
+//
+// Bound on the H100: a few microseconds per 500 ms block (the bf16
+// products over the tensor cores, the stream, replicas and telemetry
+// over 3.35 TB/s). The kernel uses C of the 132 SMs and its supersteps
+// form a serial chain per channel (trig, mix, contraction, picks, loop
+// filters, a few barriers), so that chain's latency bounds it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -67,11 +105,14 @@ namespace {
 
 constexpr int kFields = 128;
 constexpr int kTelem = 21;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8;
 constexpr int kMaxR = 16;
 constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kPad = 8;         // bf16 pad per tile and bank row
+// per-epoch results of the lock and loop-filter recurrences (rv columns)
+enum { kUpd, kCf, kCr, kEmit, kWr, kRv };
 
 // constants rounded double -> float, as torch.tensor(x, float32) does
 constexpr float kTwoPi = (float)6.283185307179586;
@@ -91,11 +132,114 @@ struct Params {
   float pll_c1, pll_c2, dll_c1, dll_c2, el_f;
   float aiding_scale, if_freq, costas_thr;
   int aiding, costas, interp;
-  // shared fetch (B2): the cluster size, each block's part of the slice
-  // (a power of two, 2^chunk_shift) and the slice's length, span +
-  // spread_cap (samples)
-  int cs, chunk, span_u, chunk_shift;
+  // the window span (samples), B2's slice (span + spread_cap), the
+  // staged buffer's capacity per component, B2's cluster size and the
+  // part of the slice each of its blocks copies (a multiple of 4);
+  // staged: the windows go through shared memory (0: where they do not
+  // fit beside the bank and the tile, the mix reads global memory)
+  int span, span_u, win_cap, cs, part, staged;
 };
+
+// ---- PTX wrappers: mbarrier, bulk copy, cluster barrier, tensor cores
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(1)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// global -> this block's shared memory, completing on its mbarrier
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// global -> the same offset of every masked block's shared memory in the
+// cluster, completing on each one's mbarrier at the same offset
+__device__ __forceinline__ void bulk_g2s_multicast(void* dst, const void* src,
+                                                   uint32_t bytes,
+                                                   uint64_t* bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// the generic proxy's reads of the window are ordered before the async
+// proxy's next writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// ---- the arithmetic of _mxu_run_k
 
 __device__ float atan_poly(float x) {
   // Abramowitz-Stegun 4.4.49 (max error ~1e-5 rad): the TPU kernel's
@@ -112,13 +256,12 @@ __device__ float atan_poly(float x) {
   return x < 0.0f ? -r : r;
 }
 
-// one of the R correlations of a [R] row by a float index; an index
-// outside [0, R) picks 0, never an out-of-bounds row
+// one of the R correlations of a [R] row by a float index: row[r] where
+// (float)r == idx, and 0 for an index outside [0, R) or not a whole
+// number, never an out-of-bounds row
 __device__ float pick(const float* row, int r_rows, float idx) {
-  float v = 0.0f;
-  for (int r = 0; r < r_rows; ++r)
-    if ((float)r == idx) v = row[r];
-  return v;
+  bool hit = idx >= 0.0f && idx <= (float)(r_rows - 1) && idx == floorf(idx);
+  return hit ? row[(int)idx] : 0.0f;
 }
 
 __device__ float pick_b(const float* row, int r_rows, float idx, bool interp,
@@ -161,140 +304,176 @@ __device__ float epoch_sl(const float* st, const Held& h, int e, int n0,
   return st[9] + drift_e + (float)rem_e + (float)h.rem_j;
 }
 
-// thread 0: stage 3-4 over the K epochs of superstep j; updates st and
-// writes telemetry rows [j*K, j*K + K) of channel c
+// warp 0: stages 3-4 over the K epochs of superstep j; updates st and
+// writes telemetry rows [j*K, j*K + K) of channel c. Lane e computes
+// epoch e's picks and discriminators; lane 0 gathers what the lock and
+// loop filters need by shuffles and runs their recurrences over the K
+// epochs in registers (into rv and st); lane e then stores epoch e's
+// telemetry row. Each epoch's arithmetic is _mxu_run_k's, in its order.
 template <bool kLean>
 __device__ void chain(const Params& p, float* st, const float* corr,
-                      const Held& h, int j, int c) {
+                      float (*rv)[kRv], const Held& h, int j, int c,
+                      int lane) {
   const int K = p.k_epochs, R = p.r_rows;
   const float half_r = (float)((R - 1) / 2);
-  const float carr_freq = st[0], carr_phase = st[1], carr_err0 = st[2];
-  const float code_rate = st[3], chip_res0 = st[4], code_err0 = st[5];
-  const float lost0 = st[6], active0 = st[7], drift0 = st[8];
-  const float frac0 = st[10], lock_ema0 = st[11];
-
-  float drift_a[kMaxK], chip_a[kMaxK];
-  float ie[kMaxK], qe[kMaxK], ip[kMaxK], qp[kMaxK], il[kMaxK], ql[kMaxK];
-  float pw[kMaxK], pll[kMaxK], dll[kMaxK];
-  for (int e = 0; e < K; ++e) {
-    float ef = (float)e;
-    drift_a[e] = drift0 + ef * h.d_drift;
-    chip_a[e] = chip_res0 + ef * h.d_chip;
-    float qq = (chip_a[e] + frac0) / h.dc;
+  const float carr_freq = st[0], code_rate = st[3];
+  float ie = 0.0f, qe = 0.0f, ip = 0.0f, qp = 0.0f, il = 0.0f, ql = 0.0f;
+  float pw = 0.0f, pll = 0.0f, dll = 0.0f, drift_a = 0.0f, chip_a = 0.0f;
+  float metric = 0.0f;
+  if (lane < K) {
+    const float ef = (float)lane;
+    drift_a = st[8] + ef * h.d_drift;
+    chip_a = st[4] + ef * h.d_chip;
+    float qq = (chip_a + st[10]) / h.dc;
     float qf = floorf(qq);
-    float idx = half_r + (drift_a[e] - qf);
+    float idx = half_r + (drift_a - qf);
     float fsub = qq - qf;
     bool it = p.interp != 0;
-    const float* cre = corr + e * R;
-    const float* cim = corr + (K + e) * R;
-    ip[e] = pick_b(cre, R, idx, it, fsub);
-    qp[e] = pick_b(cim, R, idx, it, fsub);
-    ie[e] = pick_b(cre, R, idx - p.el_f, it, fsub);
-    qe[e] = pick_b(cim, R, idx - p.el_f, it, fsub);
-    il[e] = pick_b(cre, R, idx + p.el_f, it, fsub);
-    ql[e] = pick_b(cim, R, idx + p.el_f, it, fsub);
-    pw[e] = ip[e] * ip[e] + qp[e] * qp[e];
-    float safe_ip = fabsf(ip[e]) < (float)1e-12 ? (float)1e-12 : ip[e];
-    pll[e] = atan_poly(qp[e] / safe_ip) * kInvTwoPi;
-    float pe = sqrtf(ie[e] * ie[e] + qe[e] * qe[e]);
-    float pl = sqrtf(il[e] * il[e] + ql[e] * ql[e]);
+    const float* cre = corr + lane * R;
+    const float* cim = corr + (K + lane) * R;
+    ip = pick_b(cre, R, idx, it, fsub);
+    qp = pick_b(cim, R, idx, it, fsub);
+    ie = pick_b(cre, R, idx - p.el_f, it, fsub);
+    qe = pick_b(cim, R, idx - p.el_f, it, fsub);
+    il = pick_b(cre, R, idx + p.el_f, it, fsub);
+    ql = pick_b(cim, R, idx + p.el_f, it, fsub);
+    pw = ip * ip + qp * qp;
+    float safe_ip = fabsf(ip) < (float)1e-12 ? (float)1e-12 : ip;
+    pll = atan_poly(qp / safe_ip) * kInvTwoPi;
+    float pe = sqrtf(ie * ie + qe * qe);
+    float pl = sqrtf(il * il + ql * ql);
     float el_sum = pe + pl;
-    dll[e] = el_sum > 0.0f ? (pe - pl) / fmaxf(el_sum, (float)1e-12) : 0.0f;
+    dll = el_sum > 0.0f ? (pe - pl) / fmaxf(el_sum, (float)1e-12) : 0.0f;
+    metric = (ip * ip - qp * qp) / fmaxf(pw, (float)1e-12);
+  }
+  float pw_e[kMaxK], pll_e[kMaxK], dll_e[kMaxK], met_e[kMaxK];
+#pragma unroll
+  for (int e = 0; e < kMaxK; ++e) {
+    pw_e[e] = __shfl_sync(0xffffffffu, pw, e);
+    pll_e[e] = __shfl_sync(0xffffffffu, pll, e);
+    dll_e[e] = __shfl_sync(0xffffffffu, dll, e);
+    met_e[e] = __shfl_sync(0xffffffffu, metric, e);
   }
 
-  float cf_f, ce_f, cr_f, de_f, lo_f, ac_f, le_f, n_act = 0.0f;
-  float row[kMaxK][kTelem];
-  const bool act0 = active0 > 0.5f;
-  if (!p.costas) {
-    // power lock: the closed-form lifecycle chain
-    bool locked[kMaxK], upd[kMaxK];
-    float lo_all[kMaxK], wr[kMaxK], updf[kMaxK], emit[kMaxK];
-    float nco_c[kMaxK], nco_d[kMaxK];
-    int d_idx = K;
-    int last_lk = -1;
-    for (int e = 0; e < K; ++e) {
-      locked[e] = pw[e] > p.lock_threshold;
-      if (locked[e]) last_lk = e;
-      lo_all[e] = last_lk >= 0 ? (float)(e - last_lk)
-                               : lost0 + (float)e + 1.0f;
-      if (lo_all[e] >= p.max_lost_f && d_idx == K) d_idx = e;
+  if (lane == 0) {
+    const float carr_phase = st[1], carr_err0 = st[2];
+    const float chip_res0 = st[4], code_err0 = st[5];
+    const float lost0 = st[6], active0 = st[7], drift0 = st[8];
+    const float lock_ema0 = st[11];
+    float cf_f, ce_f, cr_f, de_f, lo_f, ac_f, le_f, n_act = 0.0f;
+    const bool act0 = active0 > 0.5f;
+    if (!p.costas) {
+      // power lock: the closed-form lifecycle chain
+      int d_idx = K, last_lk = -1;
+      float lo_d = 0.0f, lo_last = 0.0f;  // the lost count at d_idx, K-1
+#pragma unroll
+      for (int e = 0; e < kMaxK; ++e) {
+        if (e < K) {
+          if (pw_e[e] > p.lock_threshold) last_lk = e;
+          float lo = last_lk >= 0 ? (float)(e - last_lk)
+                                  : lost0 + (float)e + 1.0f;
+          if (lo >= p.max_lost_f && d_idx == K) {
+            d_idx = e;
+            lo_d = lo;
+          }
+          lo_last = lo;
+        }
+      }
+      // loop-filter memory at the start of epoch e: the discriminator of
+      // the last update epoch strictly before e
+      float ce = carr_err0, de = code_err0, sc = 0.0f, sd = 0.0f;
+#pragma unroll
+      for (int e = 0; e < kMaxK; ++e) {
+        if (e < K) {
+          bool act = act0 && e <= d_idx;
+          bool upd = act && pw_e[e] > p.lock_threshold;
+          float wr = act ? 1.0f : 0.0f;
+          float updf = upd ? 1.0f : 0.0f;
+          n_act += wr;
+          float nco_c =
+              updf * (pll_e[e] * p.pll_c1 + (pll_e[e] - ce) * p.pll_c2);
+          float nco_d =
+              updf * (dll_e[e] * p.dll_c1 + (dll_e[e] - de) * p.dll_c2);
+          if (upd) {
+            ce = pll_e[e];
+            de = dll_e[e];
+          }
+          sc += nco_c;
+          sd += nco_d;
+          rv[e][kUpd] = updf;
+          rv[e][kCf] = carr_freq + sc;  // per-epoch post-update rates
+          rv[e][kCr] = code_rate + sd;
+          rv[e][kEmit] = (act0 && e == d_idx) ? 1.0f : 0.0f;
+          rv[e][kWr] = wr;
+        }
+      }
+      cf_f = carr_freq + sc;
+      cr_f = code_rate + sd;
+      ce_f = ce;
+      de_f = de;
+      // the lost counter freezes at its death-epoch value
+      lo_f = act0 ? (d_idx < K - 1 ? lo_d : lo_last) : lost0;
+      bool died_now = act0 && d_idx < K;
+      ac_f = died_now ? 0.0f : active0;
+      bool died_any = died_now || (!act0 && lost0 >= p.max_lost_f);
+      le_f = died_any ? 0.0f : lock_ema0;
+    } else {
+      // Costas lock: the sequential EMA chain
+      const float alpha = (float)0.1;
+      cf_f = carr_freq; ce_f = carr_err0; cr_f = code_rate; de_f = code_err0;
+      lo_f = lost0; ac_f = active0; le_f = lock_ema0;
+#pragma unroll
+      for (int e = 0; e < kMaxK; ++e) {
+        if (e < K) {
+          float new_le = ac_f > 0.5f
+                             ? (1.0f - alpha) * le_f + alpha * met_e[e]
+                             : le_f;
+          bool locked = new_le > p.costas_thr;
+          float carr_nco =
+              pll_e[e] * p.pll_c1 + (pll_e[e] - ce_f) * p.pll_c2;
+          float code_nco =
+              dll_e[e] * p.dll_c1 + (dll_e[e] - de_f) * p.dll_c2;
+          bool act_e = ac_f > 0.5f;
+          bool upd = act_e && locked;
+          float new_cf = upd ? cf_f + carr_nco : cf_f;
+          float new_ce = upd ? pll_e[e] : ce_f;
+          float new_cr = upd ? cr_f + code_nco : cr_f;
+          float new_de = upd ? dll_e[e] : de_f;
+          float new_lo = act_e ? (locked ? 0.0f : lo_f + 1.0f) : lo_f;
+          bool died = new_lo >= p.max_lost_f;
+          float new_ac = died ? 0.0f : ac_f;
+          float wr = act_e ? 1.0f : 0.0f;
+          n_act = n_act + wr;
+          rv[e][kUpd] = upd ? 1.0f : 0.0f;
+          rv[e][kCf] = act_e ? new_cf : cf_f;
+          rv[e][kCr] = act_e ? new_cr : cr_f;
+          rv[e][kEmit] = (died && act_e) ? 1.0f : 0.0f;
+          rv[e][kWr] = wr;
+          cf_f = new_cf; ce_f = new_ce; cr_f = new_cr; de_f = new_de;
+          lo_f = new_lo; le_f = died ? 0.0f : new_le; ac_f = new_ac;
+        }
+      }
     }
-    int last_u = -1;
-    for (int e = 0; e < K; ++e) {
-      bool act = act0 && e <= d_idx;
-      upd[e] = act && locked[e];
-      wr[e] = act ? 1.0f : 0.0f;
-      updf[e] = upd[e] ? 1.0f : 0.0f;
-      emit[e] = (act0 && e == d_idx) ? 1.0f : 0.0f;
-      n_act += wr[e];
-      // loop-filter memory at the start of epoch e: the discriminator
-      // of the last update epoch strictly before e
-      float ce = last_u >= 0 ? pll[last_u] : carr_err0;
-      float de = last_u >= 0 ? dll[last_u] : code_err0;
-      nco_c[e] = updf[e] * (pll[e] * p.pll_c1 + (pll[e] - ce) * p.pll_c2);
-      nco_d[e] = updf[e] * (dll[e] * p.dll_c1 + (dll[e] - de) * p.dll_c2);
-      if (upd[e]) last_u = e;
-    }
-    float sc = 0.0f, sd = 0.0f;
-    for (int e = 0; e < K; ++e) {
-      sc += nco_c[e];
-      sd += nco_d[e];
-      row[e][10] = carr_freq + sc;  // per-epoch post-update rates
-      row[e][11] = code_rate + sd;
-    }
-    cf_f = carr_freq + sc;
-    cr_f = code_rate + sd;
-    ce_f = last_u >= 0 ? pll[last_u] : carr_err0;
-    de_f = last_u >= 0 ? dll[last_u] : code_err0;
-    // the lost counter freezes at its death-epoch value
-    lo_f = act0 ? lo_all[d_idx < K - 1 ? d_idx : K - 1] : lost0;
-    bool died_now = act0 && d_idx < K;
-    ac_f = died_now ? 0.0f : active0;
-    bool died_any = died_now || (!act0 && lost0 >= p.max_lost_f);
-    le_f = died_any ? 0.0f : lock_ema0;
-    for (int e = 0; e < K; ++e) {
-      row[e][7] = updf[e];
-      row[e][15] = emit[e];
-      row[e][16] = wr[e];
-    }
-  } else {
-    // Costas lock: the sequential EMA chain
-    const float alpha = (float)0.1;
-    cf_f = carr_freq; ce_f = carr_err0; cr_f = code_rate; de_f = code_err0;
-    lo_f = lost0; ac_f = active0; le_f = lock_ema0;
-    for (int e = 0; e < K; ++e) {
-      float metric = (ip[e] * ip[e] - qp[e] * qp[e]) /
-                     fmaxf(pw[e], (float)1e-12);
-      float new_le = ac_f > 0.5f ? (1.0f - alpha) * le_f + alpha * metric
-                                 : le_f;
-      bool locked = new_le > p.costas_thr;
-      float carr_nco = pll[e] * p.pll_c1 + (pll[e] - ce_f) * p.pll_c2;
-      float code_nco = dll[e] * p.dll_c1 + (dll[e] - de_f) * p.dll_c2;
-      bool act_e = ac_f > 0.5f;
-      bool upd = act_e && locked;
-      float new_cf = upd ? cf_f + carr_nco : cf_f;
-      float new_ce = upd ? pll[e] : ce_f;
-      float new_cr = upd ? cr_f + code_nco : cr_f;
-      float new_de = upd ? dll[e] : de_f;
-      float new_lo = act_e ? (locked ? 0.0f : lo_f + 1.0f) : lo_f;
-      bool died = new_lo >= p.max_lost_f;
-      float new_ac = died ? 0.0f : ac_f;
-      float wr = act_e ? 1.0f : 0.0f;
-      n_act = n_act + wr;
-      row[e][7] = upd ? 1.0f : 0.0f;
-      row[e][10] = act_e ? new_cf : cf_f;
-      row[e][11] = act_e ? new_cr : cr_f;
-      row[e][15] = (died && act_e) ? 1.0f : 0.0f;
-      row[e][16] = wr;
-      cf_f = new_cf; ce_f = new_ce; cr_f = new_cr; de_f = new_de;
-      lo_f = new_lo; le_f = died ? 0.0f : new_le; ac_f = new_ac;
-    }
+    // superstep writeback (held-rate ledger advance)
+    float ncp = carr_phase + n_act * h.adv;
+    st[0] = cf_f;
+    st[1] = ncp - floorf(ncp);
+    st[2] = ce_f;
+    st[3] = cr_f;
+    st[4] = chip_res0 + n_act * h.d_chip;
+    st[5] = de_f;
+    st[6] = lo_f;
+    st[7] = ac_f;
+    st[8] = drift0 + n_act * h.d_drift;
+    st[11] = le_f;  // 9 (window offset) and 10 (frac0) carry through
   }
+  __syncwarp();
 
-  // telemetry rows: correlator and discriminator columns gated by the
-  // epoch's processed flag (col 16)
-  for (int e = 0; e < K; ++e) {
-    float w = row[e][16];
+  // lane e: epoch e's telemetry row, correlator and discriminator columns
+  // gated by the epoch's processed flag (16)
+  if (lane < K) {
+    const int e = lane;
+    const float w = rv[e][kWr], updf = rv[e][kUpd], emit = rv[e][kEmit];
     float* out = p.telem + ((long long)(j * K + e) * p.c_channels + c) * kTelem;
     if (kLean) {
       // per epoch: prompt I/Q and the packed flags (processed +
@@ -302,219 +481,331 @@ __device__ void chain(const Params& p, float* st, const float* corr,
       // superstep's first epoch, with the E/L and loop-error diagnostics
       // there on even supersteps (every superstep under Costas lock),
       // which is where the slim2 wire reads them
-      out[2] = ip[e] * w;  out[3] = qp[e] * w;
-      out[16] = w + 2.0f * row[e][7] + 4.0f * row[e][15];
+      out[2] = ip * w;  out[3] = qp * w;
+      out[16] = w + 2.0f * updf + 4.0f * emit;
       if (e == 0) {
         out[17] = carr_freq; out[18] = code_rate;
         out[19] = h.d_chip;  out[20] = h.d_drift;
         if (p.costas || j % 2 == 0) {
-          out[0] = ie[e] * w;  out[1] = qe[e] * w;
-          out[4] = il[e] * w;  out[5] = ql[e] * w;
-          out[8] = pll[e] * w; out[9] = dll[e] * w;
+          out[0] = ie * w;  out[1] = qe * w;
+          out[4] = il * w;  out[5] = ql * w;
+          out[8] = pll * w; out[9] = dll * w;
         }
       }
-      continue;
+    } else {
+      out[0] = ie * w;  out[1] = qe * w;
+      out[2] = ip * w;  out[3] = qp * w;
+      out[4] = il * w;  out[5] = ql * w;
+      out[6] = pw * w;  out[7] = updf;
+      out[8] = pll * w; out[9] = dll * w;
+      out[10] = rv[e][kCf]; out[11] = rv[e][kCr];
+      out[12] = h.n_t;     out[13] = drift_a;
+      out[14] = chip_a * w; out[15] = emit; out[16] = w;
+      out[17] = carr_freq; out[18] = code_rate;
+      out[19] = h.d_chip;  out[20] = h.d_drift;
     }
-    out[0] = ie[e] * w;  out[1] = qe[e] * w;
-    out[2] = ip[e] * w;  out[3] = qp[e] * w;
-    out[4] = il[e] * w;  out[5] = ql[e] * w;
-    out[6] = pw[e] * w;  out[7] = row[e][7];
-    out[8] = pll[e] * w; out[9] = dll[e] * w;
-    out[10] = row[e][10]; out[11] = row[e][11];
-    out[12] = h.n_t;     out[13] = drift_a[e];
-    out[14] = chip_a[e] * w; out[15] = row[e][15]; out[16] = w;
-    out[17] = carr_freq; out[18] = code_rate;
-    out[19] = h.d_chip;  out[20] = h.d_drift;
   }
-
-  // superstep writeback (held-rate ledger advance)
-  float ncp = carr_phase + n_act * h.adv;
-  st[0] = cf_f;
-  st[1] = ncp - floorf(ncp);
-  st[2] = ce_f;
-  st[3] = cr_f;
-  st[4] = chip_res0 + n_act * h.d_chip;
-  st[5] = de_f;
-  st[6] = lo_f;
-  st[7] = ac_f;
-  st[8] = drift0 + n_act * h.d_drift;
-  st[11] = le_f;  // 9 (window offset) and 10 (frac0) carry through
 }
 
-// B2: this block's part of superstep j's slice, from global memory
-// into its shared memory (the cluster barrier that follows publishes it)
+// B1: issue the copy of superstep j's window span of the channel that
+// starts at `start` (one thread); the last 0-3 samples of the span, past
+// the last 16-byte boundary, by plain loads of lanes 1-3 of the calling
+// warp. The window sits at offset (start & 3) of the buffer.
+__device__ void stage_window(const Params& p, long long start, int j,
+                            float* win_re, float* win_im, uint64_t* bar,
+                            int lane) {
+  const long long g0 = start + ((long long)j * p.k_epochs * p.n0 / 128) * 128;
+  const long long org = g0 & ~3LL;
+  const int o = (int)(g0 - org);
+  const int n_tot = o + p.span;
+  const int n_tma = n_tot & ~3;
+  if (lane == 0) {
+    fence_proxy_async();
+    mbar_expect(bar, 2u * 4u * (uint32_t)n_tma);
+    bulk_g2s(win_re, p.stream_re + org, 4u * (uint32_t)n_tma, bar);
+    bulk_g2s(win_im, p.stream_im + org, 4u * (uint32_t)n_tma, bar);
+  } else if (lane <= n_tot - n_tma) {
+    const int i = n_tma + lane - 1;
+    win_re[i] = p.stream_re[org + i];
+    win_im[i] = p.stream_im[org + i];
+  }
+}
+
+// B2: issue this block's part of superstep j's slice as a multicast into
+// every block of the cluster, and expect the whole slice (one thread)
 __device__ void stage_slice(const Params& p, long long base, int j, int rank,
-                            float* slot_re, float* slot_im) {
-  const long long off = ((long long)j * p.k_epochs * p.n0 / 128) * 128;
-  const int lo = rank * p.chunk;
-  const int n = min(p.chunk, p.span_u - lo);
-  const float* sre = p.stream_re + base + off + lo;
-  const float* sim = p.stream_im + base + off + lo;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    slot_re[i] = sre[i];
-    slot_im[i] = sim[i];
+                            float* win_re, float* win_im, uint64_t* bar) {
+  const long long org = base + ((long long)j * p.k_epochs * p.n0 / 128) * 128;
+  fence_proxy_async();
+  mbar_expect(bar, 2u * 4u * (uint32_t)p.span_u);
+  const int lo = rank * p.part;
+  const int n = min(p.part, p.span_u - lo);
+  if (n <= 0) return;
+  if (p.cs == 1) {
+    bulk_g2s(win_re, p.stream_re + org, 4u * (uint32_t)n, bar);
+    bulk_g2s(win_im, p.stream_im + org, 4u * (uint32_t)n, bar);
+    return;
+  }
+  const uint16_t mask = (uint16_t)((1u << p.cs) - 1u);
+  bulk_g2s_multicast(win_re + lo, p.stream_re + org + lo, 4u * (uint32_t)n,
+                     bar, mask);
+  bulk_g2s_multicast(win_im + lo, p.stream_im + org + lo, 4u * (uint32_t)n,
+                     bar, mask);
+}
+
+// stage 1b: this warp's lanes [l0, l1) of the K epochs' mix, masked,
+// as bf16 into the tile (ts the row stride); epoch e's window is at
+// win + rd + a_e, in shared memory (staged) or in global memory
+__device__ __forceinline__ void mix(const Params& p, const float* st,
+                                    const Held& h, const float* win_re,
+                                    const float* win_im, int rd,
+                                    const float* a_cos, const float* a_sin,
+                                    const float* b_cos, const float* b_sin,
+                                    __nv_bfloat16* tile, int l0, int l1,
+                                    int lane) {
+  const int K = p.k_epochs, wp = p.wp, w128 = wp / 128, ts = wp + kPad;
+  // lanes in pairs (l, l + 1); where the epoch's roll and the window's
+  // offset are even (n0 even and a 4-sample-aligned start: the
+  // receiver's case) a pair is one 8-byte load of each window
+  // component and trig factor, and one bf16x2 conversion and store
+  // per tile row; otherwise its two lanes go one by one
+  for (int e = 0; e < K; ++e) {
+    int rem_e;
+    const float sl = epoch_sl(st, h, e, p.n0, &rem_e);
+    const float sl_end = sl + h.n_t;
+    const int shift = rem_e + h.rem_j;
+    const float* wre = win_re + rd + (e * p.n0 / 128) * 128;
+    const float* wim = win_im + rd + (e * p.n0 / 128) * 128;
+    const float* ac_e = a_cos + e * w128;
+    const float* as_e = a_sin + e * w128;
+    __nv_bfloat16* t_re = tile + e * ts;
+    __nv_bfloat16* t_im = tile + (K + e) * ts;
+    if (((shift | rd) & 1) == 0) {
+#pragma unroll 2
+      for (int l = l0 + 2 * lane; l < l1; l += 64) {
+        int m = l + shift;  // the slice lane the roll brings to l
+        if (m >= wp) m -= wp;
+        const int q = m >> 7, r = m & 127;
+        const float ac = ac_e[q], as = as_e[q];
+        const float2 bc = *reinterpret_cast<const float2*>(b_cos + r);
+        const float2 bs = *reinterpret_cast<const float2*>(b_sin + r);
+        const float2 xr = *reinterpret_cast<const float2*>(wre + m);
+        const float2 xi = *reinterpret_cast<const float2*>(wim + m);
+        const float cth0 = ac * bc.x - as * bs.x;
+        const float sth0 = as * bc.x + ac * bs.x;
+        const float cth1 = ac * bc.y - as * bs.y;
+        const float sth1 = as * bc.y + ac * bs.y;
+        const float lf0 = (float)m, lf1 = lf0 + 1.0f;
+        const float mask0 = (lf0 >= sl && lf0 < sl_end) ? 1.0f : 0.0f;
+        const float mask1 = (lf1 >= sl && lf1 < sl_end) ? 1.0f : 0.0f;
+        const float re0 = (xr.x * cth0 + xi.x * sth0) * mask0;
+        const float im0 = (xi.x * cth0 - xr.x * sth0) * mask0;
+        const float re1 = (xr.y * cth1 + xi.y * sth1) * mask1;
+        const float im1 = (xi.y * cth1 - xr.y * sth1) * mask1;
+        *reinterpret_cast<__nv_bfloat162*>(t_re + l) =
+            __floats2bfloat162_rn(re0, re1);
+        *reinterpret_cast<__nv_bfloat162*>(t_im + l) =
+            __floats2bfloat162_rn(im0, im1);
+      }
+    } else {
+      for (int l = l0 + lane; l < l1; l += 32) {
+        int m = l + shift;
+        if (m >= wp) m -= wp;
+        const int q = m >> 7, r = m & 127;
+        const float ac = ac_e[q], as = as_e[q];
+        const float cth = ac * b_cos[r] - as * b_sin[r];
+        const float sth = as * b_cos[r] + ac * b_sin[r];
+        const float xre = wre[m], xim = wim[m];
+        const float lf = (float)m;
+        const float mask = (lf >= sl && lf < sl_end) ? 1.0f : 0.0f;
+        t_re[l] = __float2bfloat16_rn((xre * cth + xim * sth) * mask);
+        t_im[l] = __float2bfloat16_rn((xim * cth - xre * sth) * mask);
+      }
+    }
   }
 }
 
 template <bool kLean, bool kShared>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     track_block_mxu_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // B2: every cluster block's slice part, as pointers into its shared
-  // memory (distributed shared memory)
-  __shared__ const float* peer_re[kMaxCluster];
-  __shared__ const float* peer_im[kMaxCluster];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;             // the window's mbarrier
+  __shared__ float red[kWarps][2 * kMaxK * kMaxR];  // stage 2 partials
+  __shared__ float corr[2 * kMaxK * kMaxR];          // [2K, R]
+  __shared__ __align__(16) float b_cos[128];  // 8-byte pairs in the mix
+  __shared__ __align__(16) float b_sin[128];
+  __shared__ float st[16];
+  __shared__ float rv[kMaxK][kRv];
+  __shared__ __align__(16) __nv_bfloat16 zero_row[8];  // padding rows
+
   const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = p.k_epochs, R = p.r_rows, wp = p.wp, QK = 2 * K;
-  const int w128 = wp / 128;
+  const int w128 = wp / 128, ts = wp + kPad;
 
-  __nv_bfloat16* bank = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* tile = bank + R * wp;
-  float* corr = reinterpret_cast<float*>(tile + QK * wp);  // [2K, R]
-  float* b_cos = corr + QK * R;                              // [128]
-  float* b_sin = b_cos + 128;
-  float* a_cos = b_sin + 128;                                // [K, w128]
+  float* win_re = reinterpret_cast<float*>(smem);
+  float* win_im = win_re + p.win_cap;
+  __nv_bfloat16* bank = reinterpret_cast<__nv_bfloat16*>(win_im + p.win_cap);
+  __nv_bfloat16* tile = bank + R * ts;
+  float* a_cos = reinterpret_cast<float*>(tile + QK * ts);  // [K, w128]
   float* a_sin = a_cos + K * w128;
-  float* st = a_sin + K * w128;                              // [12]
-  float* slot_re = st + 12;                                  // B2: [chunk]
-  float* slot_im = slot_re + p.chunk;
 
-  // B2: the shared base and this channel's offset from it
+  // B2: the shared base, this channel's offset from it, the block's rank
   long long base = 0;
   int dc = 0, rank = 0;
   if constexpr (kShared) {
-    cg::cluster_group cluster = cg::this_cluster();
-    rank = (int)cluster.block_rank();
+    rank = (int)cg::this_cluster().block_rank();
     base = p.starts[p.c_channels];
     dc = (int)(p.starts[c] - base);
-    if (tid < p.cs) {
-      peer_re[tid] = cluster.map_shared_rank(slot_re, (unsigned)tid);
-      peer_im[tid] = cluster.map_shared_rank(slot_im, (unsigned)tid);
-    }
-    stage_slice(p, base, 0, rank, slot_re, slot_im);
   }
+  const long long start = kShared ? base : p.starts[c];
 
-  // replica bank -> shared memory (16-byte copies; wp % 128 == 0)
+  if (tid == 0) mbar_init(&bar);
+  if (tid < 8) zero_row[tid] = __float2bfloat16_rn(0.0f);
+  // every block's mbarrier is initialised before any block copies into it
+  if constexpr (kShared) cg::this_cluster().sync();
+  else __syncthreads();
+  // issue superstep jj's window copy (B1: warp 1; B2: lane 0 of warp 1)
+  auto stage = [&](int jj) {
+    if (!p.staged) return;
+    if constexpr (kShared) {
+      if (tid == 32) stage_slice(p, base, jj, rank, win_re, win_im, &bar);
+    } else if (warp == 1) {
+      stage_window(p, start, jj, win_re, win_im, &bar, lane);
+    }
+  };
+  stage(0);
+  // where a channel's window sits in the buffer (B1: the start's offset
+  // from its 4-sample floor, the same for every superstep since off_j is
+  // a 128-multiple; B2: dc)
+  const int rd = kShared ? dc : (int)(start & 3LL);
+
+  // replica bank -> shared memory, rows padded (16-byte copies; wp % 128
+  // == 0, the wrapper checks the bank's alignment)
   {
     const uint4* src = reinterpret_cast<const uint4*>(
         p.replicas + (long long)c * R * wp);
-    uint4* dst = reinterpret_cast<uint4*>(bank);
-    for (int i = tid; i < R * wp / 8; i += kThreads) dst[i] = src[i];
+    const int row8 = wp / 8;
+    for (int i = tid; i < R * row8; i += kThreads) {
+      int r = i / row8, q = i - r * row8;
+      *reinterpret_cast<uint4*>(bank + r * ts + q * 8) = src[i];
+    }
   }
   if (tid < 12) st[tid] = p.state_in[c * kFields + tid];
   __syncthreads();
 
-  const long long start = kShared ? 0 : p.starts[c];
+  // this warp's lanes of the tile: k-steps [ks0, ks1) of 16 lanes
+  const int n_ks = wp / 16;
+  const int ks0 = warp * n_ks / kWarps, ks1 = (warp + 1) * n_ks / kWarps;
+  const int l0 = ks0 * 16, l1 = ks1 * 16;
+  const int n_tiles = (R + 7) / 8;
+  // ldmatrix row addresses: A (tile) rows 0-15 of two 8-lane halves of a
+  // k-step, rows past 2K the zero row; B (bank) rows of each n-tile, rows
+  // past R the zero row
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_kof = (lane >> 4) * 8;
+  const uint32_t zero_addr = smem_addr(zero_row);
+  const uint32_t a_base =
+      a_row < QK ? smem_addr(tile + a_row * ts + a_kof) : zero_addr;
+  const int a_step = a_row < QK ? 32 : 0;  // bytes per k-step
+  const int b_row = lane & 7, b_kof = ((lane >> 3) & 1) * 8;
+
   const int n_super = p.t_epochs / K;
   for (int j = 0; j < n_super; ++j) {
-    // B2: every block of the cluster has staged its part of slice j
-    if constexpr (kShared) cg::this_cluster().sync();
     const Held h = held(p, st, j);
 
     // ---- stage 1a: carrier trig factors ------------------------------
-    if (tid < 128) {
-      float th = h.step * (float)tid;
-      th = (th - floorf(th)) * kTwoPi;
-      b_cos[tid] = cosf(th);
-      b_sin[tid] = sinf(th);
-    }
-    for (int i = tid; i < K * w128; i += kThreads) {
-      int e = i / w128, q = i - e * w128, rem_e;
-      float sl = epoch_sl(st, h, e, p.n0, &rem_e);
-      float phi0 = st[1] + (float)e * h.adv - sl * h.step;
-      float th = phi0 + (h.step * 128.0f) * (float)q;
-      th = (th - floorf(th)) * kTwoPi;
-      a_cos[i] = cosf(th);
-      a_sin[i] = sinf(th);
-    }
-    __syncthreads();
-
-    // ---- stage 1b: mix + mask + bf16 tile in the aligned lane frame --
-    for (int i = tid; i < K * wp; i += kThreads) {
-      int e = i / wp, l = i - e * wp, rem_e;
-      float sl = epoch_sl(st, h, e, p.n0, &rem_e);
-      int m = l + rem_e + h.rem_j;  // the slice lane the roll brings to l
-      if (m >= wp) m -= wp;
-      int q = m >> 7, r = m & 127;
-      float ac = a_cos[e * w128 + q], as = a_sin[e * w128 + q];
-      float cth = ac * b_cos[r] - as * b_sin[r];
-      float sth = as * b_cos[r] + ac * b_sin[r];
-      float wre, wim;
-      if constexpr (kShared) {
-        // sample dc + a_e + m of the slice, in its owner's shared memory
-        int s = dc + (e * p.n0 / 128) * 128 + m;
-        int owner = s >> p.chunk_shift;
-        int i_own = s & (p.chunk - 1);
-        wre = peer_re[owner][i_own];
-        wim = peer_im[owner][i_own];
+    for (int i = tid; i < 128 + K * w128; i += kThreads) {
+      if (i < 128) {
+        float th = h.step * (float)i;
+        th = (th - floorf(th)) * kTwoPi;
+        b_cos[i] = cosf(th);
+        b_sin[i] = sinf(th);
       } else {
-        long long g = start + h.off + (long long)((e * p.n0 / 128) * 128) + m;
-        wre = p.stream_re[g];
-        wim = p.stream_im[g];
+        int ia = i - 128, e = ia / w128, q = ia - e * w128, rem_e;
+        float sl = epoch_sl(st, h, e, p.n0, &rem_e);
+        float phi0 = st[1] + (float)e * h.adv - sl * h.step;
+        float th = phi0 + (h.step * 128.0f) * (float)q;
+        th = (th - floorf(th)) * kTwoPi;
+        a_cos[ia] = cosf(th);
+        a_sin[ia] = sinf(th);
       }
-      float lf = (float)m;
-      float mask = (lf >= sl && lf < sl + h.n_t) ? 1.0f : 0.0f;
-      float m_re = (wre * cth + wim * sth) * mask;
-      float m_im = (wim * cth - wre * sth) * mask;
-      tile[e * wp + l] = __float2bfloat16_rn(m_re);
-      tile[(K + e) * wp + l] = __float2bfloat16_rn(m_im);
     }
-    if constexpr (kShared) {
-      // every block is done with slice j: refill this block's part
-      cg::this_cluster().sync();
-      if (j + 1 < n_super) stage_slice(p, base, j + 1, rank, slot_re, slot_im);
-    } else {
-      __syncthreads();
-    }
+    __syncthreads();
+    if (p.staged) mbar_wait(&bar, (uint32_t)(j & 1));  // window j staged
 
-    // ---- stage 2: [2K, wp] x [wp, R], bf16 in, f32 accumulation ------
+    // ---- stage 1b: mix + mask + bf16 tile, this warp's lanes ----------
+    // one mix, called on the staged buffer or on global memory: with the
+    // pointer chosen at run time its reads become generic loads, and the
+    // staged mix took ~560 more cycles per superstep (PERF.md section 6)
+    if (p.staged) {
+      mix(p, st, h, win_re, win_im, rd, a_cos, a_sin, b_cos, b_sin, tile,
+          l0, l1, lane);
+    } else {
+      // the window span from the 4-sample floor of its start, as the
+      // buffer would hold it
+      const long long g0 = (long long)p.starts[c] + h.off;
+      const int r0 = (int)(g0 & 3LL);
+      mix(p, st, h, p.stream_re + (g0 - r0), p.stream_im + (g0 - r0), r0,
+          a_cos, a_sin, b_cos, b_sin, tile, l0, l1, lane);
+    }
+    // B2: this block is done with slice j (waited on after stage 2)
+    if constexpr (kShared) cluster_arrive();
+    __syncwarp();
+
+    // ---- stage 2: [2K, wp] x [wp, R] on the tensor cores, this warp's
+    // k-steps; bf16 in, f32 accumulation -----------------------------
     {
-      const int t0 = warp, t1 = warp + kWarps;
-      const bool has0 = t0 < QK, has1 = t1 < QK;
-      float acc0[kMaxR], acc1[kMaxR];
+      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      for (int ks = ks0; ks < ks1; ++ks) {
+        uint32_t a0, a1, a2, a3;
+        ldsm_x4(a_base + ks * a_step, a0, a1, a2, a3);
 #pragma unroll
-      for (int r = 0; r < kMaxR; ++r) acc0[r] = acc1[r] = 0.0f;
-      if (has0) {
-        const __nv_bfloat162* x0p =
-            reinterpret_cast<const __nv_bfloat162*>(tile + t0 * wp);
-        const __nv_bfloat162* x1p =
-            reinterpret_cast<const __nv_bfloat162*>(tile + (has1 ? t1 : t0) * wp);
-        const __nv_bfloat162* bp = reinterpret_cast<const __nv_bfloat162*>(bank);
-        for (int l2 = lane; l2 < wp / 2; l2 += 32) {
-          float2 x0 = __bfloat1622float2(x0p[l2]);
-          float2 x1 = __bfloat1622float2(x1p[l2]);
-#pragma unroll
-          for (int r = 0; r < kMaxR; ++r) {
-            if (r < R) {
-              float2 b = __bfloat1622float2(bp[r * (wp / 2) + l2]);
-              acc0[r] = fmaf(x0.x, b.x, acc0[r]);
-              acc0[r] = fmaf(x0.y, b.y, acc0[r]);
-              acc1[r] = fmaf(x1.x, b.x, acc1[r]);
-              acc1[r] = fmaf(x1.y, b.y, acc1[r]);
-            }
+        for (int nt = 0; nt < 2; ++nt) {
+          if (nt < n_tiles) {
+            const int n = nt * 8 + b_row;
+            const uint32_t b_addr =
+                n < R ? smem_addr(bank + n * ts + ks * 16 + b_kof)
+                      : zero_addr;
+            uint32_t b0, b1;
+            ldsm_x2(b_addr, b0, b1);
+            mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
           }
         }
+      }
+      // the fragment's rows g and g + 8, columns 2t and 2t + 1, as corr's
+      // [2K, R] (the padding rows and columns dropped)
+      const int g = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
-        for (int r = 0; r < kMaxR; ++r) {
-          if (r < R) {
-            float v0 = acc0[r], v1 = acc1[r];
-            for (int o = 16; o > 0; o >>= 1) {
-              v0 += __shfl_xor_sync(0xffffffffu, v0, o);
-              v1 += __shfl_xor_sync(0xffffffffu, v1, o);
-            }
-            if (lane == 0) {
-              corr[t0 * R + r] = v0;
-              if (has1) corr[t1 * R + r] = v1;
-            }
-          }
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int row = g + (v >> 1) * 8, n = nt * 8 + t2 + (v & 1);
+          if (nt < n_tiles && row < QK && n < R)
+            red[warp][row * R + n] = acc[nt][v];
         }
       }
     }
     __syncthreads();
 
-    // ---- stages 3-4: picks, discriminators, lock, loop filters --------
-    if (tid == 0) chain<kLean>(p, st, corr, h, j, c);
+    if (warp == 0) {
+      // the warps' partial sums, added in warp order
+      for (int i = lane; i < QK * R; i += 32) {
+        float v = red[0][i];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) v += red[w][i];
+        corr[i] = v;
+      }
+      __syncwarp();
+      // ---- stages 3-4: picks, discriminators, lock, loop filters ------
+      chain<kLean>(p, st, corr, rv, h, j, c, lane);
+      __syncwarp();
+      if constexpr (kShared) cluster_wait();
+    } else {
+      if constexpr (kShared) cluster_wait();
+      // every warp is done with the window: stage superstep j + 1's
+      if (j + 1 < n_super) stage(j + 1);
+    }
     __syncthreads();
   }
   if (tid < kFields)
@@ -533,16 +824,18 @@ extern "C" int track_block_mxu_launch(
     float if_freq, int costas, float costas_thr, int interp, int lean,
     int spread_cap, int cluster, void* stream) {
   // returns a CUDA error code, or -1 when no cluster of `cluster` blocks
-  // fits on the card, -2 when the launch needs more shared memory than a
-  // block can have (found before anything is launched: the wrapper then
-  // tries its next cluster size, whose part of the slice is smaller)
+  // can run on the card (above the portable size of 8, or
+  // cudaOccupancyMaxActiveClusters = 0), -2 when the launch needs more
+  // shared memory than a block can have (both found before anything is
+  // launched: the wrapper then tries its next cluster size)
   (void)stream_len;  // the wrapper checks the read bounds before launch
   const bool shared = spread_cap > 0;
   if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 || r_rows > kMaxR ||
       wp % 128 || t_epochs % k_epochs || c_channels < 1 ||
-      (shared && (spread_cap % 128 || cluster < 1 || cluster > kMaxCluster ||
+      (shared && (spread_cap % 128 || cluster < 1 ||
                   c_channels % cluster)))
     return (int)cudaErrorInvalidValue;
+  if (shared && cluster > kMaxCluster) return -1;
   Params p;
   p.stream_re = static_cast<const float*>(stream_re);
   p.stream_im = static_cast<const float*>(stream_im);
@@ -573,40 +866,40 @@ extern "C" int track_block_mxu_launch(
   p.aiding = aiding_scale != 0.0f;
   p.costas = costas;
   p.interp = interp;
-  // B2's slice: span + spread_cap samples, cut into `cluster` parts of
-  // a power of two each, so stage 1b finds a sample's owner by a shift
-  // and not by a division (the parts of the highest ranks may be empty)
-  const int span = ((k_epochs - 1) * n0 / 128) * 128 + wp;
+  // the window span; B2's slice (span + spread_cap, a 128-multiple) and
+  // each block's part of it, a multiple of 4 samples (16 bytes; the
+  // parts of the highest ranks may be empty)
+  p.span = ((k_epochs - 1) * n0 / 128) * 128 + wp;
   p.cs = shared ? cluster : 1;
-  p.span_u = shared ? span + spread_cap : 0;
-  p.chunk = 0;
-  p.chunk_shift = 0;
-  if (shared) {
-    const int need = (p.span_u + p.cs - 1) / p.cs;
-    p.chunk = 128;
-    p.chunk_shift = 7;
-    while (p.chunk < need) {
-      p.chunk *= 2;
-      ++p.chunk_shift;
-    }
-  }
-  const int qk = 2 * k_epochs, w128 = wp / 128;
-  size_t smem = (size_t)(r_rows + qk) * wp * sizeof(__nv_bfloat16) +
-                (size_t)(qk * r_rows + 256 + 2 * k_epochs * w128 + 12 +
-                         2 * p.chunk) *
-                    sizeof(float);
+  p.span_u = shared ? p.span + spread_cap : 0;
+  p.part = shared ? ((p.span_u + 4 * p.cs - 1) / (4 * p.cs)) * 4 : 0;
+  // B1's buffer holds the span behind an offset of up to 3 samples
+  const int qk = 2 * k_epochs, w128 = wp / 128, ts = wp + kPad;
+  const int win_cap = shared ? p.span_u : ((p.span + 3 + 3) / 4) * 4;
+  auto kernel = shared ? (lean ? track_block_mxu_kernel<true, true>
+                               : track_block_mxu_kernel<false, true>)
+                       : (lean ? track_block_mxu_kernel<true, false>
+                               : track_block_mxu_kernel<false, false>);
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  // the static peer pointer tables sit beside the dynamic memory
-  if (smem + 2 * kMaxCluster * sizeof(void*) > (size_t)smem_max) return -2;
-  auto kernel = shared ? (lean ? track_block_mxu_kernel<true, true>
-                               : track_block_mxu_kernel<false, true>)
-                       : (lean ? track_block_mxu_kernel<true, false>
-                               : track_block_mxu_kernel<false, false>);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  // the bank, the tile and the trig factors; the staged windows beside
+  // them where they fit, else the mix reads global memory (wide windows,
+  // e.g. 4.092 MHz, or a wide bank beside B2's slice); the static arrays
+  // (mbarrier, partial sums, chain) sit beside it all
+  const size_t base_smem = (size_t)(r_rows + qk) * ts * sizeof(__nv_bfloat16) +
+                           (size_t)2 * k_epochs * w128 * sizeof(float);
+  const size_t win_smem = (size_t)2 * win_cap * sizeof(float);
+  p.staged = base_smem + win_smem + fa.sharedSizeBytes <= (size_t)smem_max;
+  p.win_cap = p.staged ? win_cap : 0;
+  const size_t smem = base_smem + (p.staged ? win_smem : 0);
+  if (smem + fa.sharedSizeBytes > (size_t)smem_max) return -2;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

@@ -62,7 +62,12 @@ def load_library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
     src, out = _target(name)
     t0 = time.perf_counter()
+    # nvcc's output (ptxas' registers and stack) is kept beside the
+    # library, so a cached build still reports it
+    log_path = out.with_suffix(".log")
     log, cached = "", out.exists()
+    if cached and log_path.exists():
+        log = log_path.read_text()
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -72,6 +77,9 @@ def load_library(name: str) -> ctypes.CDLL:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} "
                                f"(exit {res.returncode}):\n{log}")
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, out)          # atomic: concurrent builders agree
     BUILD_LOG[name] = {"so": str(out), "seconds": time.perf_counter() - t0,
                        "cached": cached, "ptxas": log}

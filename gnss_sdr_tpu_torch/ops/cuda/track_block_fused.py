@@ -56,28 +56,33 @@ Contract kept from the mxu TPU kernel:
 What bounds it on the H100, and the design: per 500 ms block at full
 width (C=32, T=500, K=5, R=8, wp=2560) the work is ~1.3 GFLOP of bf16
 products and ~11 MB of stream, replica and telemetry bytes, so the card
-could do it in a few microseconds (the byte side bounds it). This first
-kernel is one thread block per channel that walks its T/K supersteps in
-order (GPU blocks run in no order, so the TPU's sequential grid becomes
-a loop inside the block): the threads mix one superstep's K windows
-straight from global memory into a bf16 [2K, wp] tile in shared memory,
-the [R, wp] bf16 bank sits in shared memory, each warp forms f32 dot
-products of tile rows against the bank, and one thread runs the
-per-epoch discriminator / lock / loop-filter chain. Only C of 132 SMs work and the
-chain is serial, so the kernel sits far above its bound; wgmma, TMA and
-more channels per SM are later work.
+could do it in a few microseconds (the byte side bounds it). The kernel
+is one thread block per channel that walks its T/K supersteps in order
+(GPU blocks run in no order, so the TPU's sequential grid becomes a loop
+inside the block), so the supersteps' serial chain bounds it. Since
+the addresses a superstep reads do not depend on the channel's state,
+superstep j + 1's window span is copied into shared
+memory by TMA (``cp.async.bulk`` on an mbarrier) while superstep j
+computes; each warp mixes its lanes of the K windows into a bf16 [2K,
+wp] tile and contracts them with the [R, wp] bf16 bank on the tensor
+cores (``mma.sync``); warp 0 runs the per-epoch discriminators one lane
+per epoch and the lock / loop-filter recurrences on lane 0. The copy
+starts at the 4-sample floor of the window and ends at the window's
+end, so its read bound is the plain version's. Where the windows do not
+fit in shared memory beside the bank and the tile (4.092 MHz; a wide
+bank beside B2's slice), the mix reads them from global memory instead.
 
 The shared fetch (B2): on the TPU one DMA of [span + spread_cap]
 samples per superstep replaces C overlapping per-channel window DMAs.
 On the card a thread-block cluster (``shared_cluster_sizes`` picks its
-size; one block per channel) stages the superstep's slice once in its distributed shared
-memory, each block a contiguous part of it; after a cluster barrier
-every block reads its channel's window from the owning blocks' shared
-memory at dc = starts[c] - base, and a second barrier lets the slice be
-refilled. Only where a sample is read from changes, so B2 equals B1 bit
-for bit. The slice's read bound is checked on the host (``_check_shared``,
-ROADMAP C3): with the base clamped at 0 it reaches past every channel's
-own window.
+size; one block per channel) shares the copy: each block issues 1/cs of
+the superstep's slice as a TMA multicast into every block of the
+cluster, each block holds the whole slice and reads its channel's
+window at dc = starts[c] - base, and a cluster barrier per superstep
+lets the next slice be multicast. Only where a sample is read from
+changes, so B2 equals B1 bit for bit. The slice's read bound is checked
+on the host (``_check_shared``, ROADMAP C3): with the base clamped at 0
+it reaches past every channel's own window.
 
 What the port drops from the TPU kernel: the C-fold block-diagonal
 contraction and its selection matmuls (on the card it is a per-channel
@@ -745,19 +750,22 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+# track_block_mxu_launch's parameters (csrc/track_block_mxu.cu)
+MXU_ARGTYPES = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
+                _I, _I, _I, _I, _I, _I,
+                _F, _F, _F, _I, _F, _F, _F, _F, _I,
+                _F, _F, _I, _F, _I, _I, _I, _I, _VP]
+
+
 def _lib():
     lib = _build.load_library("track_block_mxu")
     fn = lib.track_block_mxu_launch
-    fn.argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
-                   _I, _I, _I, _I, _I, _I,
-                   _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                   _F, _F, _I, _F, _I, _I, _I, _I, _VP]
-    fn.restype = _I
+    fn.argtypes, fn.restype = MXU_ARGTYPES, _I
     return fn
 
 
 # track_block_mxu_launch's own error codes (CUDA's are >= 0)
-_ERR_NO_CLUSTER = -1        # cudaOccupancyMaxActiveClusters gave 0
+_ERR_NO_CLUSTER = -1        # above 8 blocks, or no such cluster fits
 _ERR_SMEM = -2              # more shared memory than a block can have
 
 
@@ -765,11 +773,10 @@ def shared_cluster_sizes(c_channels: int) -> tuple[int, ...]:
     """B2's thread-block cluster sizes, in the order the wrapper tries
     them: the divisors of C from 2 to 8 (8 the portable maximum; a
     divisor, so the grid of C blocks, one per channel, is a whole number
-    of clusters), smallest first, as the cluster barriers cost more the
-    more blocks they span (PERF.md section 6). The first whose part of
-    the slice fits in a block's shared memory beside the bank and the
-    tile is launched. A C with no such divisor (1, or a prime > 8) gives
-    1: each block then stages the whole slice alone."""
+    of clusters), smallest first (since the whole slice sits in every
+    block, the size moves B2's time by a few percent at most, PERF.md
+    section 6). The first the card can run is launched. A C with no such divisor (1, or
+    a prime > 8) gives 1: each block then copies the whole slice alone."""
     return tuple(d for d in range(2, 9) if c_channels % d == 0) or (1,)
 
 
@@ -820,15 +827,18 @@ def track_block_fused_mxu(
     ``spread_cap > 0`` launches B2, the shared-fetch kernel
     (``_mxu_kernel_shared``): ``starts`` is [C + 1] with starts[C] the
     base, every starts[c] - base a 128-multiple in [0, spread_cap]; each
-    superstep's [span + spread_cap] slice at base + off_j is staged once
-    per thread-block cluster and every channel cuts its window out of
-    it. The result equals B1's on ``starts[:C]`` bit for bit.
+    superstep's [span + spread_cap] slice at base + off_j is read once
+    per thread-block cluster (a TMA multicast into each of its blocks)
+    and every channel cuts its window out of it. The result equals B1's
+    on ``starts[:C]`` bit for bit.
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA
     kernel or raise (failed build, refused launch, bad argument). There
     is no fallback from the card to the plain version, nor from B2 to
-    B1. The read bound (with ``spread_cap``, also the shared slices',
-    ROADMAP C3) is checked on the host before the launch, from
+    B1. On the card ``stream_re``, ``stream_im`` and ``replicas`` must
+    start 16-byte aligned (a fresh tensor does). The read bound (with
+    ``spread_cap``, also the shared slices', ROADMAP C3) is checked on
+    the host before the launch, from
     ``starts_host`` (the values ``starts`` was uploaded from) or
     ``starts_bound`` (one of them is required on the card), so the
     launch never waits for the card."""
@@ -855,6 +865,11 @@ def track_block_fused_mxu(
     if k_epochs > 8 or r_rows > 16:
         raise ValueError(f"the CUDA kernel takes K <= 8 and R <= 16, got "
                          f"K={k_epochs}, R={r_rows}")
+    for name, t in (("stream_re", stream_re), ("stream_im", stream_im),
+                    ("replicas", replicas)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the kernel "
+                             "copies it in 16-byte pieces)")
     fn = _lib()
     lean = telem_mode == "lean"
     # the lean mode stores a few columns: the rest must read zero
@@ -863,8 +878,9 @@ def track_block_fused_mxu(
     state_out = torch.empty_like(state_in)
     with torch.cuda.device(state_in.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # the launcher refuses a size whose shared memory does not fit
-        # before it launches anything; the next size then has a try
+        # the launcher refuses a cluster size that cannot run, or shared
+        # memory that does not fit, before it launches anything; the next
+        # size then has a try
         for cluster in shared_cluster_sizes(c) if spread_cap else (1,):
             err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
                      stream_re.shape[0], starts.data_ptr(),
@@ -876,14 +892,14 @@ def track_block_fused_mxu(
                      aiding_scale, if_freq, int(lock_mode == "costas"),
                      costas_thr, int(bool(interp)), int(lean),
                      int(spread_cap), cluster, stream)
-            if err != _ERR_SMEM:
+            if err not in (_ERR_NO_CLUSTER, _ERR_SMEM):
                 break
     name = "track_block_mxu (B2, shared fetch)" if spread_cap else \
         "track_block_mxu"
     if err == _ERR_NO_CLUSTER:
         raise RuntimeError(
-            f"{name}: no cluster of {cluster} blocks fits on the card "
-            "(cudaOccupancyMaxActiveClusters = 0)")
+            f"{name}: no cluster of {cluster} blocks can run on the card "
+            "(above the portable 8, or cudaOccupancyMaxActiveClusters = 0)")
     if err == _ERR_SMEM:
         raise RuntimeError(f"{name}: the launch needs more shared memory "
                            "than a block can have (wp, K, R or spread_cap "

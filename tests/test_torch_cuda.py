@@ -5,6 +5,7 @@ no JAX, so on a machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -47,6 +48,40 @@ def test_kernel_matches_plain_on_card(card, variant):
         assert not active.any()
     else:
         assert active[:24].all() and not active[24:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs,cfg_kw,rows", [
+    (2_046_000.0, dict(early_late_chips=1.0), 9),
+    (2_046_000.0, dict(early_late_chips=2.0), 13),
+    (4_092_000.0, {}, 9)], ids=["el1", "el2", "4mhz"])
+def test_kernel_wide_geometry_matches_plain_on_card(card, monkeypatch, fs,
+                                                    cfg_kw, rows):
+    """A replica bank of more than 8 rows (the contraction's second
+    n-tile, its rows past R padded) and windows too wide to stage in
+    shared memory beside the bank and the tile (B2's slice at 13 rows;
+    4.092 MHz, wp 4608, for B1 and B2: the mix reads global memory):
+    B1 against the plain version open loop, B2 equal to B1 bit for bit
+    on the tracker's own inputs."""
+    monkeypatch.setattr(chip_smoke, "FS", fs)
+    ft, args, kw = chip_smoke.full_width_inputs(torch, card, cfg_kw,
+                                                block_ms=20)
+    assert ft.n_rows == rows
+    chip_smoke.open_loop_compare(torch, args, kw)
+    _, s_args, s_kw = chip_smoke.full_width_inputs(
+        torch, card, cfg_kw, block_ms=20, shared_fetch=True)
+    assert chip_smoke.b2_equals_b1(torch, s_args, s_kw) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_kernel_at_alignment_edges_on_card(card):
+    """32 channels, 20 ms blocks, the windows' starts moved to each
+    residue mod 4 and the stream cut where the highest start's last
+    window ends (chip_smoke.edge_case): the window copy's unaligned head
+    and its plain-load tail; against the plain version open loop, and
+    equal bit for bit to the run on the unmoved stream."""
+    _, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20)
+    chip_smoke.edge_check(torch, args, kw)
 
 
 @pytest.mark.cuda
@@ -350,25 +385,41 @@ def test_shared_kernel_matches_plain_and_b1_on_card(card, variant):
 
 @pytest.mark.cuda
 def test_shared_cluster_size_falls_back_on_card(card, monkeypatch):
-    """A cluster size whose part of the slice does not fit in a block's
-    shared memory is refused before any launch and the next size is
-    launched; with no size that fits the wrapper raises. A spread_cap of
-    6144 makes the slice 16,768 samples: one block's whole slice (a
-    32,768-sample part, 256 KB) does not fit, half of it does."""
+    """A cluster size the card cannot run (16, above the portable 8) is
+    refused before any launch and the next size is launched; with no
+    size that runs the wrapper raises. A slice that does not fit in a
+    block beside the bank and the tile (spread_cap 8192: 18,816 samples,
+    147 KB) runs with the windows read from global memory, equal to B1;
+    a bank and tile that no block can hold (R = 16, wp = 8192) raise
+    before any launch."""
     _, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20,
                                                shared_fetch=True)
-    kw = dict(kw, spread_cap=6144)
     b1_args, b1_kw = chip_smoke.b1_of(args, kw)
     t1, s1 = fused.track_block_fused_mxu(*b1_args, **b1_kw)
-    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (1, 2))
+    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (16, 2))
     before = fused.shared_launch_count
     t2, s2 = fused.track_block_fused_mxu(*args, **kw)
     assert fused.shared_launch_count == before + 1
     assert torch.equal(t2, t1) and torch.equal(s2, s1)
-    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (1,))
-    with pytest.raises(RuntimeError, match="shared memory"):
+    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (16,))
+    with pytest.raises(RuntimeError, match="no cluster of 16"):
         fused.track_block_fused_mxu(*args, **kw)
     assert fused.shared_launch_count == before + 1
+    monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (2,))
+    t3, s3 = fused.track_block_fused_mxu(*args, **dict(kw, spread_cap=8192))
+    assert torch.equal(t3, t1) and torch.equal(s3, s1)
+    c, wp, n0 = 2, 8192, kw["n0"]
+    n = fused.direct_span(5, n0, wp) + (5 * n0 // 128) * 128
+    before = fused.launch_count
+    with pytest.raises(RuntimeError, match="shared memory"):
+        fused.track_block_fused_mxu(
+            torch.zeros(n, device=card), torch.zeros(n, device=card),
+            torch.zeros(c, dtype=torch.int32, device=card),
+            torch.zeros((c, 16, wp), dtype=torch.bfloat16, device=card),
+            torch.zeros((c, fused.N_FIELDS), device=card), t_epochs=10,
+            k_epochs=5, n0=n0, wp=wp, fs=chip_smoke.FS,
+            starts_host=np.zeros(c, np.int32))
+    assert fused.launch_count == before
 
 
 @pytest.mark.cuda
