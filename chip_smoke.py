@@ -75,8 +75,14 @@ GPU:
      forced death: B4a (windows, T=500, wp=2176), B4b (seg, T=125,
      wp=2432) with B4c's segments (equal to its plain version bit for
      bit), B6 (resident, T=500, wp=4352, chunks of 5) and B6 against
-     B4a on the same stream, kernel to kernel; then B6 once through its
-     entry point;
+     B4a on the same stream, kernel to kernel; then the window copy's
+     alignment edges (power lock), each against its plain version open
+     loop and equal bit for bit to the unmoved run: B3 with every start
+     moved to each residue mod 4 and the stream cut where the last
+     window ends, B4b on segments cut at the last window and widened so
+     their rows start at every residue, B6 on the stream cut at its read
+     bound; a base pointer off 16 bytes raising on all four; then B6
+     once through its entry point;
  16. the per-epoch kernels' times per block, their plain versions' and
      their bounds, as 4 (B4c beside one PyTorch indexing call);
  17. the receiver on the 24-satellite scene, 5 s, through the per-epoch
@@ -119,6 +125,9 @@ N_CHANNELS = 32
 BLOCK_MS = 500
 E2E_BLOCKS = 10                     # 5 s of signal
 KERNEL_PASSES = 15
+# the spin ahead of a turn of queued kernel calls, in clock cycles (~25
+# ms at ~2 GHz): longer than the host takes to queue KERNEL_PASSES calls
+HEAD_START_CYCLES = 50_000_000
 PLAIN_PASSES = 3
 
 # published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
@@ -554,13 +563,19 @@ def _timed_turns(torch, kernel, plain, plain_passes=PLAIN_PASSES,
     return k1 + k2, p1 + p2, time_synced(kernel, kernel_passes)
 
 
-def _time_queued(torch, kernel, passes, flush):
+def _time_queued(torch, kernel, passes, flush, head_start=True):
     """Times (ms) of ``passes`` calls of ``kernel`` queued back to back,
     CUDA events around each and ``flush`` zeroed before each (the 50 MB
-    L2 evicted), one synchronise at the end."""
+    L2 evicted), one synchronise at the end. With ``head_start`` a spin
+    kernel ahead of them holds the card until the host has queued every
+    call, so an interval holds the card's work and not the host's work to
+    launch it (which is the longer of the two for a kernel of tens of
+    microseconds behind a Python wrapper)."""
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
               for _ in range(passes)]
+    if head_start:
+        torch.cuda._sleep(HEAD_START_CYCLES)
     for start, end in events:
         flush.zero_()
         start.record()
@@ -1518,6 +1533,180 @@ def _epoch_fns(feed):
                          fused.track_block_fused_resident_reference)}[feed]
 
 
+def epoch_window_origin(feed, t, *, n0, wp, c=0, c_channels=1, l_seg=0,
+                        k_chunk=1, start=0, k_epochs=1):
+    """The sample of a feed's array at which epoch ``t``'s window of
+    channel ``c`` starts, as the per-epoch kernels' feeds compute it
+    (origin() in csrc/track_block_epoch.cu and csrc/track_block_direct.cu):
+    windows row (t, c) of [T, C, wp]; seg row c of [C, l_seg] at the
+    128-floor of t*n0; resident chunk t // k_chunk of the stream (at
+    t // k_chunk * k_chunk * n0) at the 128-floor of (t % k_chunk)*n0
+    within it; direct epoch e of superstep j (t = j*K + e) at the
+    channel's start plus the 128-floors of j*K*n0 and e*n0."""
+    if feed == "windows":
+        return (t * c_channels + c) * wp
+    if feed == "seg":
+        return c * l_seg + (t * n0 // 128) * 128
+    if feed == "resident":
+        return ((t // k_chunk) * k_chunk * n0
+                + ((t % k_chunk) * n0 // 128) * 128)
+    if feed == "direct":
+        j, e = divmod(t, k_epochs)
+        return (start + (j * k_epochs * n0 // 128) * 128
+                + (e * n0 // 128) * 128)
+    raise ValueError(f"unknown feed {feed!r}")
+
+
+def epoch_stage_span(origin, wp):
+    """The samples the per-epoch kernels (csrc/epoch_core.cuh,
+    stage_window) copy into shared memory for a window at ``origin`` (an
+    int or an integer tensor): (first, length, offset), the span [first,
+    first + length) of the feed's array and the window's offset in it.
+    The first sample is the 4-sample (16-byte) floor of the origin, as a
+    bulk copy needs; the kernel copies wp samples from it by TMA and the
+    last ``offset`` (0-3) by 4-byte cp.async, so the span ends where the
+    window does."""
+    offset = origin % 4
+    return origin - offset, offset + wp, offset
+
+
+def epoch_lane_range(start_lane, n_t, wp):
+    """The lanes the per-epoch kernels mix (csrc/epoch_core.cuh,
+    mask_lanes): the integers l in [0, wp) with start_lane <= l <
+    start_lane + n_t in f32 (the plain version's mask), as (l0, l1):
+    [ceil(start_lane), ceil(start_lane + n_t)) clamped to [0, wp), NaN
+    to 0 as fmaxf takes it."""
+    sl = np.float32(start_lane)
+    end = np.float32(sl + np.float32(n_t))
+
+    def lane(x):
+        return int(np.fmin(np.fmax(np.ceil(x), np.float32(0.0)),
+                           np.float32(wp)))
+
+    return lane(sl), lane(end)
+
+
+def epoch_wrap(x, wp):
+    """x mod wp for x in (-wp, 2wp) by one compare and add or subtract,
+    as the per-epoch kernels' mix wraps the rolled prompt index."""
+    x = np.asarray(x)
+    return np.where(x < 0, x + wp, np.where(x >= wp, x - wp, x))
+
+
+def epoch_rolled_lanes(lane, rem, el, wp):
+    """(early, prompt, late) indices of the epoch's prompt row that the
+    per-epoch kernels' mix reads at window lane ``lane`` (csrc/
+    epoch_core.cuh, mix): (lane - rem) mod wp and its +- el rolls, each
+    wrapped by epoch_wrap (rem taken mod wp once per epoch)."""
+    rw = rem if rem < wp else rem % wp
+    ip = epoch_wrap(np.asarray(lane) - rw, wp)
+    return epoch_wrap(ip + el, wp), ip, epoch_wrap(ip - el, wp)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a
+    16-byte boundary."""
+    buf = t.new_empty(t.numel() + 1)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def epoch_edge_check(torch, device="cuda", seg_ms=SEG_BLOCK_MS,
+                     long_ms=WINDOWS_BLOCK_MS, piece=EPOCH_PIECE):
+    """The per-epoch kernels at the window copy's alignment edges, each
+    against its plain version open loop and equal bit for bit to the run
+    on the unmoved inputs: B3 (direct) with every start moved to each
+    residue r mod 4 and the stream cut where the highest start's last
+    window ends (edge_case); B4b (seg) on segments cut where the last
+    window ends and widened by r = 0-3 columns, so that row c's windows
+    start at residue c*r mod 4; B6 (resident) on the stream cut at the
+    wrapper's read bound T*n0 + wp (its odd chunks start at residue 2
+    at n0 = 2046, their windows ending in 2 cp.async samples). B4a's
+    windows are whole wp rows (residue 0). Then a base pointer 4 bytes
+    off a 16-byte boundary raises on each of the four, launching
+    nothing. Blocks of ``seg_ms`` for B4b, ``long_ms`` for the rest;
+    open-loop pieces of ``piece`` epochs (B4b 5/4 of it). Returns the
+    largest |error| of the correlations per kernel."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    worst = {"direct": 0.0, "seg": 0.0, "resident": 0.0}
+
+    def note(name, label, err):
+        worst[name] = max(worst[name], err["corr_max_abs"])
+        print(f"{name} kernel vs plain, open loop [{label}]: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()})
+              + "; equal to the unmoved run bit for bit")
+
+    # B3: starts at each residue mod 4, the stream cut at the last window
+    _, d_args, d_kw = full_width_inputs(torch, device, {}, block_ms=long_ms,
+                                        layout="direct")
+    t0, s0 = fused.track_block_fused_direct(*d_args, **d_kw)
+    for r in range(4):
+        e_args, e_kw = edge_case(torch, d_args, d_kw, r)
+        tk, sk, err = open_loop_compare(torch, e_args, e_kw, layout="direct")
+        assert torch.equal(tk, t0) and torch.equal(sk, s0), ("direct", r)
+        note("direct", f"starts at residue {r} mod 4, stream cut at "
+             f"{e_args[0].shape[0]}", err)
+    # B4b: rows at residues c*r mod 4, each segment cut at its last window
+    inp = epoch_inputs(torch, "seg", {}, device=device, block_ms=seg_ms)
+    (seg_re, seg_im, reps, mat), seg_kw = inp["args"], inp["kw"]
+    t0, s0 = fused.track_block_fused_seg(*inp["args"], **seg_kw)
+    n0, wp, t_all = seg_kw["n0"], seg_kw["wp"], seg_kw["t_epochs"]
+    need = ((t_all - 1) * n0 // 128) * 128 + wp
+    for r in range(4):
+        pad = seg_re.new_zeros((seg_re.shape[0], r))
+        cut = tuple(torch.cat([x[:, :need], pad], dim=1).contiguous()
+                    for x in (seg_re, seg_im))
+        origins = {epoch_window_origin("seg", t_all - 1, n0=n0, wp=wp, c=c,
+                                       l_seg=need + r) % 4
+                   for c in range(seg_re.shape[0])}
+        assert origins == {c * r % 4 for c in range(4)}, origins
+        tk, sk, err = epoch_open_loop(torch, "seg", (*cut, reps, mat),
+                                      seg_kw, piece=max(1, piece * 5 // 4))
+        assert torch.equal(tk, t0) and torch.equal(sk, s0), ("seg", r)
+        note("seg", f"Lseg {need + r}: rows at residues "
+             f"{sorted(origins)} mod 4, cut at the last window", err)
+    # B6: the stream cut at the read bound; chunks at residues 0 and 2
+    inp = epoch_inputs(torch, "resident", {}, device=device,
+                       block_ms=long_ms)
+    (sre, sim, r_reps, r_st), kw = inp["args"], inp["kw"]
+    t_all, n0, wp = kw["t_epochs"], kw["n0"], kw["wp"]
+    k = fused.resident_chunk(t_all, kw["k_epochs"])
+    assert {epoch_window_origin("resident", t, n0=n0, wp=wp, k_chunk=k) % 4
+            for t in range(t_all)} == {0, 2}
+    t0, s0 = fused.track_block_fused_resident(*inp["args"], **kw)
+    bound = t_all * n0 + wp
+    cut = (sre[:bound], sim[:bound], r_reps, r_st)
+    tk, sk, err = epoch_open_loop(torch, "resident", cut, kw, piece=piece)
+    assert torch.equal(tk, t0) and torch.equal(sk, s0), "resident"
+    note("resident", f"stream cut at the read bound {bound}", err)
+    # a base pointer off 16 bytes raises before anything launches
+    win = epoch_inputs(torch, "windows", {}, device=device,
+                       block_ms=long_ms)
+    before = _launch_counts()
+    for fn, a, k_w in (
+            (fused.track_block_fused,
+             (_misaligned(win["args"][0]), *win["args"][1:]), win["kw"]),
+            (fused.track_block_fused_seg,
+             (seg_re, _misaligned(seg_im), reps, mat), seg_kw),
+            (fused.track_block_fused_resident,
+             (sre[1:], sim[1:], r_reps, r_st), kw),
+            (fused.track_block_fused_direct,
+             (d_args[0][1:], d_args[1][1:], *d_args[2:]), d_kw)):
+        try:
+            fn(*a, **k_w)
+        except ValueError as exc:
+            assert "16-byte aligned" in str(exc), exc
+        else:
+            raise AssertionError(f"{fn.__name__}: a misaligned base "
+                                 "launched")
+    assert _launch_counts() == before
+    print("misaligned base pointers: windows, seg, resident and direct "
+          "raise, nothing launched")
+    return worst
+
+
 def epoch_open_loop(torch, feed, args, kw, piece=EPOCH_PIECE):
     """A per-epoch kernel against its plain version, open loop: the
     kernel runs the block once, and once more for each prefix that ends
@@ -1610,10 +1799,12 @@ VARIANTS_EPOCH = {
 
 def phase_epoch_check(torch):
     """B4a, B4b (+ B4c) and B6 against their plain versions at full
-    width, open loop; B4c bit for bit; B6 against B4a; then B6 once
+    width, open loop; B4c bit for bit; B6 against B4a; the window copy's
+    alignment edges of B3, B4b and B6 (epoch_edge_check); then B6 once
     through its entry point with the launch counts set to 0 just before
     (its only path: no receiver runs it). Returns the largest |error| of
-    the correlations per kernel and B6's launches."""
+    the correlations per kernel (B3's at the edges under "direct") and
+    B6's launches."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     max_abs = {"windows": 0.0, "seg": 0.0, "resident": 0.0, "gather": 0.0}
@@ -1656,6 +1847,8 @@ def phase_epoch_check(torch):
                       f"cols 0-6 {worst[0]:.3e} of max, carrier rate "
                       f"{worst[1]:.3e} Hz, state {worst[2]:.3e} "
                       f"(limits {RESIDENT_TOL})")
+    for feed, err in epoch_edge_check(torch).items():
+        max_abs[feed] = max(max_abs.get(feed, 0.0), err)
     # B6's path: its entry point over one full block
     inp = epoch_inputs(torch, "resident", {})
     _reset_launch_counts()
@@ -1670,6 +1863,22 @@ def phase_epoch_check(torch):
           f"tracking, locked share "
           f"{float(telem[:, :24, 7].mean()):.4f}")
     return max_abs, launches["track_block_fused_resident"]
+
+
+def epoch_bytes(feed, args, telem, st):
+    """The bytes a per-epoch kernel's block must move, counted from this
+    run's data as its operations are: where each channel has windows of
+    its own (windows, seg), the lanes inside each active epoch's mask
+    (telemetry cols 12 x 16) once, re and im f32 (an idle channel's
+    window and the lanes outside the mask reach no output); where every
+    channel reads one stream (resident), the stream; then the active
+    channels' replica rows, the state in and out, and the telemetry."""
+    lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
+    reps = args[2]
+    active = int((telem[..., 16].amax(dim=0) > 0).sum())
+    win = 8.0 * lanes if feed in ("windows", "seg") else _nbytes(*args[:2])
+    return (win + active * reps[0].numel() * reps.element_size()
+            + _nbytes(args[3], telem, st))
 
 
 def phase_epoch_timing(torch):
@@ -1691,7 +1900,7 @@ def phase_epoch_timing(torch):
         telem, st = kernel(*args, **kw)
         per_block = sum(_launch_counts().values()) - before
         lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
-        n_bytes = _nbytes(*args, telem, st)
+        n_bytes = epoch_bytes(feed, args, telem, st)
         f32_ops = DIRECT_OPS_PER_LANE * lanes
         bound, bound_by = _bound(n_bytes, f32_ops)
         ft = inp["ft"]
@@ -2111,6 +2320,7 @@ def main() -> int:
     phase_fused_tail(torch)
     b5_graph = scan["pallas"][True][3]["profiled_block"]
     epoch_abs, resident_launches = phase_epoch_check(torch)
+    direct_abs = max(direct_abs, epoch_abs["direct"])
     etiming = phase_epoch_timing(torch)
     epoch_rx = phase_epoch_receivers(torch)
     shared_abs = phase_shared_check(torch)

@@ -1,32 +1,75 @@
-// One tracking epoch of one channel, for the per-epoch fused tracking
-// kernels on Hopper (sm_90a): B3 (track_block_direct.cu) and B4a, B4b and
-// B6 (track_block_epoch.cu).
+// One channel's tracking block, epoch by epoch, for the per-epoch fused
+// tracking kernels on Hopper (sm_90a): B3 (track_block_direct.cu) and
+// B4a, B4b and B6 (track_block_epoch.cu).
 //
 // The counterpart of _epoch_core (gnss_sdr_tpu/ops/pallas/
 // track_block_fused.py:76), whose plain PyTorch version is
 // _epoch_core_reference in gnss_sdr_tpu_torch/ops/cuda/
 // track_block_epoch.py (the contract: carrier trig factors, mask, prompt
 // select, rolls, discriminators, loop filters, state and telemetry
-// columns). A kernel runs one thread block per channel: load_channel puts
-// the channel's state (and its replica rows, where they fit) in shared
-// memory, run_epoch runs one epoch from the window the kernel's feed
-// points at, with the epoch's start lane and prompt roll, and
-// store_channel writes the end state. The feeds differ only in where an
-// epoch's window lies.
+// columns). A kernel runs one thread block per channel: run_block walks
+// the channel's T epochs in order, each epoch's window where the
+// kernel's feed says it lies. A feed (one per kernel) is a struct bound
+// to its channel with three members: origin(t), the sample of the
+// feed's arrays at which epoch t's window starts; rem(t), the epoch's
+// prompt roll; start_lane(st, t), the lane of the epoch's first sample
+// from the state. The window's address depends on t alone, never on the
+// state, so every window is known before the chain that precedes it.
 //
-// Per epoch:
+// Per epoch (two block barriers):
 //   1. every thread derives the epoch's NCO quantities from the state in
-//      shared memory; threads build the carrier's outer-product trig
-//      factors (B per lane mod 128, A per 128-lane group) in shared memory;
-//   2. each thread mixes its lanes straight from the window in global
-//      memory; lanes outside the epoch's mask add exactly zero, so they
-//      are not read. The prompt at lane l is the selected row at
-//      (l - rem_i) mod wp (the TPU kernel's right roll), early and late at
-//      l +- el_shift of that (its E/L rolls, with the wrap the mask
-//      zeroes);
-//   3. a block reduction forms the six f32 correlations;
-//   4. thread 0 runs the discriminators, lock, loop filters and death,
-//      writes the telemetry row and the new state to shared memory.
+//      its registers; threads build the carrier's outer-product trig
+//      factors (B per lane mod 128, A per 128-lane group) and the
+//      epoch's prompt row (the selected replica rows blended, once per
+//      lane index, with the operations and order of the plain version's
+//      select) in shared memory; barrier;
+//   2. every thread waits for the epoch's window in shared memory and
+//      mixes its share of the lanes in the epoch's mask, the integer
+//      range [ceil(start_lane), ceil(start_lane + n_t)) within [0, wp):
+//      lanes outside it add exactly zero, so they are not visited. The
+//      prompt at lane l is the row at (l - rem) mod wp (the TPU kernel's
+//      right roll), early and late at that index +- el_shift (its E/L
+//      rolls, with the wrap the mask zeroes), each wrapped by one compare
+//      and add or subtract;
+//   3. each warp sums its six correlations by shuffles; barrier; every
+//      warp adds the eight warps' sums in the same fixed order (shuffles
+//      over lanes 0-7), so every thread holds the same six sums;
+//   4. every thread runs the discriminators, lock, loop filters and death
+//      on them in registers, the same arithmetic on the same values, so
+//      all hold the same new state and the next epoch needs no barrier
+//      to read it; one thread writes the telemetry row.
+//
+// Staging: each epoch's window is copied into a ring of shared-memory
+// slots by a 1-D cp.async.bulk (TMA) of each component on the slot's
+// mbarrier, one phase per epoch: epochs 0 to n_slots - 1 before the
+// loop, epoch t + n_slots as soon as every warp is done with epoch t's
+// window (after stage 3's barrier). With two slots the copy lands during
+// epoch t's chain and all of epoch t + 1; with one, during epoch t's
+// chain and epoch t + 1's stage 1. A bulk copy takes 16-byte-aligned
+// addresses and lengths, so it starts at the 4-sample floor of the
+// window's origin and copies wp samples (wp % 128 == 0); the last 0-3
+// samples of the window (the origin's residue mod 4; only B6's chunks
+// and callers' starts off a 4-sample multiple have them) go by cp.async
+// of 4 bytes each, which the same mbarrier tracks
+// (cp.async.mbarrier.arrive.noinc). The copy reads no sample outside the
+// window's [origin - 3, origin + wp), and never before sample 0, so the
+// wrappers' read bounds stay the plain version's; no copy is issued past
+// the block's last epoch. The wrappers check that the feed's base
+// pointers are 16-byte aligned. Every window of every shape is mixed
+// from its slot.
+//
+// Shared memory: the f32 replica rows (n_drift * wp), the ring (2 *
+// n_slots * (wp + 4)), the prompt row, the trig factors, the warp sums
+// and the ring's mbarriers. The launcher takes the first layout that
+// fits in a block's 227 KB: the replica rows and two slots, 4 * (wp *
+// (n_drift + 5) + 2 * wp / 128 + 324) bytes, at the main path's shapes
+// (5 rows) 86 KB (windows, wp 2176), 96 KB (seg, 2432), 101 KB (direct,
+// 2560) and 172 KB (resident, 4352); else the replica rows in global
+// memory (the prompt row is built from there, with the same result) and
+// two slots, at 5 rows from wp 5,888 (e.g. the resident layout at 4.092
+// MHz); else that and one slot, from wp 11,648 up to the widest, 16,384
+// (199 KB).
+//
 // Built with --fmad=false so every scalar step rounds as the plain
 // version's separate ops do; the carrier phase and chip ledger advances
 // are explicit fmaf, as XLA fuses them in the TPU kernel. The
@@ -45,12 +88,13 @@ constexpr int kTelem = 17;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDrift = 8;
-// carrier A factors: one thread each beside the 128 B-factor threads, so
-// wp <= 128 * 128 (the JAX kernel's limit, ROADMAP C6)
-constexpr int kMaxW128 = kThreads - 128;
-// replica rows larger than this are read from global memory (through
-// L1/L2) instead of shared memory
-constexpr size_t kMaxSmemReps = 192 * 1024;
+// carrier A factors: wp <= 128 * 128 (the JAX kernel's limit, ROADMAP C6)
+constexpr int kMaxW128 = 128;
+static_assert(kThreads >= 128 + kMaxW128, "one trig factor per thread");
+constexpr int kSlots = 2;       // the window ring's most slots
+constexpr int kSlotPad = 4;     // a slot holds wp + 4 samples
+// the thread that stages windows: lane 0 of the last warp
+constexpr int kStager = kThreads - 32;
 
 // constants rounded double -> float, as torch.tensor(x, float32) does
 constexpr float kTwoPi = (float)6.283185307179586;
@@ -66,7 +110,10 @@ struct Params {  // what every feed shares
   float fs_code_len, inv_fs, code_len, lock_threshold, max_lost_f;
   float pll_c1, pll_c2, dll_c1, dll_c2;
   float aiding_scale, if_freq, costas_thr;
-  int aiding, costas, interp, reps_in_smem;
+  int aiding, costas, interp;
+  // set by launch(): the ring's slots (1 or 2), and whether the replica
+  // rows sit in shared memory
+  int n_slots, reps_shared;
 };
 
 // Params from a launch's arguments; returns a CUDA error code (0 when the
@@ -108,31 +155,118 @@ inline int make_params(Params& p, const void* replicas, const void* state_in,
   p.aiding = aiding_scale != 0.0f;
   p.costas = costas;
   p.interp = interp;
-  p.reps_in_smem =
-      (size_t)n_drift * (size_t)wp * sizeof(float) <= kMaxSmemReps;
+  p.n_slots = kSlots;
+  p.reps_shared = 1;
   return 0;
 }
 
-// dynamic shared memory of one thread block
-inline size_t smem_bytes(const Params& p) {
-  const int w128 = p.wp / 128;
-  const size_t reps = p.reps_in_smem ? (size_t)p.n_drift * p.wp : 0;
-  return (reps + 256 + 2 * w128 + 6 * kWarps + 12) * sizeof(float);
+// floats of one block's dynamic shared memory: the ring's mbarriers (16
+// bytes), [the replica rows when shared,] the ring, then the prompt row,
+// the trig factors and the warp sums
+inline size_t smem_floats(const Params& p) {
+  const size_t wp = (size_t)p.wp, w128 = wp / 128;
+  return 4 + (p.reps_shared ? (size_t)p.n_drift * wp : 0) +
+         2 * (size_t)p.n_slots * (wp + kSlotPad) + wp + 256 + 2 * w128 +
+         6 * kWarps;
 }
 
-// set the kernel's shared-memory ceiling, launch one thread block per
-// channel, and return the launch's error code
+// choose the first shared-memory layout that fits (the replica rows and
+// two slots; the rows in global memory; one slot), set the kernel's
+// shared-memory ceiling, launch one thread block per channel; returns a
+// CUDA error code
 template <class Feed>
-inline int launch(void (*kernel)(Params, Feed), const Params& p,
-                  const Feed& f, void* stream) {
-  const size_t smem = smem_bytes(p);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline int launch(void (*kernel)(Params, Feed), Params p, const Feed& f,
+                  void* stream) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t room = (size_t)smem_max - fa.sharedSizeBytes;
+  if (smem_floats(p) * sizeof(float) > room) p.reps_shared = 0;
+  if (smem_floats(p) * sizeof(float) > room) p.n_slots = 1;
+  const size_t smem = smem_floats(p) * sizeof(float);
+  if (smem > room) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<p.c_channels, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, f);
   return (int)cudaGetLastError();
 }
+
+// ---- PTX wrappers: mbarrier, bulk copy, cp.async ----------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+// an mbarrier that completes a phase on two arrivals (the stager's
+// expect-tx and its cp.async arrival) and the bytes expected
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(2)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// global -> shared memory, completing on the mbarrier
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// one 4-byte sample global -> shared memory
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the mbarrier's second arrival, once this thread's cp.asyncs landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// the generic proxy's reads of a slot are ordered before the async
+// proxy's next writes to it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the arithmetic ---------------------------------------------------
 
 __device__ inline float atan_poly(float x) {
   // Abramowitz-Stegun 4.4.49 (max error ~1e-5 rad): the TPU kernel's
@@ -156,8 +290,8 @@ struct Epoch {  // one epoch's NCO quantities (every thread derives them)
   int rem_i;
 };
 
-__device__ inline Epoch epoch_nco(const Params& p, const float* st,
-                                  float start_lane, int rem_i) {
+__device__ __forceinline__ Epoch epoch_nco(const Params& p, const float* st,
+                                           float start_lane, int rem_i) {
   Epoch q;
   const float carr_freq = st[0], carr_phase = st[1], code_rate = st[3];
   const float chip_res = st[4], drift = st[8], frac0 = st[10];
@@ -178,9 +312,10 @@ __device__ inline Epoch epoch_nco(const Params& p, const float* st,
   float shift = drift - qf;
   q.hi = -1;
   q.lo = -1;
-  for (int d = 0; d < p.n_drift; ++d) {
-    if (shift == (float)(d - half)) q.hi = d;
-    if (p.interp && shift == (float)(d - half + 1)) q.lo = d;
+#pragma unroll
+  for (int d = 0; d < kMaxDrift; ++d) {
+    if (d < p.n_drift && shift == (float)(d - half)) q.hi = d;
+    if (d < p.n_drift && p.interp && shift == (float)(d - half + 1)) q.lo = d;
   }
   if (p.interp) {
     float f_sub = qq - qf;
@@ -193,103 +328,91 @@ __device__ inline Epoch epoch_nco(const Params& p, const float* st,
   return q;
 }
 
-// the (rolled) prompt replica at window lane x (any integer in
-// (-wp, 2wp)); the sum over rows in row order, as the TPU kernel's
-__device__ __forceinline__ float prompt_at(const float* reps, const Epoch& q,
-                                           int wp, int x) {
-  int i = x % wp;
-  if (i < 0) i += wp;
-  float v = 0.0f;
-  if (q.lo >= 0) v = q.w_lo * reps[q.lo * wp + i];
-  if (q.hi >= 0) v = v + q.w_hi * reps[q.hi * wp + i];
-  return v;
-}
-
-struct Smem {  // one channel's working set
-  const float* reps;  // [n_drift, wp]: shared memory, or global memory
-  float* b_cos;       // [128]
-  float* b_sin;
-  float* a_cos;       // [w128]
-  float* a_sin;
-  float* red;         // [6, kWarps]
-  float* st;          // [12] state columns
-};
-
-// lay out the shared memory, load channel c's state and (where they fit)
-// its replica rows
-__device__ inline Smem load_channel(const Params& p, float* smem, int c) {
-  const int tid = threadIdx.x, w128 = p.wp / 128;
-  const float* g_reps = p.replicas + (long long)c * p.n_drift * p.wp;
-  Smem s;
-  float* cur = smem;
-  if (p.reps_in_smem) {
-    const float4* src = reinterpret_cast<const float4*>(g_reps);
-    float4* dst = reinterpret_cast<float4*>(cur);
-    for (int i = tid; i < p.n_drift * p.wp / 4; i += kThreads) dst[i] = src[i];
-    s.reps = cur;
-    cur += p.n_drift * p.wp;
-  } else {
-    s.reps = g_reps;
+// the epoch's prompt row, [wp] into shared memory: at each lane index
+// the selected rows' sum in row order, as the TPU kernel's select (and
+// the plain version's) forms it; 4 lanes per step, a thread's steps'
+// loads issued together (rows lo and hi both read, row 0 for a row not
+// selected, so no load waits on a branch)
+__device__ __forceinline__ void build_prompt_row(const float* reps,
+                                                 const Epoch& q, int wp,
+                                                 float* prow) {
+  constexpr int kU = 4;
+  const float4* lo4 =
+      reinterpret_cast<const float4*>(reps + max(q.lo, 0) * wp);
+  const float4* hi4 =
+      reinterpret_cast<const float4*>(reps + max(q.hi, 0) * wp);
+  float4* out = reinterpret_cast<float4*>(prow);
+  const int n4 = wp / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += kU * kThreads) {
+    float4 rl[kU], rh[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n4) {
+        rl[u] = lo4[i];
+        rh[u] = hi4[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n4) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (q.lo >= 0)
+          v = make_float4(q.w_lo * rl[u].x, q.w_lo * rl[u].y,
+                          q.w_lo * rl[u].z, q.w_lo * rl[u].w);
+        if (q.hi >= 0)
+          v = make_float4(v.x + q.w_hi * rh[u].x, v.y + q.w_hi * rh[u].y,
+                          v.z + q.w_hi * rh[u].z, v.w + q.w_hi * rh[u].w);
+        out[i] = v;
+      }
+    }
   }
-  s.b_cos = cur;
-  s.b_sin = s.b_cos + 128;
-  s.a_cos = s.b_sin + 128;
-  s.a_sin = s.a_cos + w128;
-  s.red = s.a_sin + w128;
-  s.st = s.red + 6 * kWarps;
-  if (tid < 12) s.st[tid] = p.state_in[c * kFields + tid];
-  __syncthreads();
-  return s;
 }
 
-__device__ inline void store_channel(const Params& p, const Smem& s, int c) {
-  const int tid = threadIdx.x;
-  if (tid < kFields)
-    p.state_out[c * kFields + tid] = tid < 12 ? s.st[tid] : 0.0f;
-}
-
-// epoch t of channel c: the epoch's window starts at wre/wim (lane 0), its
-// first sample sits at start_lane, and the prompt rolls right by rem_i
-__device__ inline void run_epoch(const Params& p, const Smem& s,
-                                 const float* __restrict__ wre,
-                                 const float* __restrict__ wim,
-                                 float start_lane, int rem_i, int t, int c) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wp = p.wp, w128 = wp / 128;
-  const Epoch q = epoch_nco(p, s.st, start_lane, rem_i);
-
-  // ---- stage 1: carrier trig factors --------------------------------
-  if (tid < 128) {
-    float th = q.step * (float)tid;
-    th = (th - floorf(th)) * kTwoPi;
-    s.b_cos[tid] = cosf(th);
-    s.b_sin[tid] = sinf(th);
-  } else if (tid - 128 < w128) {
-    int qd = tid - 128;
-    float th = q.phi0 + (q.step * 128.0f) * (float)qd;
-    th = (th - floorf(th)) * kTwoPi;
-    s.a_cos[qd] = cosf(th);
-    s.a_sin[qd] = sinf(th);
-  }
-  __syncthreads();
-
-  // ---- stage 2: mix the in-mask lanes, six correlations ---------------
-  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+// stage 2's lanes: the integers l in [0, wp) with start_lane <= l <
+// start_lane + n_t (the plain version's float mask), as [*l0, *l1)
+__device__ __forceinline__ void mask_lanes(const Epoch& q, int wp, int* l0,
+                                           int* l1) {
   const float end = q.start_lane + q.n_t;
-  for (int l = tid; l < wp; l += kThreads) {
-    const float lf = (float)l;
-    if (!(lf >= q.start_lane && lf < end)) continue;  // mask: adds 0
-    const int qd = l >> 7, r = l & 127;
-    const float ac = s.a_cos[qd], as = s.a_sin[qd];
-    const float cth = ac * s.b_cos[r] - as * s.b_sin[r];
-    const float sth = as * s.b_cos[r] + ac * s.b_sin[r];
+  *l0 = (int)fminf(fmaxf(ceilf(q.start_lane), 0.0f), (float)wp);
+  *l1 = (int)fminf(fmaxf(ceilf(end), 0.0f), (float)wp);
+}
+
+// this thread's share of the epoch's mix: lanes l0 + tid, l0 + tid +
+// kThreads, ... below l1 of the window at wre / wim (lane 0), the prompt
+// row at (l - rem) mod wp and its +- el_shift rolls; six partial sums
+__device__ __forceinline__ void mix(const Epoch& q, int wp, int el,
+                                    int l0, int l1,
+                                    const float* __restrict__ wre,
+                                    const float* __restrict__ wim,
+                                    const float* prow, const float* b_cos,
+                                    const float* b_sin, const float* a_cos,
+                                    const float* a_sin, float* acc) {
+  // the roll modulo wp (rem < 256 <= wp on every feed but the tiniest)
+  const int rw = q.rem_i < wp ? q.rem_i : q.rem_i % wp;
+  // a thread's lanes step by kThreads, a multiple of 128, so they share
+  // one B factor (lane mod 128)
+  static_assert(kThreads % 128 == 0, "one B factor per thread");
+  const int r = (l0 + (int)threadIdx.x) & 127;
+  const float bc = b_cos[r], bs = b_sin[r];
+#pragma unroll 4
+  for (int l = l0 + (int)threadIdx.x; l < l1; l += kThreads) {
+    const int qd = l >> 7;
+    const float ac = a_cos[qd], as = a_sin[qd];
+    const float cth = ac * bc - as * bs;
+    const float sth = as * bc + ac * bs;
     const float xre = wre[l], xim = wim[l];
     const float m_re = xre * cth + xim * sth;
     const float m_im = xim * cth - xre * sth;
-    const int x = l - q.rem_i;
-    const float pe = prompt_at(s.reps, q, wp, x + p.el_shift);
-    const float pp = prompt_at(s.reps, q, wp, x);
-    const float pl = prompt_at(s.reps, q, wp, x - p.el_shift);
+    // (l - rw) lies in (-wp, wp); wrapped, +- el puts it in (-wp, 2wp)
+    int ip = l - rw;
+    ip += ip < 0 ? wp : 0;
+    int ie = ip + el;
+    ie -= ie >= wp ? wp : 0;
+    int il = ip - el;
+    il += il < 0 ? wp : 0;
+    const float pe = prow[ie], pp = prow[ip], pl = prow[il];
     acc[0] += m_re * pe;
     acc[1] += m_im * pe;
     acc[2] += m_re * pp;
@@ -297,6 +420,149 @@ __device__ inline void run_epoch(const Params& p, const Smem& s,
     acc[4] += m_re * pl;
     acc[5] += m_im * pl;
   }
+}
+
+struct Smem {  // one channel's working set in shared memory
+  float* reps;   // [n_drift, wp] (when shared)
+  float* ring;   // [n_slots][2][wp + kSlotPad]
+  float* prow;   // [wp]
+  float* b_cos;  // [128]
+  float* b_sin;
+  float* a_cos;  // [w128]
+  float* a_sin;
+  float* red;    // [6, kWarps]
+  uint64_t* bar; // [kSlots]
+  int cap;       // samples per slot component
+};
+
+// epoch t's slot of the ring (t mod n_slots), and the parity of the
+// slot's mbarrier phase that lands it ((t / n_slots) mod 2), without a
+// division (n_slots is 1 or 2)
+__device__ __forceinline__ int ring_slot(const Params& p, int t) {
+  return t & (p.n_slots - 1);
+}
+__device__ __forceinline__ uint32_t ring_parity(const Params& p, int t) {
+  return (uint32_t)(t >> (p.n_slots - 1)) & 1u;
+}
+
+// issue epoch t's window copy into its slot (the stager alone)
+template <class Feed>
+__device__ __forceinline__ void stage_window(const Params& p, const Smem& s,
+                                             const Feed& f, int t) {
+  const long long g = f.origin(t);
+  const int o = (int)(g & 3LL);
+  const long long org = g - o;
+  const int slot = ring_slot(p, t);
+  float* dre = s.ring + 2 * slot * s.cap;
+  float* dim = dre + s.cap;
+  uint64_t* bar = s.bar + slot;
+  const uint32_t bytes = 4u * (uint32_t)p.wp;
+  fence_proxy_async();
+  mbar_expect(bar, 2u * bytes);
+  bulk_g2s(dre, f.re + org, bytes, bar);
+  bulk_g2s(dim, f.im + org, bytes, bar);
+  for (int i = 0; i < o; ++i) {
+    cp_async4(dre + p.wp + i, f.re + org + p.wp + i);
+    cp_async4(dim + p.wp + i, f.im + org + p.wp + i);
+  }
+  cp_async_arrive(bar);
+}
+
+// lay out the shared memory, init the ring's mbarriers, load channel c's
+// replica rows (when shared) and its state into every thread's registers
+__device__ __forceinline__ Smem load_channel(const Params& p, float* smem,
+                                             int c, float* st) {
+  const int tid = threadIdx.x, wp = p.wp, w128 = wp / 128;
+  Smem s;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* cur = smem + 4;
+  s.cap = wp + kSlotPad;
+  s.reps = cur;
+  if (p.reps_shared) {
+    const float4* src = reinterpret_cast<const float4*>(
+        p.replicas + (long long)c * p.n_drift * wp);
+    float4* dst = reinterpret_cast<float4*>(s.reps);
+    for (int i = tid; i < p.n_drift * wp / 4; i += kThreads) dst[i] = src[i];
+    cur += p.n_drift * wp;
+  }
+  s.ring = cur;
+  cur += 2 * p.n_slots * s.cap;
+  s.prow = cur;
+  s.b_cos = s.prow + wp;
+  s.b_sin = s.b_cos + 128;
+  s.a_cos = s.b_sin + 128;
+  s.a_sin = s.a_cos + w128;
+  s.red = s.a_sin + w128;
+  s.bar = bar;
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) mbar_init(bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) st[k] = p.state_in[c * kFields + k];
+  __syncthreads();
+  return s;
+}
+
+__device__ __forceinline__ void store_channel(const Params& p,
+                                              const float* st, int c) {
+  const int tid = threadIdx.x;
+  if (tid < kFields) {
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) v = tid == k ? st[k] : v;
+    p.state_out[c * kFields + tid] = v;
+  }
+}
+
+// epoch t of channel c (f bound to it), the state in st (registers)
+template <class Feed>
+__device__ __forceinline__ void run_epoch(const Params& p, const Smem& s,
+                                          const Feed& f, float* st, int t,
+                                          int c) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wp = p.wp, w128 = wp / 128;
+  // ---- stage 1: NCO quantities, carrier trig factors, prompt row -------
+  const Epoch q = epoch_nco(p, st, f.start_lane(st, t), f.rem(t));
+  // one trig factor per thread (kThreads >= 128 + kMaxW128)
+  if (tid < 128 + w128) {
+    float th;
+    if (tid < 128) {
+      th = q.step * (float)tid;
+    } else {
+      th = q.phi0 + (q.step * 128.0f) * (float)(tid - 128);
+    }
+    th = (th - floorf(th)) * kTwoPi;
+    float sn, cs;
+    sincosf(th, &sn, &cs);
+    if (tid < 128) {
+      s.b_cos[tid] = cs;
+      s.b_sin[tid] = sn;
+    } else {
+      s.a_cos[tid - 128] = cs;
+      s.a_sin[tid - 128] = sn;
+    }
+  }
+  // a call site per place of the rows, so each reads its own memory
+  // space directly
+  if (p.reps_shared) {
+    build_prompt_row(s.reps, q, wp, s.prow);
+  } else {
+    build_prompt_row(p.replicas + (long long)c * p.n_drift * wp, q, wp,
+                     s.prow);
+  }
+  __syncthreads();
+  const int slot = ring_slot(p, t);
+  mbar_wait(s.bar + slot, ring_parity(p, t));
+  // ---- stage 2: mix the window's in-mask lanes ---------------------------
+  int l0, l1;
+  mask_lanes(q, wp, &l0, &l1);
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  // the window sits in its slot behind the origin's residue mod 4
+  const float* wre = s.ring + 2 * slot * s.cap + (int)(f.origin(t) & 3LL);
+  mix(q, wp, p.el_shift, l0, l1, wre, wre + s.cap, s.prow, s.b_cos,
+      s.b_sin, s.a_cos, s.a_sin, acc);
+  // ---- stage 3: the six correlations: warp sums, then the block's --------
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     float v = acc[k];
@@ -304,60 +570,66 @@ __device__ inline void run_epoch(const Params& p, const Smem& s,
     if (lane == 0) s.red[k * kWarps + warp] = v;
   }
   __syncthreads();
+  // every warp is done with the window: stage epoch t + n_slots's into
+  // its slot
+  if (tid == kStager && t + p.n_slots < p.t_epochs)
+    stage_window(p, s, f, t + p.n_slots);
+  float corr[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    // the warps' sums in a fixed order on lanes 0-7 of every warp (the
+    // butterfly's adds commute, so all eight lanes agree), then lane 0's
+    float v = lane < kWarps ? s.red[k * kWarps + lane] : 0.0f;
+    for (int o = kWarps / 2; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, o, kWarps);
+    corr[k] = __shfl_sync(0xffffffffu, v, 0);
+  }
+  // ---- stage 4: discriminators, lock, loop filters (every thread) --------
+  const float i_e = corr[0], q_e = corr[1], i_p = corr[2];
+  const float q_p = corr[3], i_l = corr[4], q_l = corr[5];
+  const float carr_freq = st[0], carr_phase = st[1], carr_err = st[2];
+  const float code_rate = st[3], chip_res = st[4], code_err = st[5];
+  const float lost = st[6], active = st[7], drift = st[8];
+  const float lock_ema = st[11];
 
-  // ---- stage 3: discriminators, lock, loop filters (thread 0) ---------
+  const float power = i_p * i_p + q_p * q_p;
+  float new_le;
+  bool locked;
+  if (p.costas) {
+    const float alpha = (float)0.1;
+    float metric = (i_p * i_p - q_p * q_p) / fmaxf(power, (float)1e-12);
+    new_le = active > 0.5f ? (1.0f - alpha) * lock_ema + alpha * metric
+                           : lock_ema;
+    locked = new_le > p.costas_thr;
+  } else {
+    new_le = lock_ema;
+    locked = power > p.lock_threshold;
+  }
+  float safe_ip = fabsf(i_p) < (float)1e-12 ? (float)1e-12 : i_p;
+  float pll = atan_poly(q_p / safe_ip) * kInvTwoPi;
+  float carr_nco = pll * p.pll_c1 + (pll - carr_err) * p.pll_c2;
+  float pe = sqrtf(i_e * i_e + q_e * q_e);
+  float pl = sqrtf(i_l * i_l + q_l * q_l);
+  float el_sum = pe + pl;
+  float dll = el_sum > 0.0f ? (pe - pl) / fmaxf(el_sum, (float)1e-12)
+                            : 0.0f;
+  float code_nco = dll * p.dll_c1 + (dll - code_err) * p.dll_c2;
+
+  const bool act = active > 0.5f;
+  const bool upd = act && locked;
+  float new_cf = upd ? carr_freq + carr_nco : carr_freq;
+  float new_ce = upd ? pll : carr_err;
+  float new_cr = upd ? code_rate + code_nco : code_rate;
+  float new_de = upd ? dll : code_err;
+  float new_lost = act ? (locked ? 0.0f : lost + 1.0f) : lost;
+  bool died = new_lost >= p.max_lost_f;
+  float new_active = died ? 0.0f : active;
+  float ncp = fmaf(q.step, q.n_t, carr_phase);
+  float new_cp = ncp - floorf(ncp);
+  float new_chip = fmaf(q.dc, q.n_t, chip_res) - p.code_len;
+  float new_drift = (drift + q.n_t) - (float)p.n0;
+
   if (tid == 0) {
-    float corr[6];
-    for (int k = 0; k < 6; ++k) {
-      float v = 0.0f;
-      for (int w = 0; w < kWarps; ++w) v += s.red[k * kWarps + w];
-      corr[k] = v;
-    }
-    float* st = s.st;
-    const float i_e = corr[0], q_e = corr[1], i_p = corr[2];
-    const float q_p = corr[3], i_l = corr[4], q_l = corr[5];
-    const float carr_freq = st[0], carr_phase = st[1], carr_err = st[2];
-    const float code_rate = st[3], chip_res = st[4], code_err = st[5];
-    const float lost = st[6], active = st[7], drift = st[8];
-    const float lock_ema = st[11];
-
-    const float power = i_p * i_p + q_p * q_p;
-    float new_le;
-    bool locked;
-    if (p.costas) {
-      const float alpha = (float)0.1;
-      float metric = (i_p * i_p - q_p * q_p) / fmaxf(power, (float)1e-12);
-      new_le = active > 0.5f ? (1.0f - alpha) * lock_ema + alpha * metric
-                             : lock_ema;
-      locked = new_le > p.costas_thr;
-    } else {
-      new_le = lock_ema;
-      locked = power > p.lock_threshold;
-    }
-    float safe_ip = fabsf(i_p) < (float)1e-12 ? (float)1e-12 : i_p;
-    float pll = atan_poly(q_p / safe_ip) * kInvTwoPi;
-    float carr_nco = pll * p.pll_c1 + (pll - carr_err) * p.pll_c2;
-    float pe = sqrtf(i_e * i_e + q_e * q_e);
-    float pl = sqrtf(i_l * i_l + q_l * q_l);
-    float el_sum = pe + pl;
-    float dll = el_sum > 0.0f ? (pe - pl) / fmaxf(el_sum, (float)1e-12)
-                              : 0.0f;
-    float code_nco = dll * p.dll_c1 + (dll - code_err) * p.dll_c2;
-
-    const bool act = active > 0.5f;
-    const bool upd = act && locked;
-    float new_cf = upd ? carr_freq + carr_nco : carr_freq;
-    float new_ce = upd ? pll : carr_err;
-    float new_cr = upd ? code_rate + code_nco : code_rate;
-    float new_de = upd ? dll : code_err;
-    float new_lost = act ? (locked ? 0.0f : lost + 1.0f) : lost;
-    bool died = new_lost >= p.max_lost_f;
-    float new_active = died ? 0.0f : active;
-    float ncp = fmaf(q.step, q.n_t, carr_phase);
-    float new_cp = ncp - floorf(ncp);
-    float new_chip = fmaf(q.dc, q.n_t, chip_res) - p.code_len;
-    float new_drift = (drift + q.n_t) - (float)p.n0;
-
     const float wr = act ? 1.0f : 0.0f;
     float* out = p.telem + ((long long)t * p.c_channels + c) * kTelem;
     out[0] = i_e * wr;  out[1] = q_e * wr;
@@ -372,16 +644,28 @@ __device__ inline void run_epoch(const Params& p, const Smem& s,
     out[14] = chip_res * wr;
     out[15] = (died && act) ? 1.0f : 0.0f;
     out[16] = wr;
-
-    if (act) {
-      st[0] = new_cf; st[1] = new_cp; st[2] = new_ce; st[3] = new_cr;
-      st[4] = new_chip; st[5] = new_de; st[6] = new_lost;
-      st[8] = new_drift;
-    }
-    st[7] = new_active;
-    st[11] = died ? 0.0f : new_le;  // 9 and 10 carry through
   }
-  __syncthreads();
+  if (act) {
+    st[0] = new_cf; st[1] = new_cp; st[2] = new_ce; st[3] = new_cr;
+    st[4] = new_chip; st[5] = new_de; st[6] = new_lost;
+    st[8] = new_drift;
+  }
+  st[7] = new_active;
+  st[11] = died ? 0.0f : new_le;  // 9 and 10 carry through
+}
+
+// the whole block of channel blockIdx.x, its feed bound to it
+template <class Feed>
+__device__ __forceinline__ void run_block(const Params& p, const Feed& f,
+                                          float* smem) {
+  const int c = blockIdx.x;
+  float st[12];
+  const Smem s = load_channel(p, smem, c, st);
+  if (threadIdx.x == kStager)
+    for (int t = 0; t < p.n_slots && t < p.t_epochs; ++t)
+      stage_window(p, s, f, t);
+  for (int t = 0; t < p.t_epochs; ++t) run_epoch(p, s, f, st, t, c);
+  store_channel(p, st, c);
 }
 
 }  // namespace epoch

@@ -8,17 +8,16 @@
 // contract (exact per-epoch NCOs, window frames, replica select and
 // rolls, state and telemetry columns).
 //
-// Design: one thread block per channel walks the channel's T epochs in
-// order (GPU blocks run in no order, so the TPU's sequential grid becomes
-// this loop); the channel's N_DRIFT f32 prompt rows (5 x 2560 x 4 B =
-// 51 KB) sit in shared memory for the whole block. Epoch e of superstep j
-// reads its window straight from the shared stream at the channel's
-// 128-aligned start + floor(jKn0/128)*128 + floor(en0/128)*128 (a
-// superstep's K = 10 windows, ~21k samples x 2 x 4 B, would not fit twice
-// in shared memory, and each sample is read once per epoch); the epoch
-// itself (trig factors, mix, six correlations, discriminators, loop
-// filters) is epoch::run_epoch, shared with the per-epoch layouts
-// (epoch_core.cuh).
+// Design: the direct feed of epoch::run_block (epoch_core.cuh), shared
+// with B4a, B4b and B6. One thread block per channel walks the channel's
+// T epochs in order (GPU blocks run in no order, so the TPU's sequential
+// grid becomes this loop); the channel's N_DRIFT f32 prompt rows (5 x
+// 2560 x 4 B = 51 KB) sit in shared memory for the whole block. Epoch e
+// of superstep j reads its window from the shared stream at the
+// channel's start + floor(jKn0/128)*128 + floor(en0/128)*128; the window
+// is staged into shared memory by TMA two epochs ahead (one at windows
+// of 11,648 lanes or more), as the TPU kernel's _direct_kernel issues
+// and drains its copies ahead.
 //
 // Bound on the H100: the 12 f32 mixing operations per in-mask lane
 // (~2046 lanes per channel-epoch) over the card's f32 rate, a few
@@ -31,36 +30,38 @@
 
 namespace {
 
+// epoch t = j*K + e's window of one channel
 struct DirectFeed {
-  const float* stream_re;  // [L] shared sample stream
-  const float* stream_im;
-  const int* starts;       // [C] 128-aligned window starts
-  int k_epochs;
+  const float* re;  // [L] shared sample stream
+  const float* im;
+  const int* starts;  // [C] window starts
+  long long start;    // this channel's
+  int k_epochs, n0;
+
+  __device__ __forceinline__ long long origin(int t) const {
+    const int j = t / k_epochs, e = t - j * k_epochs;
+    const long long kk = (long long)k_epochs * n0;
+    return start + ((long long)j * kk / 128) * 128 + (e * n0 / 128) * 128;
+  }
+  __device__ __forceinline__ int rem(int t) const {
+    const int j = t / k_epochs, e = t - j * k_epochs;
+    const long long jk = (long long)j * k_epochs * n0;
+    return (e * n0 - (e * n0 / 128) * 128) + (int)(jk - (jk / 128) * 128);
+  }
+  __device__ __forceinline__ float start_lane(const float* st, int t) const {
+    const int j = t / k_epochs, e = t - j * k_epochs;
+    const long long jk = (long long)j * k_epochs * n0;
+    const int rem_e = e * n0 - (e * n0 / 128) * 128;
+    const int rem_j = (int)(jk - (jk / 128) * 128);
+    return ((st[9] + st[8]) + (float)rem_e) + (float)rem_j;
+  }
 };
 
-__global__ void __launch_bounds__(epoch::kThreads)
+__global__ void __launch_bounds__(epoch::kThreads, 1)
     track_block_direct_kernel(epoch::Params p, DirectFeed f) {
-  extern __shared__ __align__(16) float smem[];
-  const int c = blockIdx.x;
-  const epoch::Smem s = epoch::load_channel(p, smem, c);
-  const long long start = f.starts[c];
-  const int K = f.k_epochs;
-  const long long kk = (long long)K * p.n0;
-  const int n_super = p.t_epochs / K;
-  for (int j = 0; j < n_super; ++j) {
-    const long long off = ((long long)j * kk / 128) * 128;
-    const int rem_j = (int)((long long)j * kk - off);
-    for (int e = 0; e < K; ++e) {
-      const int a_e = (e * p.n0 / 128) * 128;
-      const int rem_e = e * p.n0 - a_e;
-      const float start_lane =
-          ((s.st[9] + s.st[8]) + (float)rem_e) + (float)rem_j;
-      const long long base = start + off + a_e;
-      epoch::run_epoch(p, s, f.stream_re + base, f.stream_im + base,
-                       start_lane, rem_e + rem_j, j * K + e, c);
-    }
-  }
-  epoch::store_channel(p, s, c);
+  extern __shared__ __align__(128) float smem[];
+  f.start = f.starts[blockIdx.x];
+  epoch::run_block(p, f, smem);
 }
 
 }  // namespace
@@ -83,9 +84,11 @@ extern "C" int track_block_direct_launch(
       interp);
   if (err) return err;
   DirectFeed f;
-  f.stream_re = static_cast<const float*>(stream_re);
-  f.stream_im = static_cast<const float*>(stream_im);
+  f.re = static_cast<const float*>(stream_re);
+  f.im = static_cast<const float*>(stream_im);
   f.starts = static_cast<const int*>(starts);
+  f.start = 0;
   f.k_epochs = k_epochs;
+  f.n0 = n0;
   return epoch::launch(track_block_direct_kernel, p, f, stream);
 }

@@ -17,19 +17,21 @@
 // The plain PyTorch versions, and the contract, are in
 // gnss_sdr_tpu_torch/ops/cuda/track_block_epoch.py.
 //
-// Design: B3's (track_block_direct.cu). One thread block per channel walks
-// its T epochs in order; the channel's f32 prompt rows sit in shared
-// memory (5 x 4352 x 4 B = 87 KB at the resident layout's widest window,
-// hence the dynamic shared-memory ceiling); each epoch is
-// epoch::run_epoch (epoch_core.cuh), fed by the window this kernel points
-// it at.
+// Design: epoch::run_block (epoch_core.cuh), shared with B3. One thread
+// block per channel walks its T epochs in order; each epoch's window is
+// staged into shared memory by TMA two epochs ahead (one at windows of
+// 11,648 lanes or more; the TPU kernel's BlockSpec double-buffers B4a's
+// windows the same way), and the epoch
+// mixes it there with the prompt row it built once, over the lanes in
+// its mask only; two block barriers per epoch.
 //
-// Bound on the H100: the bytes. An epoch of a channel reads its ~2046
-// in-mask lanes of the window once and does 24 f32 operations on each;
-// per 32-channel block the windows feed moves 279 MB (500 ms blocks), the
-// seg feed 66 MB (125 ms blocks), the resident feed one 8 MB stream
-// (whose bound is then the operations). With C of the 132 SMs busy and a
-// serial chain per channel, the kernel sits far above it.
+// Bound on the H100: the bytes. An epoch of a channel needs its ~2046
+// in-mask lanes of the window once (8 bytes each) and does 24 f32
+// operations on each; per block at 24 tracking channels the windows feed
+// needs ~196 MB (500 ms blocks), the seg feed ~49 MB (125 ms blocks), the
+// resident feed one 8 MB stream (whose bound is then the operations). With C of the 132 SMs busy and
+// a serial chain per channel, the kernel sits far above it: the chain's
+// latency (trig, mix, reduction, loop filters) bounds it.
 
 #include "epoch_core.cuh"
 
@@ -37,39 +39,63 @@ namespace {
 
 enum : int { kWindows = 0, kSeg = 1, kResident = 2 };
 
-struct Feed {
+// epoch t's window of one channel, per feed
+template <int F>
+struct ChannelFeed {
   const float* re;  // windows [T, C, wp], seg [C, Lseg] or stream [L]
   const float* im;
   long long row;    // seg: Lseg
-  int k_chunk;      // resident: epochs per chunk
+  int c, c_channels, wp, n0, k_chunk;
   float el_pad;     // windows: el_shift + (n_drift - 1) / 2
+
+  // the window's lane 0 in re / im, and its 128-aligned lane's residue
+  __device__ __forceinline__ long long origin(int t) const {
+    if constexpr (F == kWindows) {
+      return ((long long)t * c_channels + c) * wp;
+    } else {
+      const int tl = F == kSeg ? t : t % k_chunk;
+      const long long a = ((long long)tl * n0 / 128) * 128;
+      return F == kSeg ? (long long)c * row + a
+                       : (long long)(t / k_chunk) * k_chunk * n0 + a;
+    }
+  }
+  __device__ __forceinline__ int rem(int t) const {
+    if constexpr (F == kWindows) {
+      return 0;
+    } else {
+      const long long raw = (long long)(F == kSeg ? t : t % k_chunk) * n0;
+      return (int)(raw - (raw / 128) * 128);
+    }
+  }
+  __device__ __forceinline__ float start_lane(const float* st, int t) const {
+    if constexpr (F == kWindows) return st[8] + el_pad;
+    else return (st[9] + st[8]) + (float)rem(t);
+  }
 };
 
 template <int F>
-__global__ void __launch_bounds__(epoch::kThreads)
-    track_block_epoch_kernel(epoch::Params p, Feed f) {
-  extern __shared__ __align__(16) float smem[];
-  const int c = blockIdx.x;
-  const epoch::Smem s = epoch::load_channel(p, smem, c);
-  for (int t = 0; t < p.t_epochs; ++t) {
-    long long off;
-    int rem = 0;
-    float start_lane;
-    if constexpr (F == kWindows) {
-      off = ((long long)t * p.c_channels + c) * p.wp;
-      start_lane = s.st[8] + f.el_pad;
-    } else {
-      const int tl = F == kSeg ? t : t % f.k_chunk;
-      const long long raw = (long long)tl * p.n0;
-      const long long a = (raw / 128) * 128;
-      rem = (int)(raw - a);
-      off = F == kSeg ? (long long)c * f.row + a
-                      : (long long)(t / f.k_chunk) * f.k_chunk * p.n0 + a;
-      start_lane = (s.st[9] + s.st[8]) + (float)rem;
-    }
-    epoch::run_epoch(p, s, f.re + off, f.im + off, start_lane, rem, t, c);
-  }
-  epoch::store_channel(p, s, c);
+__global__ void __launch_bounds__(epoch::kThreads, 1)
+    track_block_epoch_kernel(epoch::Params p, ChannelFeed<F> f) {
+  extern __shared__ __align__(128) float smem[];
+  f.c = blockIdx.x;
+  epoch::run_block(p, f, smem);
+}
+
+template <int F>
+int launch_feed(const epoch::Params& p, const void* win_re,
+                const void* win_im, long long row, int k_chunk,
+                int el_pad, void* stream) {
+  ChannelFeed<F> f;
+  f.re = static_cast<const float*>(win_re);
+  f.im = static_cast<const float*>(win_im);
+  f.row = row;
+  f.c = 0;
+  f.c_channels = p.c_channels;
+  f.wp = p.wp;
+  f.n0 = p.n0;
+  f.k_chunk = k_chunk;
+  f.el_pad = (float)el_pad;
+  return epoch::launch(track_block_epoch_kernel<F>, p, f, stream);
 }
 
 }  // namespace
@@ -82,7 +108,7 @@ extern "C" int track_block_epoch_launch(
     int max_lost, float pll_c1, float pll_c2, float dll_c1, float dll_c2,
     int el_shift, float aiding_scale, float if_freq, int costas,
     float costas_thr, int interp, void* stream) {
-  // the wrapper checks shapes and the read bound before launch
+  // the wrapper checks shapes, alignment and the read bound before launch
   epoch::Params p;
   int err = epoch::make_params(
       p, replicas, state_in, telem, state_out, c_channels, t_epochs, n0, wp,
@@ -90,21 +116,18 @@ extern "C" int track_block_epoch_launch(
       dll_c1, dll_c2, el_shift, aiding_scale, if_freq, costas, costas_thr,
       interp);
   if (err) return err;
-  Feed f;
-  f.re = static_cast<const float*>(win_re);
-  f.im = static_cast<const float*>(win_im);
-  f.row = row;
-  f.k_chunk = k_chunk;
-  f.el_pad = (float)(el_shift + (n_drift - 1) / 2);
+  const int el_pad = el_shift + (n_drift - 1) / 2;
   switch (feed) {
     case kWindows:
-      return epoch::launch(track_block_epoch_kernel<kWindows>, p, f, stream);
+      return launch_feed<kWindows>(p, win_re, win_im, row, 1, el_pad,
+                                   stream);
     case kSeg:
       if (row < wp) return (int)cudaErrorInvalidValue;
-      return epoch::launch(track_block_epoch_kernel<kSeg>, p, f, stream);
+      return launch_feed<kSeg>(p, win_re, win_im, row, 1, el_pad, stream);
     case kResident:
       if (k_chunk < 1 || t_epochs % k_chunk) return (int)cudaErrorInvalidValue;
-      return epoch::launch(track_block_epoch_kernel<kResident>, p, f, stream);
+      return launch_feed<kResident>(p, win_re, win_im, row, k_chunk, el_pad,
+                                    stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -52,22 +52,29 @@ Contract kept from the TPU kernel, per epoch t (all feeds):
 What bounds it on the H100, and the design. At the seg layout's main
 shapes (32 channels, 125 ms blocks at 2.046 MHz, wp = 2432) an epoch of
 a channel mixes and correlates ~2046 in-mask lanes at 24 f32 operations
-each, and reads those lanes of its window once: per block ~0.1 GFLOP
-against ~66 MB of segments, so the bytes bound it (~0.02 ms). The
-windows layout moves its [T, C, wp] windows (279 MB per 500 ms block:
-bytes again); the resident layout reads one stream for all channels.
-The kernel is B3's design: one thread block per channel walks its T
-epochs in order (the TPU's sequential grid becomes this loop), the
-channel's 5 f32 prompt rows sit in shared memory, the 128 + w128 carrier
-trig factors are rebuilt per epoch, the in-mask lanes are mixed straight
-from global memory, the prompt roll and the E/L rolls are indexed reads
-with the wrap, a block reduction forms the six sums and thread 0 runs
-the discriminators and loop filters. It uses C of the 132 SMs and a
-serial chain per channel, so it sits far above its bound; the resident
-feed's shared window in shared memory or TMA, and more channels per SM,
-are later work. B4c copies with 16-byte loads (the starts are 128
-samples, 512 bytes, aligned), one thread block per chunk of a channel's
-segment, and is bound by its bytes.
+each, and needs those lanes of its window once (8 bytes each; an idle
+channel's window and the lanes outside the mask reach no output): per
+block, at 24 tracking channels, ~0.15 GFLOP against ~49 MB, so the
+bytes bound it (~0.015 ms). The windows layout needs ~196 MB of its
+[T, C, wp] windows per 500 ms block (bytes again, ~0.06 ms); the
+resident layout reads one stream for all channels.
+The kernel shares B3's core (``csrc/epoch_core.cuh``): one thread block
+per channel walks its T epochs in order (the TPU's sequential grid
+becomes this loop); each epoch's window is staged into shared memory by
+TMA two epochs ahead, one at the widest windows (a window's address
+depends on t alone, never on the state), the channel's 5 f32 prompt
+rows sit in shared memory (in global memory from wp 5,888) and
+each epoch blends its prompt row once, the 128 + w128 carrier trig
+factors are rebuilt per epoch, only the lanes in the epoch's mask are
+mixed, the prompt roll and the E/L rolls are indexed reads wrapped
+without a modulo, and every warp adds the warp sums and runs the
+discriminators and loop filters itself, so an epoch has two block
+barriers. The bulk copy needs 16-byte-aligned base pointers (checked;
+a fresh tensor is). It uses C of the 132 SMs and a serial chain per
+channel, so it sits far above its bound (PERF.md section 6). B4c copies
+with 16-byte loads (the starts are 128 samples, 512 bytes, aligned), one
+thread block per chunk of a channel's segment, and is bound by its
+bytes.
 
 The port rejects wp > 16384 (ROADMAP C6): the JAX ``_epoch_core`` builds
 its carrier A factors from a fixed 128-wide iota, so a wider window
@@ -602,13 +609,15 @@ _F = ctypes.c_float
 FEEDS = {"windows": 0, "seg": 1, "resident": 2}
 
 
+EPOCH_ARGTYPES = [_I, _VP, _VP, ctypes.c_longlong, _I, _VP, _VP, _VP, _VP,
+                  _I, _I, _I, _I, _I,
+                  _F, _F, _F, _I, _F, _F, _F, _F, _I,
+                  _F, _F, _I, _F, _I, _VP]
+
+
 def _epoch_lib():
     fn = _build.load_library("track_block_epoch").track_block_epoch_launch
-    fn.argtypes = [_I, _VP, _VP, ctypes.c_longlong, _I, _VP, _VP, _VP, _VP,
-                   _I, _I, _I, _I, _I,
-                   _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                   _F, _F, _I, _F, _I, _VP]
-    fn.restype = _I
+    fn.argtypes, fn.restype = EPOCH_ARGTYPES, _I
     return fn
 
 
@@ -617,6 +626,18 @@ def _gather_lib():
     fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP]
     fn.restype = _I
     return fn
+
+
+def _check_aligned(*named):
+    """Each (name, tensor) starts 16-byte aligned, as the CUDA tracking
+    kernels need: they read the replica rows in 16-byte pieces and copy
+    every window by a bulk copy (TMA) from its 4-sample floor, which takes
+    16-byte-aligned addresses (a fresh tensor is; a view at an offset
+    that is not a multiple of 4 samples is not)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the "
+                             "kernel reads it in 16-byte pieces)")
 
 
 def _launch_epoch(feed, win_re, win_im, row, k_chunk, replicas, state_in, *,
@@ -629,9 +650,8 @@ def _launch_epoch(feed, win_re, win_im, row, k_chunk, replicas, state_in, *,
     if n_drift > 8:
         raise ValueError(f"the CUDA kernel takes <= 8 replica rows, got "
                          f"{n_drift}")
-    if replicas.data_ptr() % 16:
-        raise ValueError("replicas must start 16-byte aligned (the kernel "
-                         "copies them in 16-byte pieces)")
+    _check_aligned(("window re", win_re), ("window im", win_im),
+                   ("replicas", replicas))
     telem = torch.empty((t_epochs, c, N_TELEM), dtype=torch.float32,
                         device=state_in.device)
     state_out = torch.empty_like(state_in)
@@ -684,7 +704,8 @@ def track_block_fused(
     """B4a, windows fused tracking: T epochs, ONE kernel launch. Returns
     (telemetry [T, C, 17] f32, state [C, 128] f32). CPU tensors run the
     plain version; CUDA tensors launch the CUDA kernel or raise (failed
-    build, refused launch, bad argument), with no fallback."""
+    build, refused launch, bad argument: a window tensor that does not
+    start 16-byte aligned among them), with no fallback."""
     kw = dict(n0=n0, fs=fs, code_len=code_len, lock_threshold=lock_threshold,
               max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2, dll_c1=dll_c1,
               dll_c2=dll_c2, el_shift=el_shift, aiding_scale=aiding_scale,

@@ -100,9 +100,9 @@ import torch
 from ..correlator import fma as _fma  # noqa: F401  (fused_runner's scan)
 from . import _build, launches
 from .track_block_epoch import (  # noqa: F401  (the JAX module's names)
-    MAX_WP, _atan_poly, _epoch_core_reference, build_replicas_shared,
-    gather_segments, gather_segments_reference, resident_chunk,
-    seg_length, slice_windows, track_block_fused,
+    MAX_WP, _atan_poly, _check_aligned, _epoch_core_reference,
+    build_replicas_shared, gather_segments, gather_segments_reference,
+    resident_chunk, seg_length, slice_windows, track_block_fused,
     track_block_fused_reference, track_block_fused_resident,
     track_block_fused_resident_reference, track_block_fused_seg,
     track_block_fused_seg_reference)
@@ -780,14 +780,16 @@ def shared_cluster_sizes(c_channels: int) -> tuple[int, ...]:
     return tuple(d for d in range(2, 9) if c_channels % d == 0) or (1,)
 
 
-def _direct_lib():
-    lib = _build.load_library("track_block_direct")
-    fn = lib.track_block_direct_launch
-    fn.argtypes = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
+DIRECT_ARGTYPES = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                    _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _I, _F, _F, _F, _F, _I,
                    _F, _F, _I, _F, _I, _VP]
-    fn.restype = _I
+
+
+def _direct_lib():
+    lib = _build.load_library("track_block_direct")
+    fn = lib.track_block_direct_launch
+    fn.argtypes, fn.restype = DIRECT_ARGTYPES, _I
     return fn
 
 
@@ -865,11 +867,8 @@ def track_block_fused_mxu(
     if k_epochs > 8 or r_rows > 16:
         raise ValueError(f"the CUDA kernel takes K <= 8 and R <= 16, got "
                          f"K={k_epochs}, R={r_rows}")
-    for name, t in (("stream_re", stream_re), ("stream_im", stream_im),
-                    ("replicas", replicas)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned (the kernel "
-                             "copies it in 16-byte pieces)")
+    _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
+                   ("replicas", replicas))
     fn = _lib()
     lean = telem_mode == "lean"
     # the lean mode stores a few columns: the rest must read zero
@@ -1019,8 +1018,9 @@ def track_block_fused_direct(
     starts_bound=None,         # or: int, 0 <= every start <= it
 ):
     """direct fused tracking: T epochs, ONE kernel launch. Returns
-    (telemetry [T, C, 17] f32, state [C, 128] f32). Devices, checks and
-    the read bound as track_block_fused_mxu."""
+    (telemetry [T, C, 17] f32, state [C, 128] f32). Devices, checks
+    (the stream 16-byte aligned among them) and the read bound as
+    track_block_fused_mxu."""
     kw = dict(t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp, fs=fs,
               code_len=code_len, lock_threshold=lock_threshold,
               max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
@@ -1042,9 +1042,8 @@ def track_block_fused_direct(
         raise ValueError(f"the CUDA kernel takes <= 8 replica rows and "
                          f"wp <= {MAX_WP} (ROADMAP C6), got {n_drift} and "
                          f"{wp}")
-    if replicas.data_ptr() % 16:
-        raise ValueError("replicas must start 16-byte aligned (the kernel "
-                         "copies them in 16-byte pieces)")
+    _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
+                   ("replicas", replicas))
     fn = _direct_lib()
     telem = torch.empty((t_epochs, c, N_TELEM_DIRECT), dtype=torch.float32,
                         device=state_in.device)

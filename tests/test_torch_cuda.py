@@ -357,6 +357,54 @@ def test_epoch_kernel_widest_window_on_card(card):
             **dict(kw, wp=wp + 128))
 
 
+@pytest.mark.cuda
+def test_epoch_kernels_at_alignment_edges_on_card(card):
+    """The window copy of the per-epoch kernels at its alignment edges
+    (chip_smoke.epoch_edge_check), 32 channels, 20 ms blocks (B4b 15):
+    B3 with every start at each residue mod 4 and the stream cut where
+    the last window ends; B4b on segments cut at the last window and
+    widened so their rows start at every residue; B6 on the stream cut at
+    its read bound (chunks at residues 0 and 2, their last samples by
+    cp.async): each against its plain version open loop and equal bit for
+    bit to the unmoved run. B4a's rows are whole windows (residue 0,
+    test_epoch_kernel_matches_plain_on_card). A base pointer off 16 bytes
+    raises on all four, launching nothing."""
+    worst = chip_smoke.epoch_edge_check(torch, device=card, seg_ms=15,
+                                        long_ms=20, piece=10)
+    torch.cuda.synchronize()
+    assert set(worst) == {"direct", "seg", "resident"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wp", [6144, 12288])
+def test_epoch_kernel_wide_window_layouts_on_card(card, wp):
+    """B4b and B3 at the launcher's wider shared-memory layouts, where the
+    replica rows no longer fit beside a ring of two window slots (wp 6144
+    at 5 rows: the rows read from global memory, two slots) and where two
+    slots no longer fit either (wp 12288: one slot, each window staged
+    one epoch ahead), against their plain versions epoch by epoch on
+    random inputs, at start residues 0-3."""
+    n0, t_epochs, c = 3069, 6, 4
+    gen = torch.Generator(device=card).manual_seed(7)
+    l_seg = fused.seg_length(t_epochs, n0, wp) + 3
+    seg = [torch.randn((c, l_seg), generator=gen, device=card)
+           for _ in range(2)]
+    reps = torch.sign(torch.randn((c, 5, wp), generator=gen, device=card))
+    st = torch.zeros((c, fused.N_FIELDS), device=card)
+    st[:, 0], st[:, 3], st[:, 7], st[:, 11] = 600.0, 1.023e6, 1.0, 1.0
+    st[:, 9] = torch.tensor([3.0, 40.0, 100.0, 7.0], device=card)
+    kw = dict(t_epochs=t_epochs, n0=n0, wp=wp, fs=3_069_000.0)
+    chip_smoke.epoch_open_loop(torch, "seg", (*seg, reps, st), kw, piece=1)
+    stream = [torch.randn(20 * wp, generator=gen, device=card)
+              for _ in range(2)]
+    starts_host = np.array([0, 129, 258, 387], dtype=np.int32)
+    args = (*stream, torch.from_numpy(starts_host).to(card), reps, st)
+    kw = dict(t_epochs=2, k_epochs=1, n0=n0, wp=wp, fs=3_069_000.0,
+              starts_host=starts_host)
+    chip_smoke.open_loop_compare(torch, args, kw, layout="direct")
+    torch.cuda.synchronize()
+
+
 # the shared fetch: B2 (FusedTracker(shared_fetch=True))
 
 @pytest.mark.cuda
