@@ -104,7 +104,23 @@ GPU:
      with shared_fetch=False, B2 launched once per block and B1 never;
  20. B2's time per block beside B1's in turns, its plain version's and
      its bound, the registers and stack of B1's and B2's instantiations;
- 21. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 21. the CLI journey: native/ingest.cpp built, a 26 s int8 I/Q capture
+     of 8 satellites broadcasting LNAV (circular-orbit ephemerides above a
+     truth position, ranges on the SV-clock timeline), cli.main with
+     --pvt --ekf --rinex-obs on the file driver (NativeFileSource), the
+     fused tracker (B1) at 32 channels, 508 ms blocks: every PRN tracked
+     and its ephemeris decoded, the fix and the EKF within 100 m of the
+     truth, OBS epochs that parse back, B1 launched once per full block;
+     then
+     ``python -m gnss_sdr_tpu_torch --blocks 10`` in a subprocess;
+ 22. phase 9 (b)'s steady receiver behind ArraySource, DeviceArraySource
+     (f32 and int8) and StreamingDeviceSource (int8): the f32 device
+     source's telemetry and summary equal ArraySource's bit for bit, the
+     int8 ones within 40 Hz, ingest per block and the feeder's counters,
+     no device-to-host copy in one profiled _pull_block;
+ 23. ladder 2's pad-FFT acquisition on the card: detections equal the
+     CPU run's; one search's time beside the circular engine's;
+ 24. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -1192,7 +1208,7 @@ def phase_b5_timing(torch):
 _RUN_ONLY = ("stage_timing", "track_realtime_factor", "wall_s")
 
 
-def _same_run(label, a, b):
+def _same_run(label, a, b, what="graph and eager runs"):
     """Two receiver runs ``a``, ``b`` = (receiver, summary) gave the same
     telemetry, bit for bit, and the same summary (but for its timing)."""
     from gnss_sdr_tpu_torch.utils.telemetry import _FIELDS
@@ -1208,8 +1224,8 @@ def _same_run(label, a, b):
         return json.dumps({k: v for k, v in summary.items()
                            if k not in _RUN_ONLY}, sort_keys=True, default=str)
     assert plain(a[1]) == plain(b[1]), label
-    print(f"{label}: graph and eager runs equal: {len(ta)} traces bit for "
-          "bit, summaries equal")
+    print(f"{label}: {what} equal: {len(ta)} traces bit for bit, "
+          "summaries equal")
 
 
 def _profile(torch, fn):
@@ -2295,6 +2311,561 @@ def phase_shared_timing(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the receiver as users launch it: the CLI on a nav-broadcasting capture
+# (21), the device-resident sources (22) and the pad-FFT search (23)
+# ---------------------------------------------------------------------------
+
+NAV_FS = 2_046_000.0
+NAV_S = 26.0                        # the capture: 52 blocks of 500 ms
+NAV_CHUNK_S = 0.5                   # the range is linear within a chunk
+NAV_WEEK = 2290
+NAV_T_OE = 345_600.0                # seconds of week (a multiple of 16)
+# GPS time of the capture's first sample: every first transmit time lies
+# in the SV second before a subframe boundary, about 0.45 s on
+NAV_T_RX0 = NAV_T_OE + 119.6
+NAV_RX_TRUE = np.array([4_027_894.0, 307_045.7, 4_919_474.9])
+NAV_RADIUS_M = 26_560_000.0
+# (PRN, azimuth deg, elevation deg, SV clock offset a_f0 s)
+NAV_SATS = ((2, 30.0, 75.0, 2.1e-5), (5, 110.0, 40.0, -1.3e-5),
+            (10, 200.0, 55.0, 4.0e-6), (13, 290.0, 30.0, -7.5e-6),
+            (18, 60.0, 25.0, 1.6e-5), (23, 160.0, 20.0, -2.2e-5),
+            (27, 240.0, 65.0, 9.0e-6), (31, 330.0, 45.0, -3.0e-6))
+NAV_AMPLITUDE = 0.3
+NAV_INT8_SCALE = 16.0               # noise sigma per rail ~11 counts
+# the journey's blocks: 508 epochs pair supersteps only at K = 2, so B1's
+# held rate is 2 ms; at 500 ms (K = 5) three of the eight channels
+# false-lock 60-75 Hz off, from the 50-65 Hz fine-Doppler errors that a
+# bit edge inside the acquisition's 10 ms leaves (ROADMAP C11)
+NAV_BLOCK_MS = 508
+# the fix and the EKF against the truth: tests/test_full_chain_live.py's
+# bound for a live fix. At 2 samples per chip the code phase wanders by
+# tens of metres on this scene, in the JAX package too (ROADMAP C12)
+NAV_FIX_M = 100.0
+# phase 22: the steady receiver of phase 9 (b) behind four sources
+INGEST_SOURCES = ("array", "device_f32", "device_int8", "streaming_int8")
+# phase 23: ladder 2's search, repeated for its time
+ACQ_PASSES = 10
+
+
+def _wrap_pi(x):
+    return float(np.angle(np.exp(1j * x)))
+
+
+def _sat_pos_at(az_deg, el_deg):
+    """ECEF point on the az/el ray from the truth at |pos| =
+    NAV_RADIUS_M."""
+    rx = NAV_RX_TRUE
+    up = rx / np.linalg.norm(rx)
+    east = np.cross([0.0, 0.0, 1.0], up)
+    east /= np.linalg.norm(east)
+    north = np.cross(up, east)
+    az, el = np.radians(az_deg), np.radians(el_deg)
+    d = (np.cos(el) * np.sin(az) * east + np.cos(el) * np.cos(az) * north
+         + np.sin(el) * up)
+    b = 2.0 * np.dot(rx, d)
+    c0 = np.dot(rx, rx) - NAV_RADIUS_M ** 2
+    return rx + (-b + np.sqrt(b * b - 4 * c0)) / 2.0 * d
+
+
+def kepler_ephemeris(prn, pos, a_f0):
+    """A circular-orbit GPS ephemeris whose position at NAV_T_OE is
+    ``pos`` (tests/test_pvt_multi_constellation.py's _kepler_ephemeris,
+    on the port's orbits), with its angles wrapped into the LNAV ranges
+    and every field rounded as LNAV broadcasts it (through the port's
+    encoder and subframe assembler): the ephemeris a receiver decodes."""
+    from gnss_sdr_tpu_torch import constants as C
+    from gnss_sdr_tpu_torch.nav import Subframe, encode_words
+    from gnss_sdr_tpu_torch.nav.ephemeris import Ephemeris, \
+        EphemerisAssembler
+    from gnss_sdr_tpu_torch.nav.orbits import satellite_position
+
+    radius_m, t_oe = NAV_RADIUS_M, NAV_T_OE
+    g = pos / radius_m
+    i0 = max(np.radians(55.0), np.arcsin(min(abs(g[2]), 1.0)) + 0.1)
+    su = np.clip(g[2] / np.sin(i0), -1.0, 1.0)
+    for u in (np.arcsin(su), np.pi - np.arcsin(su)):
+        a_, b_ = np.cos(u), np.sin(u) * np.cos(i0)
+        om = np.arctan2(g[1], g[0]) - np.arctan2(b_, a_)
+        eph = Ephemeris(
+            prn=prn, week=NAV_WEEK % 1024, sqrt_a=np.sqrt(radius_m), e=0.0,
+            m0=_wrap_pi(u), omega=0.0, i0=i0,
+            omega0=_wrap_pi(om + C.OMEGA_E_DOT_RAD_S * t_oe),
+            t_oe=t_oe, t_oc=t_oe, a_f0=a_f0)
+        asm = EphemerisAssembler()
+        for k in (1, 2, 3):
+            data = np.zeros((10, 24), np.uint8)
+            data[2:] = encode_words(eph, k)
+            out = asm.feed(prn, Subframe(subframe_id=k, tow_counts=0,
+                                         data=data, first_bit_index=0))
+        p, _, _ = satellite_position(out, t_oe)
+        if np.linalg.norm(p - pos) < 1.0:
+            return out
+    raise AssertionError(f"PRN {prn}: placement failed")
+
+
+def nav_ephemerides():
+    """{PRN: the broadcast ephemeris} of the nav scene."""
+    return {prn: kepler_ephemeris(prn, _sat_pos_at(az, el), af0)
+            for prn, az, el, af0 in NAV_SATS}
+
+
+def nav_delay(eph, t_rx):
+    """The SV-clock transmit time of the signal received at GPS time
+    ``t_rx``, less ``t_rx``: -(light time) + the SV clock offset, the
+    light time iterated with the Earth's rotation during flight, as the
+    PVT solver models it (tests/test_pvt_end_to_end.py)."""
+    from gnss_sdr_tpu_torch import constants as C
+    from gnss_sdr_tpu_torch.nav.orbits import satellite_position
+
+    tau = 0.075
+    for _ in range(5):
+        pos, _, clk = satellite_position(eph, t_rx - tau)
+        th = C.OMEGA_E_DOT_RAD_S * tau
+        rot = np.array([[np.cos(th), np.sin(th), 0.0],
+                        [-np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]])
+        tau = np.linalg.norm(rot @ pos - NAV_RX_TRUE) / C.SPEED_OF_LIGHT_M_S
+    return -tau + clk
+
+
+def nav_bits(ephs, s0, seconds, seed=17):
+    """+-1 LNAV bits per PRN from SV second ``s0``: random fill to the
+    next subframe boundary, then subframes 4 (filler), 1, 2, 3 and 4
+    (tests/test_full_chain_live.py's layout), long enough for
+    ``seconds``."""
+    from gnss_sdr_tpu_torch.nav import encode_frames, encode_words
+
+    boundary = 6 * (s0 // 6 + 1)
+    m = boundary // 6
+    rng = np.random.default_rng(seed)
+    out = {}
+    for prn, eph in ephs.items():
+        frames = [(4, m + 1, rng.integers(0, 2, (8, 24)).astype(np.uint8))]
+        frames += [(k, m + 1 + k, encode_words(eph, k)) for k in (1, 2, 3)]
+        frames.append((4, m + 5, rng.integers(0, 2, (8, 24)).astype(np.uint8)))
+        bits = np.concatenate([
+            rng.choice([-1, 1], (boundary - s0) * 50).astype(np.int8),
+            encode_frames(frames)])
+        assert bits.size >= (seconds + 2) * 50
+        out[prn] = bits
+    return out
+
+
+def nav_render(sats, n, fs, seed):
+    """``n`` complex64 samples of ``sats`` (SatelliteScenario, GPS L1 C/A,
+    nav bits from their first code period) plus unit complex noise, each
+    sample the mean of the signal over its own interval (the front end's
+    integrate-and-dump): a sample that straddles a chip edge mixes the
+    two chips by their shares of it. models.signal.synthesize samples
+    each chip at the sample's start instead, which at a whole number of
+    samples per chip makes the DLL's correlation flat across a quarter
+    chip, and the code phase wander there by up to +-73 m at 2.046 MHz."""
+    from gnss_sdr_tpu_torch.models.signal import _unit_carrier
+
+    out = np.zeros(n, np.complex64)
+    i = np.arange(n, dtype=np.float64)
+    for sat in sats:
+        spec = sat.signal
+        step = (spec.code_rate_hz + sat.code_rate_offset_hz) / fs
+        phi = sat.code_phase_chips + step * i       # chips at each start
+        k = np.floor(phi).astype(np.int64)
+        code = spec.code_table()[sat.prn - 1].astype(np.float32)
+        length = spec.code_length_chips
+
+        def signed(chip):
+            bit = sat.nav_bits[(chip // length // spec.symbols_per_bit)
+                               % sat.nav_bits.size]
+            return code[chip % length] * bit
+        w = np.clip((k + 1 - phi) / step, 0.0, 1.0).astype(np.float32)
+        chips = signed(k) * w + signed(k + 1) * (1.0 - w)
+        out += (sat.amplitude * chips) * _unit_carrier(
+            sat.carrier_phase_rad, 2.0 * np.pi * sat.doppler_hz / fs, 0, n)
+    rng = np.random.default_rng(seed)
+    out += ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            / np.sqrt(2.0)).astype(np.complex64)
+    return out
+
+
+def nav_capture(path):
+    """Write the nav scene as an int8_iq capture of NAV_S at NAV_FS
+    (rendered once: kept under ``path`` by its parameters). Within each
+    chunk of NAV_CHUNK_S every satellite's code and carrier follow its
+    transmit time linearly between the exact values at the chunk's ends
+    (phase continuous). Returns (path, {PRN: ephemeris})."""
+    import hashlib
+    import os
+
+    from gnss_sdr_tpu_torch import constants as C
+    from gnss_sdr_tpu_torch.models import SatelliteScenario
+
+    seconds, fs, seed = NAV_S, NAV_FS, 23
+    ephs = nav_ephemerides()
+    key = hashlib.sha256(repr((
+        "nav-capture-2", seconds, fs, seed, NAV_CHUNK_S, NAV_T_RX0, NAV_SATS,
+        NAV_AMPLITUDE, NAV_INT8_SCALE, NAV_RX_TRUE.tolist())).encode())
+    path = os.path.join(path, f"nav_{key.hexdigest()[:12]}.int8_iq")
+    if os.path.exists(path):
+        return path, ephs
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    n_total = int(round(seconds * fs))
+    n_chunk = int(round(NAV_CHUNK_S * fs))
+    n_chunks = -(-n_total // n_chunk)
+    # delays at the chunk ends, and the nav bits' origin: the SV second
+    # of the earliest first transmit time
+    d = {prn: np.array([nav_delay(e, NAV_T_RX0 + k * NAV_CHUNK_S)
+                        for k in range(n_chunks + 1)])
+         for prn, e in ephs.items()}
+    s0 = int(np.floor(NAV_T_RX0 + min(v[0] for v in d.values())))
+    bits = nav_bits(ephs, s0, seconds)
+    cr, fl1 = C.GPS_L1_CA_CODE_RATE_CHIPS_PER_S, C.GPS_L1_FREQ_HZ
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        for k in range(n_chunks):
+            n = min(n_chunk, n_total - k * n_chunk)
+            sats = []
+            for prn, dk in d.items():
+                rate = (dk[k + 1] - dk[k]) / NAV_CHUNK_S   # d(delay)/dt
+                cyc = fl1 * dk[k]
+                sats.append(SatelliteScenario(
+                    prn=prn, doppler_hz=fl1 * rate,
+                    code_phase_chips=(NAV_T_RX0 - s0 + k * NAV_CHUNK_S
+                                      + dk[k]) * cr,
+                    carrier_phase_rad=2.0 * np.pi * (cyc - np.floor(cyc)),
+                    amplitude=NAV_AMPLITUDE, nav_bits=bits[prn],
+                    code_rate_offset_hz=cr * rate))
+            x = nav_render(sats, n, fs, seed=seed + k)
+            iq = np.empty(2 * n, np.float32)
+            iq[0::2], iq[1::2] = x.real, x.imag
+            f.write(np.clip(np.round(iq * NAV_INT8_SCALE), -127, 127)
+                    .astype(np.int8).tobytes())
+    os.replace(tmp, path)
+    print(f"nav capture: {seconds:.1f} s of int8 I/Q at {fs:g} Hz, "
+          f"{len(ephs)} satellites broadcasting LNAV, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB, rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return path, ephs
+
+
+def nav_toml(path, capture, n_channels=N_CHANNELS, extra_track=""):
+    """The receiver config of the CLI journey: the capture through the
+    file driver, the fused tracker, NAV_BLOCK_MS blocks."""
+    block_ms, fs = NAV_BLOCK_MS, NAV_FS
+    with open(path, "w") as f:
+        f.write(f"""block_ms = {block_ms}
+
+[sdr]
+driver = "file"
+path = "{capture}"
+file_format = "int8_iq"
+sample_rate_hz = {fs!r}
+
+[rf]
+freq_if_hz = 0.0
+output_sample_rate_hz = {fs!r}
+
+[track]
+n_channels = {n_channels}
+correlator = "fused"
+carrier_aiding = true
+{extra_track}""")
+    return path
+
+
+def phase_cli(torch):
+    """The CLI journey on the card: ``cli.main`` in process on the nav
+    capture (native file ingest, B1, observables to RINEX, the EKF, the
+    fix), then ``python -m gnss_sdr_tpu_torch`` as a user runs it."""
+    import contextlib
+    import io
+    import os
+
+    from gnss_sdr_tpu_torch import cli
+    from gnss_sdr_tpu_torch.io import NativeFileSource, native_available
+    from gnss_sdr_tpu_torch.nav import parse_obs_file
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(root, ".chip_scratch")
+    t0 = time.perf_counter()
+    assert native_available(), "native/ingest.cpp did not build"
+    print(f"native ingest library built in {time.perf_counter() - t0:.2f} s")
+    capture, ephs = nav_capture(scratch)
+    toml = nav_toml(os.path.join(scratch, "nav_rx.toml"), capture)
+    obs = os.path.join(scratch, "nav_obs.rnx")
+    sources = []
+    build_source = cli.build_source
+
+    def recording_build_source(cfg):
+        sources.append(build_source(cfg))
+        return sources[-1]
+
+    cli.build_source = recording_build_source
+    out, err = io.StringIO(), io.StringIO()
+    _reset_launch_counts()                  # this path starts here
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["--config", toml, "--pvt", "--ekf", "--rinex-obs",
+                           obs, "--gps-week", str(NAV_WEEK), "--json"])
+    finally:
+        cli.build_source = build_source
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    print(err.getvalue().rstrip())
+    assert rc == 0, rc
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    timing = summary["stage_timing"]
+    total = sum(v["total_s"] for v in timing.values())
+    print(f"CLI journey: {summary['time_ms'] / 1000:.1f} s of signal in "
+          f"{wall:.3f} s wall (cli.main; the CLI's own wall_s "
+          f"{summary['wall_s']}), real-time factor "
+          f"{summary['realtime_factor']}x; launches {json.dumps(launches)}")
+    print("  stage totals (s): " + json.dumps(
+        {k: v["total_s"] for k, v in timing.items()}))
+    print("  stage shares: " + json.dumps(
+        {k: round(v["total_s"] / total, 4) for k, v in timing.items()}))
+    assert len(sources) == 1 and isinstance(sources[0], NativeFileSource), \
+        sources
+    broadcast = sorted(ephs)
+    assert summary["tracked_prns"] == broadcast, summary["tracked_prns"]
+    assert summary["ephemerides"] == broadcast, summary["ephemerides"]
+    fix = np.asarray(summary["pvt"]["ecef_m"])
+    fix_err = float(np.linalg.norm(fix - NAV_RX_TRUE))
+    header, epochs = parse_obs_file(obs)
+    assert header["obs_types"] == ["C1C", "D1C", "S1C"], header
+    assert len(epochs) > 0
+    assert all(sorted(ep["sats"]) == broadcast for ep in epochs), epochs
+    ekf_line = [ln for ln in err.getvalue().splitlines()
+                if ln.startswith("ekf position:")]
+    assert len(ekf_line) == 1, err.getvalue()
+    ekf = np.asarray(json.loads(ekf_line[0].split(":", 1)[1]))
+    ekf_err = float(np.linalg.norm(ekf - NAV_RX_TRUE))
+    block = NAV_BLOCK_MS * int(NAV_FS) // 1000
+    n_full = int(round(NAV_S * NAV_FS)) // block
+    _expect_launches(launches, track_block_fused_mxu=n_full)
+    print(f"  tracked and decoded {broadcast}; fix {fix_err:.2f} m from the "
+          f"truth (gdop {summary['pvt']['gdop']}), EKF {ekf_err:.2f} m "
+          f"(bound {NAV_FIX_M:g} m each); "
+          f"{len(epochs)} RINEX OBS epochs parsed back; B1 launches "
+          f"{launches['track_block_fused_mxu']} = tracking blocks")
+    assert fix_err < NAV_FIX_M, fix_err
+    assert ekf_err < NAV_FIX_M, ekf_err
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "gnss_sdr_tpu_torch", "--config", toml,
+         "--blocks", "10", "--json"], capture_output=True, text=True,
+        timeout=600, cwd=root)
+    print(f"python -m gnss_sdr_tpu_torch --config {os.path.basename(toml)} "
+          f"--blocks 10 --json: exit {sub.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert sub.returncode == 0, sub.stderr[-4000:]
+    sub_summary = json.loads(sub.stdout.strip().splitlines()[-1])
+    assert sub_summary["blocks"] == 10, sub_summary["blocks"]
+    return {"wall_s": wall, "fix_m": fix_err, "ekf_m": ekf_err,
+            "obs_epochs": len(epochs), "launches": launches}
+
+
+def _count_dtoh(prof):
+    """Device-to-host copies in a torch.profiler trace: the device's
+    "Memcpy DtoH (Device -> ...)" records, summed by key as phase 12's
+    profile is read."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("Memcpy DtoH"))
+
+
+def _dtoh_in_pull(torch, rx):
+    """Device-to-host copies made by one ``rx._pull_block()`` (its block
+    on the card), from a profiler session that also makes one ``.cpu()``
+    of its own (the control) and some kernels after it: a session whose
+    trace lost the control (the profiler's activity buffer can drop
+    records) is taken again, twice at most. Returns (copies, sessions)."""
+    from gnss_sdr_tpu_torch.utils.profiling import trace
+
+    probe = torch.ones(4, device="cuda")
+    filler = torch.ones(1 << 20, device="cuda")
+    for tries in range(1, 4):
+        torch.cuda.synchronize()
+        with trace(".chip_scratch/ingest_trace") as prof:
+            (re, _), _ = rx._pull_block()
+            torch.cuda.synchronize()
+            probe.cpu()
+            for _ in range(8):
+                filler.mul_(1.0)
+            torch.cuda.synchronize()
+        assert isinstance(re, torch.Tensor) and re.is_cuda
+        n = _count_dtoh(prof)
+        if n >= 1:
+            return n - 1, tries
+    seen = sorted({e.key for e in prof.key_averages()
+                   if "emcpy" in e.key or "mul" in e.key})
+    raise AssertionError("the profiler lost the control copy in 3 "
+                         f"sessions; the last one saw {seen}")
+
+
+def pull_copies(torch):
+    """{source: device-to-host copies in one ``_pull_block``} and the
+    profiler sessions taken, for each device source feeding a 32-channel
+    fused receiver (5 blocks of noise: a warm read and up to three
+    sessions)."""
+    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
+        TrackConfig
+    from gnss_sdr_tpu_torch.receiver import Receiver
+
+    rng = np.random.default_rng(0)
+    n = 5 * BLOCK_MS * 2046
+    sig = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    copies, tries = {}, {}
+    for kind in INGEST_SOURCES[1:]:
+        src = _ingest_source(kind, sig, torch)
+        rx = Receiver(ReceiverConfig(
+            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+            acq=AcqConfig(), track=TrackConfig(
+                n_channels=N_CHANNELS, correlator="fused"),
+            block_ms=BLOCK_MS), src, device="cuda")
+        try:
+            rx._pull_block()                # warm: the feeder started
+            copies[kind], tries[kind] = _dtoh_in_pull(torch, rx)
+        finally:
+            if hasattr(src, "close"):
+                src.close()
+    return copies, tries
+
+
+def pull_copies_fresh():
+    """pull_copies in a fresh process: after the earlier phases' profiler
+    sessions, this process's profiler records no device activity (seen on
+    the H100 in whole runs of this script)."""
+    import os
+
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, torch, chip_smoke; "
+         "print(json.dumps(chip_smoke.pull_copies(torch)))"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _ingest_source(kind, sig, torch):
+    from gnss_sdr_tpu_torch.receiver import ArraySource, DeviceArraySource, \
+        StreamingDeviceSource
+
+    if kind == "array":
+        return ArraySource(sig, FS)
+    if kind == "device_f32":
+        return DeviceArraySource(sig, FS, store="f32", device="cuda")
+    if kind == "device_int8":
+        return DeviceArraySource(sig, FS, store="int8", device="cuda")
+    return StreamingDeviceSource(ArraySource(sig, FS), store="int8",
+                                 device="cuda")
+
+
+def phase_ingest(torch):
+    """Phase 9 (b)'s steady receiver behind the four sources: the f32
+    device source bit for bit equal to ArraySource, the int8 ones within
+    40 Hz; ingest per block and the feeder's counters; one block pulled
+    from each device source under the profiler with no device-to-host
+    copy."""
+    sats, sig = _scene(STEADY_S)
+    n_blocks = sig.size // (BLOCK_MS * 2046)
+    runs = {}
+    for kind in INGEST_SOURCES:
+        src = _ingest_source(kind, sig, torch)
+        try:
+            rx, summary, launches = _run_receiver(
+                torch, sats, sig, f"ingest {kind}", scan_blocks=STEADY_SPAN,
+                source=src)
+        finally:
+            if hasattr(src, "close"):
+                src.close()
+        _expect_launches(launches, track_block_fused_mxu=n_blocks)
+        ing = summary["stage_timing"]["ingest"]
+        stats = src.stats() if hasattr(src, "stats") else {}
+        print(f"  ingest [{kind}]: {ing['total_s'] / ing['calls']:.6f} s per "
+              f"block ({ing['calls']} reads), consumer_wait_s "
+              f"{stats.get('consumer_wait_s', 'n/a')}, max_queue_depth "
+              f"{stats.get('max_queue_depth', 'n/a')}")
+        runs[kind] = (rx, summary, ing["total_s"] / ing["calls"], stats)
+    _same_run("ingest", runs["array"][:2], runs["device_f32"][:2],
+              what="ArraySource and DeviceArraySource(store='f32') runs")
+    copies, tries = pull_copies_fresh()
+    print(f"  device-to-host copies in one profiled _pull_block: "
+          f"{json.dumps(copies)} (a fresh process; sessions taken "
+          f"{json.dumps(tries)}, each ending with one .cpu() of its own, "
+          f"not counted)")
+    assert all(v == 0 for v in copies.values()), copies
+    return {k: {"ingest_s_per_block": v[2], **v[3]} for k, v in runs.items()}
+
+
+def phase_pad_fft(torch):
+    """Ladder 2's acquisition (pad_fft, 4.092 MHz, 8 channels) on the
+    card against the same engine on the CPU, then one search's time
+    beside the circular engine's on the same samples."""
+    import dataclasses
+
+    from gnss_sdr_tpu_torch import presets
+    from gnss_sdr_tpu_torch.models import GPS_L1CA, SatelliteScenario, \
+        synthesize
+    from gnss_sdr_tpu_torch.ops import pcps
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    cfg = presets.ladder2_eight_channel()
+    fs = cfg.rf.output_sample_rate_hz
+    assert cfg.acq.pad_fft and cfg.track.n_channels == 8 and fs == 4.092e6
+    sats = [SatelliteScenario(prn=p, doppler_hz=d, code_phase_chips=c,
+                              amplitude=0.25).with_code_doppler()
+            for p, d, c in ((3, 1500.0, 100.5), (9, -3200.0, 511.0),
+                            (17, 4750.0, 870.25), (22, -750.0, 33.0),
+                            (28, 2250.0, 640.0))]
+    engines = {dev: AcquisitionEngine(cfg.acq, GPS_L1CA, fs, device=dev)
+               for dev in ("cuda", "cpu")}
+    n = engines["cuda"].samples_needed
+    x = synthesize(sats, n, fs, noise_std=1.0, seed=31)
+    n_int = cfg.acq.non_coherent_ms
+    res = {}
+    for dev, eng in engines.items():
+        xt = torch.from_numpy(x).to(dev)
+        r = pcps.pcps_search(
+            xt, eng.code_ffts, torch.from_numpy(eng.grid).to(dev), fs_hz=fs,
+            n_int=n_int, threshold=eng._threshold(n_int, eng.grid)[0],
+            pad_fft=True, n_fft=eng.n_fft)
+        res[dev] = {k: getattr(r, k).cpu().numpy()
+                    for k in ("detected", "code_phase_samples",
+                              "carrier_freq_hz")}
+        res[dev]["cands"] = [(c.prn, c.code_phase_samples)
+                             for c in eng.search(x)]
+    det = res["cuda"]["detected"]
+    for k in ("detected", "code_phase_samples", "carrier_freq_hz"):
+        np.testing.assert_array_equal(res["cuda"][k][det], res["cpu"][k][det],
+                                      err_msg=k)
+    np.testing.assert_array_equal(det, res["cpu"]["detected"])
+    assert sorted(np.where(det)[0] + 1) == sorted(s.prn for s in sats), det
+    assert res["cuda"]["cands"] == res["cpu"]["cands"]
+
+    circ = AcquisitionEngine(dataclasses.replace(cfg.acq, pad_fft=False),
+                             GPS_L1CA, fs, device="cuda")
+    times = {}
+    for name, eng, chunk in (("pad_fft", engines["cuda"], x),
+                             ("circular", circ, x[:circ.samples_needed])):
+        eng.search(chunk)                   # warm: cuFFT plans
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(ACQ_PASSES):
+            t0 = time.perf_counter()
+            eng.search(chunk)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        times[name] = statistics.median(walls) * 1e3
+    print(f"pad-FFT acquisition (ladder 2, {fs:g} Hz, 32 PRNs x "
+          f"{engines['cuda'].grid.size} Doppler bins, {n_int} ms): "
+          f"detections on the card equal the CPU run's "
+          f"({[p for p, _ in res['cuda']['cands']]}); one search "
+          f"(median of {ACQ_PASSES}, host clock, synchronized): pad_fft "
+          f"{times['pad_fft']:.3f} ms, circular {times['circular']:.3f} ms")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -2326,6 +2897,9 @@ def main() -> int:
     shared_abs = phase_shared_check(torch)
     shared_launches = phase_shared_path(torch)
     stiming = phase_shared_timing(torch)
+    journey = phase_cli(torch)
+    phase_ingest(torch)
+    phase_pad_fft(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -2339,7 +2913,8 @@ def main() -> int:
         "launches_by_path": {
             "single_block": launches,
             "steady_pipelined": steady["a"]["track_block_fused_mxu"],
-            "steady_sync": steady["b"]["track_block_fused_mxu"]},
+            "steady_sync": steady["b"]["track_block_fused_mxu"],
+            "cli_journey": journey["launches"]["track_block_fused_mxu"]},
         "lean_mode_checked": True,
         "registers_stack": timing["ptxas"],
         "max_abs_err": max_abs,

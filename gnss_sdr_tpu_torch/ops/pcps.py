@@ -9,9 +9,10 @@ ops (``torch.fft`` runs on cuFFT on the card):
 
 The JAX package's ``lax.scan`` over coherent groups becomes a Python
 loop. Detection is the reference detector: peak power / average power of
-the best Doppler bin (peak excluded) > threshold. The power-of-two
-(``pad_fft``) path and the FFT-free conv engine are not ported yet
-(ROADMAP A6, A11).
+the best Doppler bin (peak excluded) > threshold. ``pad_fft=True`` takes
+the power-of-two linear-correlation path (``pcps_power_padded``: plain
+XLA FFTs in the JAX package, ``torch.fft`` here). The FFT-free conv
+engine is not ported yet (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -117,6 +118,62 @@ def pcps_power(
     return best
 
 
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def pcps_power_padded(
+    samples: torch.Tensor,          # [(n_int + 1) * N] complex64
+    code_fft_padded: torch.Tensor,  # [P, M] complex64, M = next_pow2(2N)
+    carrier_freqs: torch.Tensor,    # [D] f32
+    *,
+    fs_hz: float,
+    n_int: int,
+    n_fft: int,
+    coherent: int = 1,
+) -> torch.Tensor:
+    """Power cube [P, D, N] via power-of-two FFTs: each integration
+    correlates a two-period block against the zero-padded code with
+    M-point transforms, so lags 0..N-1 are exact linear correlations
+    (noise does not wrap; peak locations equal the circular path's).
+    Needs one extra code period of trailing samples. ``coherent`` groups
+    sum their spectra, as in pcps_power."""
+    if n_int % coherent:
+        raise ValueError(f"n_int={n_int} not divisible by coherent={coherent}")
+    m = code_fft_padded.shape[-1]
+    shifted = samples[None, :] * _lo(carrier_freqs, fs_hz,
+                                     samples.shape[-1])     # [D, L + N]
+    conj_codes = torch.conj(code_fft_padded)
+    power = torch.zeros((code_fft_padded.shape[0], shifted.shape[0], n_fft),
+                        dtype=torch.float32, device=samples.device)
+    for g in range(n_int // coherent):
+        spec = 0
+        for j in range(coherent):
+            start = (g * coherent + j) * n_fft
+            spec = spec + torch.fft.fft(shifted[:, start:start + 2 * n_fft],
+                                        n=m, dim=-1)        # [D, M]
+        prod = spec[None, :, :] * conj_codes[:, None, :]    # [P, D, M]
+        corr = torch.fft.ifft(prod, dim=-1)[..., :n_fft]
+        power = power + torch.abs(corr) ** 2
+    return power
+
+
+def code_replica_ffts_padded(spec: SignalSpec, fs_hz: float, n_prn: int,
+                             device=None) -> torch.Tensor:
+    """[P, M] FFTs of the code replicas zero-padded to M = next_pow2(2N)
+    (numpy FFT in float64, rounded once, as the JAX package builds
+    them)."""
+    n = spec.samples_per_code(fs_hz)
+    reps = np.zeros((n_prn, _next_pow2(2 * n)), np.float32)
+    for p in range(1, n_prn + 1):
+        reps[p - 1, :n] = spec.sample_code(p, spec.code_rate_hz, fs_hz)
+    return torch.from_numpy(
+        np.fft.fft(reps, axis=-1).astype(np.complex64)).to(device)
+
+
 def coherent_group_count(n_int: int, coherent: int,
                          bit_edge_hypotheses: int = 1) -> int:
     """Number of non-coherent groups the power cube integrates (mirrors
@@ -215,8 +272,9 @@ def detect(
 
 
 def pcps_search(
-    samples: torch.Tensor,        # [n_int * N] complex64
-    code_ffts: torch.Tensor,      # [P, N] complex64
+    samples: torch.Tensor,        # [n_int * N] complex64 (circular) or
+                                  # [(n_int + 1) * N] (pad_fft)
+    code_ffts: torch.Tensor,      # [P, N] (circular) or [P, M] (pad_fft)
     carrier_freqs: torch.Tensor,  # [D] f32 = f_if + doppler grid
     *,
     fs_hz: float,
@@ -224,18 +282,34 @@ def pcps_search(
     threshold: float = 7.0,
     mode: str = "peak_avg",
     exclusion_samples: int = 0,
+    pad_fft: bool = False,
+    n_fft: int | None = None,
     coherent: int = 1,
     bit_edge_hypotheses: int = 1,
 ) -> AcqResults:
-    """Search all PRNs over all Doppler bins in one batch (circular
-    correlation over ``n_int`` code periods)."""
-    n_fft = code_ffts.shape[-1]
-    if samples.shape[-1] != n_int * n_fft:
-        raise ValueError(
-            f"need {n_int}x{n_fft} samples, got {samples.shape[-1]}")
-    power = pcps_power(
-        samples, code_ffts, carrier_freqs, fs_hz=fs_hz, n_int=n_int,
-        coherent=coherent, bit_edge_hypotheses=bit_edge_hypotheses)
+    """Search all PRNs over all Doppler bins in one batch: circular
+    correlation over ``n_int`` code periods, or with ``pad_fft=True`` the
+    power-of-two linear path (``code_ffts`` from
+    code_replica_ffts_padded, ``n_fft`` one code period in samples;
+    ``bit_edge_hypotheses`` applies to the circular path only)."""
+    if pad_fft:
+        if n_fft is None:
+            raise ValueError("pad_fft path requires n_fft")
+        if samples.shape[-1] != (n_int + 1) * n_fft:
+            raise ValueError(
+                f"pad_fft needs {n_int + 1}x{n_fft} samples, "
+                f"got {samples.shape[-1]}")
+        power = pcps_power_padded(
+            samples, code_ffts, carrier_freqs, fs_hz=fs_hz, n_int=n_int,
+            n_fft=n_fft, coherent=coherent)
+    else:
+        n_fft = code_ffts.shape[-1]
+        if samples.shape[-1] != n_int * n_fft:
+            raise ValueError(
+                f"need {n_int}x{n_fft} samples, got {samples.shape[-1]}")
+        power = pcps_power(
+            samples, code_ffts, carrier_freqs, fs_hz=fs_hz, n_int=n_int,
+            coherent=coherent, bit_edge_hypotheses=bit_edge_hypotheses)
     return detect(power, carrier_freqs, threshold, mode=mode,
                   exclusion_samples=exclusion_samples)
 

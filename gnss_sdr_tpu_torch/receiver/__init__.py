@@ -1,6 +1,6 @@
 from .acquisition import AcquisitionEngine, Candidate, SearchMode, SearchScheduler  # noqa: F401
 from .pipeline import Receiver  # noqa: F401
-from .stream import ArraySource, DeviceStreamWindow, FileSource, SampleSource, StreamWindow, SyntheticSource  # noqa: F401
+from .stream import ArraySource, DeviceArraySource, DeviceStreamWindow, FileSource, SampleSource, StreamingDeviceSource, StreamWindow, SyntheticSource  # noqa: F401
 from .tracking import (  # noqa: F401
     ChannelState,
     EpochTelemetry,

@@ -1,5 +1,6 @@
 """Acquisition engine + adaptive search scheduler (counterpart of
-``gnss_sdr_tpu/receiver/acquisition.py``, FFT engine only).
+``gnss_sdr_tpu/receiver/acquisition.py``, FFT engine only: circular,
+or power-of-two linear with ``pad_fft``).
 
 The scheduling policy mirrors the reference's AcquisitionManager
 (do_acquisition.rs:33-74): cold/warm/steady modes by tracked-satellite
@@ -101,13 +102,11 @@ class AcquisitionEngine:
                 "ported yet (ROADMAP A11)")
         if engine != "fft":
             raise ValueError(f"unknown acquisition engine {engine!r}")
-        if cfg.pad_fft:
-            raise NotImplementedError(
-                "pad_fft=True (power-of-two linear PCPS) is not ported "
-                "yet (ROADMAP A6: pcps_power_padded)")
         self.engine = engine
-        self.code_ffts = pcps.code_replica_ffts(spec, fs_hz, n_code_rows,
-                                                device=self.device)
+        replica_ffts = (pcps.code_replica_ffts_padded if cfg.pad_fft
+                        else pcps.code_replica_ffts)
+        self.code_ffts = replica_ffts(spec, fs_hz, n_code_rows,
+                                      device=self.device)
         base = pcps.doppler_grid(cfg.doppler_span_hz, cfg.doppler_step_hz)
         self._base_grid_len = base.shape[0]
         self.grid = base + np.float32(f_if_hz)
@@ -130,8 +129,10 @@ class AcquisitionEngine:
 
     @property
     def samples_needed(self) -> int:
-        return (self.cfg.non_coherent_ms // self.spec.code_period_ms
-                ) * self.n_fft
+        n_int = self.cfg.non_coherent_ms // self.spec.code_period_ms
+        # the pow2 linear path correlates two-period blocks: +1 trailing
+        # period
+        return (n_int + (1 if self.cfg.pad_fft else 0)) * self.n_fft
 
     def _complex_chunk(self, samples) -> torch.Tensor:
         """complex64 tensor on the engine's device from a complex array
@@ -201,7 +202,8 @@ class AcquisitionEngine:
         res = pcps.pcps_search(
             x, self.code_ffts, grid_t, fs_hz=self.fs_hz, n_int=n_int,
             threshold=threshold, mode=cfg.detector,
-            exclusion_samples=excl,
+            exclusion_samples=excl, pad_fft=cfg.pad_fft,
+            n_fft=self.n_fft if cfg.pad_fft else None,
             coherent=max(1, cfg.coherent_ms // self.spec.code_period_ms),
             bit_edge_hypotheses=cfg.bit_edge_hypotheses)
         detected = res.detected.cpu().numpy()

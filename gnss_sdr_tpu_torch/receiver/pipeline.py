@@ -31,10 +31,13 @@ from a collector thread while the next span runs.
 Channel lifecycle (Idle -> Tracking -> Lost -> re-search) is a set of
 state transitions plus a host-side PRN <-> channel map.
 
+Observables stream while it runs (``enable_observables``): a RINEX 3
+OBS file and/or the EKF navigation filter, at most once per ``every_ms``
+and attempted once per block, inside spans too.
+
 Not ported yet, and raising NotImplementedError: a device mesh (ROADMAP
-A14), the conv acquisition engine and its in-scan search (A11), non-GPS
-signals' nav chains (A16) and the streaming observables / EKF outputs
-(A8).
+A14), the conv acquisition engine and its in-scan search (A11) and
+non-GPS signals' nav chains (A16).
 """
 from __future__ import annotations
 
@@ -56,6 +59,18 @@ from .acquisition import AcquisitionEngine, SearchMode, SearchScheduler
 from .fused_runner import FusedTracker
 from .navproc import NavProcessor
 from .stream import DeviceStreamWindow, SampleSource, StreamWindow
+
+
+def _on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device`` (``cuda`` without an index means
+    the current card)."""
+    if t.device.type != device.type:
+        return False
+    if device.type == "cpu":
+        return True
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    return t.device.index == index
 
 
 class Receiver:
@@ -171,6 +186,13 @@ class Receiver:
         self.time_ms = 0.0
         self.acq_events: list = []
         self.timers = StageTimer()
+        # streaming observables (enable_observables)
+        self._obs_writer = None
+        self._obs_every_ms = 0
+        self._obs_last_ms = 0.0
+        self._obs_last_update_ms = None
+        self._obs_week = 0
+        self.nav_filter = None
 
     # ------------------------------------------------------------------
     def _run_acquisition(self) -> None:
@@ -207,13 +229,26 @@ class Receiver:
         run the front-end conditioning on the receiver's device (the raw
         block uploads once; a padded block is conditioned whole, so the
         front-end state advances through the zeros, as in the JAX
-        package). Returns ((re, im), n_valid output samples), or None at
-        end of stream."""
+        package). A planar pair of tensors on the receiver's device (the
+        device sources) is taken as it is and padded there: no host round
+        trip. Returns ((re, im), n_valid output samples), or None at end
+        of stream."""
         need = self.block * self.decim
         raw = self.source.read(need)
         if raw is None:
             return None
-        if isinstance(raw, tuple):
+        if isinstance(raw, tuple) and isinstance(raw[0], torch.Tensor):
+            re, im = raw
+            if not (_on_device(re, self.device)
+                    and _on_device(im, self.device)):
+                raise ValueError(
+                    f"source block on {re.device}/{im.device}, receiver on "
+                    f"{self.device}")
+            size = int(re.shape[0])
+            if size and size < need:
+                re = torch.nn.functional.pad(re, (0, need - size))
+                im = torch.nn.functional.pad(im, (0, need - size))
+        elif isinstance(raw, tuple):
             re, im = (np.asarray(x, dtype=np.float32) for x in raw)
             size = int(re.shape[0])
         else:
@@ -222,16 +257,18 @@ class Receiver:
             im = np.ascontiguousarray(np.imag(raw), dtype=np.float32)
         if size == 0:
             return None
-        if size < need:
+        if isinstance(re, np.ndarray) and size < need:
             re = np.pad(re, (0, need - size))
             im = np.pad(im, (0, need - size))
         n_valid = -(-size // self.decim)
-        if not self.conditioning:
-            return (re, im), n_valid
         dev = self.device
+        if not self.conditioning:
+            if dev.type == "cpu" and isinstance(re, torch.Tensor):
+                re, im = re.numpy(), im.numpy()    # the host window's type
+            return (re, im), n_valid
         (re, im, self._fe_phase, self._fe_bias_re, self._fe_bias_im,
          self._fe_agc_gain) = condition_block(
-            torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev),
+            torch.as_tensor(re).to(dev), torch.as_tensor(im).to(dev),
             np.float32(self.mix_freq), self._fe_phase, self._fe_bias_re,
             self._fe_bias_im, self._fe_agc_gain, fs_hz=self.fs_in,
             alpha=self.cfg.rf.dc_alpha, decimation=self.decim,
@@ -291,6 +328,7 @@ class Receiver:
                     del self.active[prn]
                     self.telemetry.close_channel(ch)
                     self.nav.close_channel(ch)
+        self._emit_observables()
         self.state = trk.rebase(self.state, self.block)
         return True
 
@@ -356,7 +394,10 @@ class Receiver:
                         del self.active[prn]
                         self.telemetry.close_channel(ch)
                         self.nav.close_channel(ch)
+            # observables keep their cadence inside a span: all of its
+            # telemetry is here
             self.time_ms += self.cfg.block_ms
+            self._emit_observables()
 
     def _process_span(self, blocks: list) -> int:
         """Run ``len(blocks)`` full fresh blocks through the multi-block
@@ -582,6 +623,65 @@ class Receiver:
             if on_block is not None and on_block(self):
                 break
         return self.summary()
+
+    def enable_observables(self, rinex_path: Optional[str] = None,
+                           every_ms: int = 1000, week: int = 0,
+                           ekf: bool = False) -> None:
+        """Stream per-epoch observables while running: write a RINEX 3
+        OBS file and/or run the EKF navigation filter, at most once per
+        ``every_ms`` of signal (config ladder 5: observables at streaming
+        rate)."""
+        from ..nav.rinex_obs import RinexObsWriter
+
+        if rinex_path:
+            self._obs_writer = RinexObsWriter(rinex_path)
+        self._obs_every_ms = every_ms
+        self._obs_week = week
+        if ekf:
+            from ..nav.filter import NavigationFilter
+
+            self.nav_filter = NavigationFilter()
+
+    def _emit_observables(self) -> None:
+        if not self._obs_every_ms:
+            return
+        if self.time_ms - self._obs_last_ms < self._obs_every_ms:
+            return
+        obs = self.nav.observables()
+        if obs is None:
+            return
+        self._obs_last_ms = self.time_ms
+        dopplers = {}
+        for prn, ch in self.active.items():
+            tr = self.telemetry.traces.get(ch)
+            if tr is not None and tr.carr_freq.size:
+                dopplers[prn] = float(np.mean(tr.carr_freq[-20:])) - self.f_if
+        if self._obs_writer is not None:
+            # live traces only: closed traces of re-acquired PRNs would
+            # shadow the current channel's C/N0
+            cn0s = {
+                t.prn: t.cn0_dbhz(coherent_s=self.spec.code_period_s)
+                for t in self.telemetry.traces.values()
+            }
+            self._obs_writer.write_epoch(
+                self._obs_week, obs["rx_time_nominal_s"],
+                {prn: (pr, dopplers.get(prn, 0.0), cn0s.get(prn))
+                 for prn, pr in zip(obs["prns"], obs["pseudoranges_m"])})
+        if self.nav_filter is not None:
+            if self.nav_filter.epochs and self._obs_last_update_ms is not None:
+                # the time since the last update (observables skip epochs
+                # when channels dip)
+                self.nav_filter.predict(
+                    (self.time_ms - self._obs_last_update_ms) / 1000.0)
+            # Doppler makes velocity and clock drift observable;
+            # pseudoranges alone let the weak vertical axis drift
+            dop = ([dopplers.get(p, 0.0) for p in obs["prns"]]
+                   if all(p in dopplers for p in obs["prns"]) else None)
+            self.nav_filter.update(
+                obs["pseudoranges_m"], obs["ephemerides"],
+                obs["transmit_times_s"], dopplers_hz=dop,
+                carrier_freq_hz=self.spec.carrier_freq_hz)
+            self._obs_last_update_ms = self.time_ms
 
     def compute_pvt(self, smooth_epochs: int = 0):
         """Single-point PVT from decoded ephemerides + code timing; None

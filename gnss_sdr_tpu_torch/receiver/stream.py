@@ -8,14 +8,26 @@ keeps it in torch tensors on the receiver's device and uploads only the
 fresh block each step. ``global_start`` is the absolute sample index of
 the window's first sample (a host Python int), while tracking offsets
 stay block-relative int32.
+
+Two sources hand the receiver planar ``(re, im)`` float32 tensors that
+already lie on its device, so a block makes no host round trip:
+``DeviceArraySource`` uploads a whole stream once, and
+``StreamingDeviceSource`` stages a host source's blocks through pinned
+buffers on a copy stream of its own, ahead of the consumer. Both can
+carry the samples as int8 (the RTL-SDR wire precision, +-4 sigma at full
+scale) and dequantize on the device per read.
 """
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.signal import SatelliteScenario, synthesize
 
 
@@ -121,6 +133,222 @@ class ArraySource:
         out = self._samples[self._pos:self._pos + n]
         self._pos += out.size
         return out
+
+
+def _planar_f32(samples) -> tuple[np.ndarray, np.ndarray]:
+    """Host float32 (re, im) from a complex array or a planar pair."""
+    if isinstance(samples, tuple):
+        return tuple(np.ascontiguousarray(
+            x.cpu().numpy() if isinstance(x, torch.Tensor) else x,
+            dtype=np.float32) for x in samples)
+    samples = np.asarray(samples)
+    return (np.ascontiguousarray(np.real(samples), dtype=np.float32),
+            np.ascontiguousarray(np.imag(samples), dtype=np.float32))
+
+
+def _int8_scale(re: np.ndarray, im: np.ndarray) -> np.float32:
+    """The int8 step that puts +-4 sigma of the larger rail at +-127."""
+    sigma = float(max(np.std(re), np.std(im), 1e-12))
+    return np.float32(4.0 * sigma / 127.0)
+
+
+def _quantize(x: np.ndarray, scale: np.float32) -> np.ndarray:
+    return np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+
+
+class DeviceArraySource:
+    """In-memory source staged in DEVICE memory (planar f32 or int8).
+
+    Uploads the whole stream to ``device`` (default the card) once at
+    construction; ``read`` returns ``(re, im)`` float32 slices on that
+    device, with no per-block transfer. ``store="int8"`` quantizes on the
+    host with one scale for the stream (+-4 sigma at +-127, 4x less
+    upload) and dequantizes on the device per read."""
+
+    def __init__(self, samples, fs_hz: float, store: str = "f32",
+                 device=None):
+        if store not in ("f32", "int8"):
+            raise ValueError(f"unknown store {store!r}")
+        self.fs_hz = fs_hz
+        self.device = resolve_device(device)
+        re, im = _planar_f32(samples)
+        self._scale = None
+        if store == "int8":
+            self._scale = _int8_scale(re, im)
+            re, im = _quantize(re, self._scale), _quantize(im, self._scale)
+        self._re = torch.from_numpy(re).to(self.device)
+        self._im = torch.from_numpy(im).to(self.device)
+        self._n = int(self._re.shape[0])
+        self._pos = 0
+
+    def read(self, n: int):
+        if self._pos >= self._n:
+            return None
+        end = min(self._pos + n, self._n)
+        re = self._re[self._pos:end]
+        im = self._im[self._pos:end]
+        if self._scale is not None:
+            re = re.to(torch.float32) * float(self._scale)
+            im = im.to(torch.float32) * float(self._scale)
+        self._pos = end
+        return (re, im)
+
+
+class StreamingDeviceSource:
+    """Host -> device ingest ahead of the consumer (the reference's SDR
+    reader thread feeding its ring, sdr_thread.rs:9-37).
+
+    A feeder thread pulls blocks from a host ``SampleSource``, stages each
+    into pinned host buffers (int8 with a per-chunk scale, or f32) and
+    copies it to ``device`` on a CUDA stream of its own, recording an
+    event per block; up to ``depth`` blocks wait in the queue. ``read``
+    makes the consumer's stream wait on the block's event (the host does
+    not wait for the copy) and dequantizes there. On the CPU device the
+    blocks are plain CPU tensors.
+
+    The consumer must read one block size throughout (the Receiver does);
+    the feeder runs ahead of it by up to ``depth`` blocks. ``stats()``
+    says whether it kept ahead: ``consumer_wait_s`` (time ``read`` spent
+    blocked after the first block) near 0 and a mean queue depth above 0.
+    """
+
+    def __init__(self, source, depth: int = 3, store: str = "int8",
+                 device=None):
+        if store not in ("int8", "f32"):
+            raise ValueError(f"unknown store {store!r}")
+        self.fs_hz = source.fs_hz
+        self.device = resolve_device(device)
+        self._source = source
+        self._depth = depth
+        self._store = store
+        self._queue = None
+        self._thread = None
+        self._block_n = None
+        self._stopping = False
+        self._eos = False
+        self._copy_stream = None
+        self.reads = 0
+        self.consumer_wait_s = 0.0
+        self.cold_wait_s = 0.0
+        self.max_queue_depth = 0
+        self._depth_sum = 0
+        self._depth_n = 0
+
+    def _stage(self, raw):
+        """One block, staged: (re, im, size, scale, event) with re/im on
+        the device (int8 or f32) and the copy's event (None on the CPU)."""
+        re, im = _planar_f32(raw)
+        scale = None
+        if self._store == "int8":
+            # a per-chunk scale: one frozen from the first block would
+            # lock onto a silent or settling stream start
+            scale = _int8_scale(re, im)
+            re, im = _quantize(re, scale), _quantize(im, scale)
+        host = (torch.from_numpy(re), torch.from_numpy(im))
+        if self.device.type == "cpu":
+            return host + (re.shape[0], scale, None)
+        with torch.cuda.stream(self._copy_stream):
+            dev = tuple(h.pin_memory().to(self.device, non_blocking=True)
+                        for h in host)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return dev + (re.shape[0], scale, event)
+
+    def _put(self, item) -> bool:
+        """Bounded put that yields to close(): the consumer may stop
+        reading mid-stream and the feeder must not block forever."""
+        while not self._stopping:
+            try:
+                self._queue.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _feeder(self):
+        try:
+            while not self._stopping:
+                raw = self._source.read(self._block_n)
+                if raw is None:
+                    break
+                size = (raw[0].shape[0] if isinstance(raw, tuple)
+                        else raw.size)
+                if size == 0:
+                    break
+                if not self._put(self._stage(raw)):
+                    return
+                if size < self._block_n:
+                    break             # short tail = end of stream
+            self._put(None)
+        except BaseException as e:  # noqa: BLE001 - handed to the reader
+            self._put(e)
+
+    def read(self, n: int):
+        if self._eos:
+            return None
+        if self._thread is None:
+            self._block_n = n
+            self._queue = queue.Queue(maxsize=self._depth)
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
+            self._thread = threading.Thread(target=self._feeder,
+                                            daemon=True)
+            self._thread.start()
+        if n != self._block_n:
+            raise ValueError(
+                f"StreamingDeviceSource block size changed: "
+                f"{self._block_n} -> {n}")
+        d = self._queue.qsize()
+        self.max_queue_depth = max(self.max_queue_depth, d)
+        self._depth_sum += d
+        self._depth_n += 1
+        t0 = time.perf_counter()
+        item = self._queue.get()
+        wait = time.perf_counter() - t0
+        if self.reads == 0:
+            self.cold_wait_s += wait
+        else:
+            self.consumer_wait_s += wait
+        self.reads += 1
+        if item is None or isinstance(item, BaseException):
+            # end of stream is sticky: the feeder has stopped, and the
+            # receiver may read again after a short span
+            self._eos = True
+            if item is not None:
+                raise RuntimeError("StreamingDeviceSource feeder failed") \
+                    from item
+            return None
+        re, im, size, scale, event = item
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            # the blocks were allocated on the copy stream: keep the
+            # allocator from reusing them before the consumer is done
+            re.record_stream(consumer)
+            im.record_stream(consumer)
+        if scale is not None:
+            re = re.to(torch.float32) * float(scale)
+            im = im.to(torch.float32) * float(scale)
+        return (re[:size], im[:size])
+
+    def stats(self) -> dict:
+        """Overlap counters: did the feeder keep the device fed?"""
+        return {
+            "reads": self.reads,
+            "consumer_wait_s": round(self.consumer_wait_s, 4),
+            "cold_fill_s": round(self.cold_wait_s, 4),
+            "max_queue_depth": self.max_queue_depth,
+            "mean_queue_depth": round(
+                self._depth_sum / max(self._depth_n, 1), 2),
+        }
+
+    def close(self):
+        """Stop the feeder (its bounded put sees the flag) and join it
+        with a bounded wait: close() never hangs, even with the consumer
+        stopped early on an unbounded source."""
+        self._stopping = True
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
 
 
 class StreamWindow:

@@ -1,14 +1,16 @@
-"""Structured per-stage timing.
+"""Structured per-stage timing + torch.profiler traces.
 
 The reference's only observability is ad-hoc Instant prints inside
 tests (SURVEY.md section 5); here timing is a first-class subsystem: a
-``StageTimer`` accumulates wall-time and throughput per pipeline stage.
-A ``torch.profiler`` device-trace wrapper is a later item (ROADMAP A15).
+``StageTimer`` accumulates wall-time and throughput per pipeline stage,
+and ``trace()`` wraps ``torch.profiler`` for Chrome/Perfetto-compatible
+host and device traces (the JAX package's ``jax.profiler`` trace).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from collections import defaultdict
 from typing import Iterator
@@ -63,3 +65,22 @@ class StageTimer:
         s = self.stats[stage]
         return s.items_per_s / fs_hz if fs_hz else 0.0
 
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator:
+    """Profile the block's host ops, and its CUDA kernels and copies
+    where a card is present, into ``log_dir/trace_<pid>_<ns>.json``, a
+    Chrome trace that Perfetto and chrome://tracing open. Yields the
+    ``torch.profiler.profile`` object (``key_averages()``, ``events()``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -508,3 +508,46 @@ def test_shared_tracker_equals_b1_tracker_on_card(card):
     downloaded array and the final ledger equal shared_fetch=False's bit
     for bit; B2 once per block, B1 never."""
     assert chip_smoke.phase_shared_path(torch, seconds=2.0, span=3) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["f32", "int8"])
+def test_device_sources_on_card_equal_cpu(card, store):
+    """DeviceArraySource and StreamingDeviceSource on the card hand out
+    tensors on the card, equal bit for bit to the same sources on the
+    CPU (the int8 scale is computed on the host either way); a short
+    last read stays short; close() ends the feeder."""
+    from gnss_sdr_tpu_torch.receiver import (
+        ArraySource, DeviceArraySource, StreamingDeviceSource)
+
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal(50_000) + 1j * rng.standard_normal(50_000)
+         ).astype(np.complex64)
+    n = 12_000
+    for make in (lambda d: DeviceArraySource(x, 1e6, store=store, device=d),
+                 lambda d: StreamingDeviceSource(ArraySource(x, 1e6),
+                                                 store=store, device=d)):
+        gpu, cpu = make(card), make("cpu")
+        try:
+            while True:
+                a, b = gpu.read(n), cpu.read(n)
+                if a is None or b is None:
+                    assert a is None and b is None
+                    break
+                assert a[0].is_cuda and a[0].dtype == torch.float32
+                for u, v in zip(a, b):
+                    assert torch.equal(u.cpu(), v)
+        finally:
+            for s in (gpu, cpu):
+                if hasattr(s, "close"):
+                    s.close()
+    assert b is None
+
+
+@pytest.mark.cuda
+def test_pull_block_makes_no_host_copy_on_card(card):
+    """chip_smoke's profiler check (phase 22) in a fresh process: a block
+    pulled from each device source makes no device-to-host copy."""
+    copies, tries = chip_smoke.pull_copies_fresh()
+    assert copies == {"device_f32": 0, "device_int8": 0,
+                      "streaming_int8": 0}, (copies, tries)

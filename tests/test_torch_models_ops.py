@@ -235,9 +235,6 @@ class TestAcquisition:
         with pytest.raises(NotImplementedError, match="A11"):
             acquisition.AcquisitionEngine(AcqConfig(engine="conv"),
                                           GPS_L1CA, FS, device=CPU)
-        with pytest.raises(NotImplementedError, match="A6"):
-            acquisition.AcquisitionEngine(AcqConfig(pad_fft=True),
-                                          GPS_L1CA, FS, device=CPU)
 
     def test_scheduler_matches(self):
         a = acquisition.SearchScheduler(AcqConfig())

@@ -160,24 +160,41 @@ def test_non_gps_nav_chain_raises():
 
 
 def test_import_boundary():
-    """The port imports neither JAX nor the JAX package."""
+    """The port imports neither JAX nor the JAX package, and importing any
+    of its modules (the CLI, I/O, presets and plots among them) pulls in
+    no matplotlib and runs nothing; ``python -m gnss_sdr_tpu_torch
+    --help`` starts without a card."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import gnss_sdr_tpu_torch as pkg
-        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        want = {"cli", "__main__", "presets", "io.native", "io.devices",
+                "utils.view", "utils.live", "utils.host", "nav.filter",
+                "nav.rinex", "nav.rinex_obs", "nav.download"}
+        missing = {w for w in want if pkg.__name__ + "." + w not in names}
+        assert not missing, missing
         bad = sorted(n for n in sys.modules
                      if n == "jax" or n.startswith(("jax.", "jaxlib"))
-                     or n == "gnss_sdr_tpu" or n.startswith("gnss_sdr_tpu."))
+                     or n == "gnss_sdr_tpu" or n.startswith("gnss_sdr_tpu.")
+                     or n == "matplotlib" or n.startswith("matplotlib."))
         assert not bad, bad
         print("ok", len([n for n in sys.modules
                          if n.startswith("gnss_sdr_tpu_torch")]))
     """)
+    root = pathlib.Path(__file__).resolve().parents[1]
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         cwd=pathlib.Path(__file__).resolve().parents[1])
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+    out = subprocess.run([sys.executable, "-m", "gnss_sdr_tpu_torch",
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage: gnss_sdr_tpu_torch")
+    assert "--cpu" in out.stdout and "--rinex-obs" in out.stdout
 
 
 def test_receiver_defaults_to_cuda():
