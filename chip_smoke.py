@@ -120,7 +120,28 @@ GPU:
      no device-to-host copy in one profiled _pull_block;
  23. ladder 2's pad-FFT acquisition on the card: detections equal the
      CPU run's; one search's time beside the circular engine's;
- 24. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 24. slice 10's kernel shapes (the other GNSS systems at ladder 4's 8.184
+     MHz): B1 at the four ladder-4 shapes (GPS wp 8704 R 13, BeiDou R 9,
+     GLONASS R 21, all K 8; Galileo E1B wp 33,280 R 9 K 6; 96 ms blocks,
+     the lane-chunked layout) against its plain version open loop, power
+     and Costas, full and lean (lean equal to full bit for bit); B4c (bit
+     for bit) and B4b at Galileo's seg width (wp 33,152, 20 ms blocks)
+     and B3 at its direct width (wp 33,280), open loop, power and Costas;
+ 25. the times per block of those shapes, their plain versions' and
+     their bounds, as 4 and 16;
+ 26. ladder 4 at full width as bench.py's mixed row runs it: 14
+     satellites of four systems in one 8.184 MHz stream (seed 7), 32
+     channels (GPS 8, Galileo 4, GLONASS 4, BeiDou 16), 96 ms blocks,
+     correlator "fused" (B1 on every branch), a DeviceArraySource(store=
+     "int8") per branch; single blocks, then 10-block spans: every scene
+     PRN the acquisition searches tracked within 40 Hz, each branch's B1
+     launches equal to its blocks, the real-time factor of two timed
+     passes; then presets.ladder4_multi_constellation() with "fused" at
+     20 ms blocks (Galileo on seg: B4c and B4b once per block);
+ 27. the three live-decode scenes of tests/test_nav_live_multi.py
+     (Galileo I/NAV, BeiDou D1, GLONASS strings; one satellite each, cold
+     start): each ephemeris decoded on the card and equal to its truth;
+ 28. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -615,9 +636,22 @@ def _nbytes(*tensors):
 
 
 def phase_timing(torch, layout="mxu"):
+    _, args, kw = full_width_inputs(torch, "cuda", {}, layout=layout)
+    res = kernel_timing(torch, layout, args, kw)
+    if layout == "mxu":
+        res["ptxas"] = mxu_ptxas()
+    print(f"timing [{layout}] (ms per 500 ms block, 32 ch): " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in res.items()}))
+    return res
+
+
+def kernel_timing(torch, layout, args, kw, plain_passes=2 * PLAIN_PASSES):
+    """B1's (``layout`` "mxu") or B3's ("direct") time per block on
+    ``args``/``kw`` (_timed_turns: the L2 flushed, queued behind a head
+    start), its plain version's, and the bound from this run's inputs."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
-    ft, args, kw = full_width_inputs(torch, "cuda", {}, layout=layout)
     kernel_fn, plain_fn = {
         "mxu": (fused.track_block_fused_mxu,
                 fused.track_block_fused_mxu_reference),
@@ -625,7 +659,7 @@ def phase_timing(torch, layout="mxu"):
                    fused.track_block_fused_direct_reference)}[layout]
     ks, ps, k_sync = _timed_turns(torch, lambda: kernel_fn(*args, **kw),
                                   lambda: plain_fn(*args, **kw),
-                                  plain_passes=2 * PLAIN_PASSES)
+                                  plain_passes=plain_passes)
 
     # the least time for the same work, from this run's inputs and what
     # its data needs: only the lanes inside each processed epoch's mask
@@ -641,19 +675,13 @@ def phase_timing(torch, layout="mxu"):
         bf16_ops = 0.0
         f32_ops = DIRECT_OPS_PER_LANE * lanes
     bound, bound_by = _bound(n_bytes, f32_ops, bf16_ops)
-    res = dict(
+    return dict(
         ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
         plain_ms=statistics.median(ps), plain_min=min(ps),
         plain_max=max(ps), ms_synced=statistics.median(k_sync),
         bound_ms=bound, bound_by=bound_by,
         bytes=n_bytes, mixed_lanes=lanes, bf16_ops=bf16_ops,
         f32_ops=f32_ops)
-    if layout == "mxu":
-        res["ptxas"] = mxu_ptxas()
-    print(f"timing [{layout}] (ms per 500 ms block, 32 ch): " + json.dumps(
-        {k: (round(v, 6) if isinstance(v, float) else v)
-         for k, v in res.items()}))
-    return res
 
 
 def phase_receiver(torch, device="cuda", n_blocks=E2E_BLOCKS):
@@ -724,24 +752,33 @@ def phase_lean_check(torch):
         tf, sf = fused.track_block_fused_mxu(*args, **kw)
         tl, sl = fused.track_block_fused_mxu(
             *args, **dict(kw, telem_mode="lean"))
-        torch.cuda.synchronize()
-        k = kw["k_epochs"]
-        even = slice(None) if name == "costas" else slice(None, None, 2)
-        stored = torch.zeros_like(tl, dtype=torch.bool)
-        stored[..., LEAN_EVERY + [16]] = True
-        stored[::k, :, LEAN_ROW0] = True
-        rows0 = stored[::k]                 # a view: writes reach stored
-        rows0[even, :, LEAN_ROW0_EVEN] = True
-        assert torch.equal(tl[..., LEAN_EVERY], tf[..., LEAN_EVERY])
-        assert torch.equal(tl[..., 16], tf[..., 16] + 2.0 * tf[..., 7]
-                           + 4.0 * tf[..., 15])
-        assert torch.equal(tl[stored & (torch.arange(
-            tl.shape[-1], device=tl.device) != 16)], tf[stored & (
-                torch.arange(tf.shape[-1], device=tf.device) != 16)])
-        assert not tl[~stored].any(), "lean mode stored an extra column"
-        assert torch.equal(sl, sf), "lean and full end states differ"
-        print(f"lean vs full [{name}, K={k}]: {int(stored.sum())} stored "
+        n = lean_equals_full(torch, tf, sf, tl, sl, kw["k_epochs"],
+                             costas=name == "costas")
+        print(f"lean vs full [{name}, K={kw['k_epochs']}]: {n} stored "
               f"values equal, the rest zero, end state equal")
+
+
+def lean_equals_full(torch, tf, sf, tl, sl, k, costas):
+    """B1's lean telemetry (tl, sl) against its full mode (tf, sf) on the
+    same inputs at K = ``k``: the columns it stores, the zeros elsewhere
+    and the end state, bit for bit. Returns the number of stored
+    values."""
+    torch.cuda.synchronize()
+    even = slice(None) if costas else slice(None, None, 2)
+    stored = torch.zeros_like(tl, dtype=torch.bool)
+    stored[..., LEAN_EVERY + [16]] = True
+    stored[::k, :, LEAN_ROW0] = True
+    rows0 = stored[::k]                 # a view: writes reach stored
+    rows0[even, :, LEAN_ROW0_EVEN] = True
+    assert torch.equal(tl[..., LEAN_EVERY], tf[..., LEAN_EVERY])
+    assert torch.equal(tl[..., 16], tf[..., 16] + 2.0 * tf[..., 7]
+                       + 4.0 * tf[..., 15])
+    assert torch.equal(tl[stored & (torch.arange(
+        tl.shape[-1], device=tl.device) != 16)], tf[stored & (
+            torch.arange(tf.shape[-1], device=tf.device) != 16)])
+    assert not tl[~stored].any(), "lean mode stored an extra column"
+    assert torch.equal(sl, sf), "lean and full end states differ"
+    return int(stored.sum())
 
 
 _SCENES: dict = {}
@@ -1902,64 +1939,75 @@ def phase_epoch_timing(torch):
     phase_timing: L2 flushed, median of the passes), its plain version's
     (two passes), its bound from this run's inputs, and for B4c the time
     of one PyTorch indexing call per component computing the same copy."""
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
-
     out = {}
     for feed in ("windows", "seg", "resident"):
         inp = epoch_inputs(torch, feed, {})
-        args, kw = inp["args"], inp["kw"]
-        kernel, plain = _epoch_fns(feed)
-        ks, ps, k_sync = _timed_turns(torch, lambda: kernel(*args, **kw),
-                                      lambda: plain(*args, **kw),
-                                      plain_passes=2)
-        before = sum(_launch_counts().values())
-        telem, st = kernel(*args, **kw)
-        per_block = sum(_launch_counts().values()) - before
-        lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
-        n_bytes = epoch_bytes(feed, args, telem, st)
-        f32_ops = DIRECT_OPS_PER_LANE * lanes
-        bound, bound_by = _bound(n_bytes, f32_ops)
-        ft = inp["ft"]
-        res = dict(launches_per_block=per_block,
-                   ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
-                   plain_ms=statistics.median(ps), plain_passes=ps,
-                   ms_synced=statistics.median(k_sync), bound_ms=bound,
-                   bound_by=bound_by, bytes=n_bytes, mixed_lanes=lanes,
-                   f32_ops=f32_ops, t_epochs=ft.t_epochs, wp=args[2].shape[2],
-                   library_ms=None)
-        out[feed] = res
-        print(f"timing [{feed}] (ms per {ft.t_epochs} ms block, 32 ch): "
+        out[feed] = epoch_timing(torch, feed, inp["args"], inp["kw"])
+        t = out[feed]["t_epochs"]
+        print(f"timing [{feed}] (ms per {t} ms block, 32 ch): "
               + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
-                            for k, v in res.items()}))
-        if feed != "seg":
-            continue
-        (sre, sim, starts, l_seg), g_kw = inp["gather"]
-        idx = starts.to(torch.int64)[:, None] + torch.arange(
-            l_seg, device="cuda")[None, :]
-        ks, ps, k_sync = _timed_turns(
-            torch, lambda: fused.gather_segments(sre, sim, starts, l_seg,
-                                                 **g_kw),
-            lambda: fused.gather_segments_reference(sre, sim, starts, l_seg,
-                                                    **g_kw),
-            plain_passes=2)
-        ls, _, _ = _timed_turns(torch, lambda: (sre[idx], sim[idx]),
-                                lambda: None, plain_passes=0)
-        before = sum(_launch_counts().values())
-        seg = fused.gather_segments(sre, sim, starts, l_seg, **g_kw)
-        per_block = sum(_launch_counts().values()) - before
-        n_bytes = _nbytes(sre, sim, starts, *seg)
-        bound, bound_by = _bound(n_bytes, 0.0)
-        res = dict(launches_per_block=per_block,
-                   ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
-                   plain_ms=statistics.median(ps),
-                   ms_synced=statistics.median(k_sync),
-                   library_ms=statistics.median(ls), bound_ms=bound,
-                   bound_by=bound_by, bytes=n_bytes, l_seg=l_seg)
-        out["gather"] = res
-        print("timing [gather] (ms per 125 ms block, 32 ch): " + json.dumps(
-            {k: (round(v, 6) if isinstance(v, float) else v)
-             for k, v in res.items()}))
+                            for k, v in out[feed].items()}))
+        if feed == "seg":
+            out["gather"] = gather_timing(torch, *inp["gather"])
+            print("timing [gather] (ms per 125 ms block, 32 ch): "
+                  + json.dumps({k: (round(v, 6) if isinstance(v, float)
+                                    else v)
+                                for k, v in out["gather"].items()}))
     return out
+
+
+def epoch_timing(torch, feed, args, kw):
+    """One per-epoch kernel's time per block on ``args``/``kw``, its
+    plain version's (two passes), its launches per block and its bound
+    from this run's inputs."""
+    kernel, plain = _epoch_fns(feed)
+    ks, ps, k_sync = _timed_turns(torch, lambda: kernel(*args, **kw),
+                                  lambda: plain(*args, **kw),
+                                  plain_passes=2)
+    before = sum(_launch_counts().values())
+    telem, st = kernel(*args, **kw)
+    per_block = sum(_launch_counts().values()) - before
+    lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
+    n_bytes = epoch_bytes(feed, args, telem, st)
+    f32_ops = DIRECT_OPS_PER_LANE * lanes
+    bound, bound_by = _bound(n_bytes, f32_ops)
+    return dict(launches_per_block=per_block,
+                ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
+                plain_ms=statistics.median(ps), plain_passes=ps,
+                ms_synced=statistics.median(k_sync), bound_ms=bound,
+                bound_by=bound_by, bytes=n_bytes, mixed_lanes=lanes,
+                f32_ops=f32_ops, t_epochs=int(telem.shape[0]),
+                wp=args[2].shape[2], library_ms=None)
+
+
+def gather_timing(torch, g_args, g_kw):
+    """B4c's time per block on its args/kw, its plain version's, one
+    PyTorch indexing call per component computing the same copy (the
+    library column) and the bound."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    sre, sim, starts, l_seg = g_args
+    idx = starts.to(torch.int64)[:, None] + torch.arange(
+        l_seg, device="cuda")[None, :]
+    ks, ps, k_sync = _timed_turns(
+        torch, lambda: fused.gather_segments(sre, sim, starts, l_seg,
+                                             **g_kw),
+        lambda: fused.gather_segments_reference(sre, sim, starts, l_seg,
+                                                **g_kw),
+        plain_passes=2)
+    ls, _, _ = _timed_turns(torch, lambda: (sre[idx], sim[idx]),
+                            lambda: None, plain_passes=0)
+    before = sum(_launch_counts().values())
+    seg = fused.gather_segments(sre, sim, starts, l_seg, **g_kw)
+    per_block = sum(_launch_counts().values()) - before
+    n_bytes = _nbytes(sre, sim, starts, *seg)
+    bound, bound_by = _bound(n_bytes, 0.0)
+    return dict(launches_per_block=per_block,
+                ms=statistics.median(ks), ms_min=min(ks), ms_max=max(ks),
+                plain_ms=statistics.median(ps),
+                ms_synced=statistics.median(k_sync),
+                library_ms=statistics.median(ls), bound_ms=bound,
+                bound_by=bound_by, bytes=n_bytes, l_seg=l_seg)
 
 
 def phase_epoch_receivers(torch):
@@ -2866,6 +2914,607 @@ def phase_pad_fft(torch):
     return times
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the other GNSS systems at ladder 4's full width
+# ---------------------------------------------------------------------------
+
+WIDE_FS = 8_184_000.0               # ladder 4's rate (bench.py:_run_mixed)
+MIXED_BLOCK_MS = 96                 # E1B 24 epochs, the 1 ms systems 96
+MIXED_SPAN = 10                     # blocks per span
+MIXED_WARM = 2 * MIXED_SPAN         # single blocks before the spans
+MIXED_PASSES = 2                    # timed passes of MIXED_SPANS spans
+MIXED_SPANS = 2
+MIXED_CHANNELS = {"gps_l1ca": 8, "galileo_e1b": 4, "glonass_l1of": 4,
+                  "beidou_b1i": 16}
+# B1 at 96 ms blocks, power lock: (wp, R, K) per system
+WIDE_MXU_SHAPES = {"gps_l1ca": (8704, 13, 8), "beidou_b1i": (8704, 9, 8),
+                   "glonass_l1of": (8704, 21, 8),
+                   "galileo_e1b": (33280, 9, 6)}
+LADDER4_BLOCK_MS = 20               # presets.ladder4_multi_constellation
+LADDER4_S = 1.0                     # its run: 50 blocks per branch
+# ... at ladder 4's own 20 ms blocks (the second path), power lock
+LADDER4_MXU_SHAPES = {"gps_l1ca": (8704, 13, 5), "beidou_b1i": (8704, 9, 5),
+                      "glonass_l1of": (8704, 21, 5)}
+# R above the whole-width layout's 16 on a window one lane chunk covers:
+# GLONASS at 1.023 MHz with 4-chip early-late spacing (wp 1536, R 21)
+ONE_CHUNK_FS, ONE_CHUNK_EL = 1_023_000.0, 4.0
+WIDE_SEG_WP = 33152                 # E1B on seg at 8.184 MHz (5 epochs)
+WIDE_DIRECT_WP = 33280              # ... on direct (96 ms: 24 epochs)
+WIDE_VARIANTS = {"power": {}, "costas": dict(lock_mode="costas")}
+FDMA_HZ = 562_500.0
+
+
+def mixed_sats(models):
+    """bench.py's mixed scene (:541-558): 6 GPS L1 C/A, 2 Galileo E1B, 2
+    GLONASS L1OF (FDMA channels +2 and -3), 4 BeiDou B1I; ``models`` the
+    port's models package."""
+    sat = models.SatelliteScenario
+    return ([sat(prn=p, doppler_hz=float(400.0 * ((p % 5) - 2)),
+                 code_phase_chips=float((37 * p) % 1023), amplitude=0.25,
+                 signal=models.GPS_L1CA) for p in (2, 5, 9, 14, 21, 28)]
+            + [sat(prn=p, doppler_hz=float(300.0 * (p % 3) - 300),
+                   amplitude=0.22, signal=models.GALILEO_E1B)
+               for p in (11, 19)]
+            + [sat(prn=1, doppler_hz=2 * FDMA_HZ - 1200.0, amplitude=0.3,
+                   signal=models.GLONASS_L1OF),
+               sat(prn=2, doppler_hz=-3 * FDMA_HZ + 800.0, amplitude=0.3,
+                   signal=models.GLONASS_L1OF)]
+            + [sat(prn=p, doppler_hz=float(250.0 * (p % 4) - 500),
+                   amplitude=0.28, signal=models.BEIDOU_B1I)
+               for p in (6, 12, 27, 33)])
+
+
+def mixed_truth(sats):
+    """{system: {reported PRN: Doppler}} of a scene: GLONASS channels
+    report the pseudo-PRN of their FDMA channel (k + 8 for channel k in
+    range(-7, 7)), their Doppler with its FDMA offset."""
+    out: dict = {}
+    for s in sats:
+        prn = s.prn
+        if s.signal.name == "glonass_l1of":
+            prn = int(round(s.doppler_hz / FDMA_HZ)) + 8
+        out.setdefault(s.signal.name, {})[prn] = s.doppler_hz
+    return out
+
+
+def wide_inputs(torch, device, system, cfg_kw, layout="mxu",
+                block_ms=MIXED_BLOCK_MS, seed=7, fs=WIDE_FS,
+                n_channels=None):
+    """One block's kernel inputs for ``system`` at ``fs`` (8.184 MHz)
+    through FusedTracker's own re-anchor: the mixed scene's satellites
+    of that system (rendered alone, ``seed``), each channel started on
+    its satellite's code boundary at its true Doppler (the FDMA offset
+    included), the system's other channels (MIXED_CHANNELS, or
+    ``n_channels``) idle.
+    Returns a dict: "ft", "args", "kw", "n_sats"; for seg, args are
+    B4b's on the segments of B4c's plain version and "gather" holds
+    B4c's (args, kw)."""
+    from gnss_sdr_tpu_torch import models
+    from gnss_sdr_tpu_torch.config import TrackConfig
+    from gnss_sdr_tpu_torch.models.constellation import get_signal
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+    from gnss_sdr_tpu_torch.receiver.fused_runner import FusedTracker
+
+    spec = get_signal(system)
+    c = n_channels or MIXED_CHANNELS[system]
+    sats = [s for s in mixed_sats(models) if s.signal.name == system][:c]
+    n0 = spec.samples_per_code(fs)
+    t_epochs = block_ms // spec.code_period_ms
+    cfg = TrackConfig(signal=system, n_channels=c, correlator="fused",
+                      **cfg_kw)
+    params = trk.TrackParams.create(cfg, spec, fs)
+    codes = trk.make_sampled_code_table(spec, fs,
+                                        max(s.prn for s in sats),
+                                        window=params.window)
+    history = 2 * n0 + 4096
+    ft = FusedTracker(params, cfg, spec, fs, codes, t_epochs,
+                      history + t_epochs * n0, layout=layout, device=device)
+    st = trk.init_state(c)
+    chips = spec.code_length_chips
+    for ch, s in enumerate(sats):
+        off = int(round((chips - s.code_phase_chips) % chips * fs
+                        / spec.code_rate_hz))
+        if off <= ft.el_pad:
+            off += n0
+        st = trk.start_channel(st, ch, s.prn - 1, s.doppler_hz, off,
+                               spec.code_rate_hz)
+    rows = torch.from_numpy(codes[np.maximum(st.prn_idx, 0)]).to(device)
+    sig = models.synthesize(sats, history + t_epochs * n0, fs,
+                            noise_std=1.0, seed=seed)
+    args, kw = ft.kernel_args(ft.anchor_block(st),
+                              np.real(sig).astype(np.float32),
+                              np.imag(sig).astype(np.float32), rows)
+    out = dict(ft=ft, args=args, kw=kw, n_sats=len(sats))
+    if ft.layout == "seg":
+        host = kw.pop("starts_host")
+        sre, sim, starts, reps, mat = args
+        gather = ((sre, sim, starts, ft.l_seg), dict(starts_host=host))
+        seg = fused.gather_segments_reference(*gather[0], **gather[1])
+        out.update(args=(*seg, reps, mat), gather=gather)
+    return out
+
+
+def _margins(err):
+    return json.dumps({k: float(f"{v:.3e}") for k, v in err.items()})
+
+
+def _check_active(sk, n_sats, label):
+    active = sk[:, 7].cpu().numpy()
+    assert active[:n_sats].all() and not active[n_sats:].any(), (
+        label, active)
+
+
+def phase_wide_check(torch):
+    """Slice 10's kernel shapes against the plain versions, open loop,
+    power and Costas lock: B1 in lane chunks at the four ladder-4 shapes
+    (8.184 MHz, 96 ms blocks), at the three 1 ms systems' shapes of
+    ladder 4's own 20 ms blocks (K 5, the second path), and at R 21 on a
+    window one chunk covers (GLONASS at 1.023 MHz, 4-chip early-late
+    spacing), full and lean (lean equal to full bit for bit); B4c (bit
+    for bit) and B4b at Galileo E1B's seg width (wp 33,152, 20 ms
+    blocks: 5 epochs, pieces of one); B3 at its direct width (wp 33,280,
+    96 ms). Returns the largest |error| of the
+    correlations per kernel."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    max_abs = {"mxu": 0.0, "seg": 0.0, "direct": 0.0}
+    cases = ([(system, shape, {}, MIXED_BLOCK_MS)
+              for system, shape in WIDE_MXU_SHAPES.items()]
+             + [(system, shape, {}, LADDER4_BLOCK_MS)
+                for system, shape in LADDER4_MXU_SHAPES.items()]
+             + [("glonass_l1of", (1536, 21, 5),
+                 dict(fs=ONE_CHUNK_FS, n_channels=2), LADDER4_BLOCK_MS)])
+    for system, (wp, rows, k), in_kw, block_ms in cases:
+        for name, cfg_kw in WIDE_VARIANTS.items():
+            if "fs" in in_kw:
+                cfg_kw = dict(cfg_kw, early_late_chips=ONE_CHUNK_EL)
+            inp = wide_inputs(torch, "cuda", system, cfg_kw,
+                              block_ms=block_ms, **in_kw)
+            ft, args, kw = inp["ft"], inp["args"], inp["kw"]
+            assert (ft.layout, ft.wp, ft.n_rows) == ("mxu", wp, rows), (
+                system, ft.layout, ft.wp, ft.n_rows)
+            k_run = kw["k_epochs"]
+            assert k_run == (k if name == "power" else 2), (system, k_run)
+            plan = fused.mxu_smem_plan(wp, rows, k_run)
+            assert plan["layout"] == "chunked", plan
+            assert ("fs" in in_kw) == (plan["chunks"] == [(0, wp)]), plan
+            before = fused.launch_count
+            tk, sk, err = open_loop_compare(torch, args, kw)
+            assert fused.launch_count == before + kw["t_epochs"] // (2 * k_run)
+            tl, sl = fused.track_block_fused_mxu(
+                *args, **dict(kw, telem_mode="lean"))
+            lean_equals_full(torch, tk, sk, tl, sl, k_run, name == "costas")
+            _check_active(sk, inp["n_sats"], (system, name))
+            max_abs["mxu"] = max(max_abs["mxu"], err["corr_max_abs"])
+            print(f"B1 vs plain, open loop [{system} {name}: "
+                  f"{in_kw.get('fs', WIDE_FS) / 1e6:g} MHz, wp {wp}, R "
+                  f"{rows}, K {k_run}, T {kw['t_epochs']}, chunks "
+                  f"{len(plan['chunks'])} x {plan['chunk']} lanes, "
+                  f"{plan['bytes']} B]: {_margins(err)}; lean equal to "
+                  "full")
+    for name, cfg_kw in WIDE_VARIANTS.items():
+        inp = wide_inputs(torch, "cuda", "galileo_e1b", cfg_kw, layout="seg",
+                          block_ms=LADDER4_BLOCK_MS)
+        ft, args, kw = inp["ft"], inp["args"], inp["kw"]
+        assert (ft.wp, ft.t_epochs) == (WIDE_SEG_WP, 5), (ft.wp, ft.t_epochs)
+        g_args, g_kw = inp["gather"]
+        got = fused.gather_segments(*g_args, **g_kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], args[0]) and \
+            torch.equal(got[1], args[1]), "B4c differs"
+        before = _launch_counts()
+        tk, sk, err = epoch_open_loop(torch, "seg", args, kw, piece=1)
+        launched = {k: v - before[k] for k, v in _launch_counts().items()}
+        assert launched["track_block_fused_seg"] == 5 and \
+            sum(launched.values()) == 5, launched
+        _check_active(sk, inp["n_sats"], ("seg", name))
+        max_abs["seg"] = max(max_abs["seg"], err["corr_max_abs"])
+        print(f"B4b vs plain, open loop [galileo_e1b {name}: wp "
+              f"{WIDE_SEG_WP}, T 5, l_seg {ft.l_seg}, "
+              f"{fused.epoch_smem_plan(WIDE_SEG_WP, 5)}]: {_margins(err)}; "
+              "B4c equal to its plain version")
+        inp = wide_inputs(torch, "cuda", "galileo_e1b", cfg_kw,
+                          layout="direct")
+        ft, args, kw = inp["ft"], inp["args"], inp["kw"]
+        assert (ft.layout, ft.wp) == ("direct", WIDE_DIRECT_WP), ft.wp
+        before = fused.direct_launch_count
+        tk, sk, err = open_loop_compare(torch, args, kw, layout="direct")
+        assert fused.direct_launch_count > before
+        _check_active(sk, inp["n_sats"], ("direct", name))
+        max_abs["direct"] = max(max_abs["direct"], err["corr_max_abs"])
+        print(f"B3 vs plain, open loop [galileo_e1b {name}: wp "
+              f"{WIDE_DIRECT_WP}, T {kw['t_epochs']}, K {kw['k_epochs']}]: "
+              f"{_margins(err)}")
+    return max_abs
+
+
+def phase_wide_timing(torch):
+    """The wide shapes' times per block (as phases 4 and 16: the L2
+    flushed, queued launches behind a head start, median of the passes),
+    their plain versions' (two passes) and their bounds: B1 at the four
+    ladder-4 shapes per 96 ms block, B4b and B4c per 20 ms Galileo block
+    at wp 33,152, B3 per 96 ms Galileo block at wp 33,280."""
+    out = {}
+
+    def show(key, res, what):
+        out[key] = res
+        print(f"timing [{key}] (ms per {what}): " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in res.items()}))
+
+    for system, (wp, rows, _) in WIDE_MXU_SHAPES.items():
+        inp = wide_inputs(torch, "cuda", system, {})
+        res = kernel_timing(torch, "mxu", inp["args"], inp["kw"],
+                            plain_passes=2)
+        res.update(wp=wp, rows=rows, k_epochs=inp["kw"]["k_epochs"],
+                   channels=MIXED_CHANNELS[system])
+        show("mxu_" + system, res, f"96 ms block, {res['channels']} ch")
+    inp = wide_inputs(torch, "cuda", "galileo_e1b", {}, layout="seg",
+                      block_ms=LADDER4_BLOCK_MS)
+    show("seg", epoch_timing(torch, "seg", inp["args"], inp["kw"]),
+         "20 ms block, 4 ch")
+    show("gather", gather_timing(torch, *inp["gather"]), "20 ms block, 4 ch")
+    inp = wide_inputs(torch, "cuda", "galileo_e1b", {}, layout="direct")
+    show("direct", kernel_timing(torch, "direct", inp["args"], inp["kw"],
+                                 plain_passes=2), "96 ms block, 4 ch")
+    return out
+
+
+def mixed_configs(block_ms=MIXED_BLOCK_MS, correlator="fused"):
+    """bench.py's mixed row (:576-611): 32 channels, GPS 8, Galileo E1B 4,
+    GLONASS L1OF 4, BeiDou B1I 16, at 8.184 MHz."""
+    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
+        TrackConfig
+
+    def cfg(signal, n_channels, **acq):
+        return ReceiverConfig(
+            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=WIDE_FS),
+            acq=AcqConfig(signal=signal, **acq),
+            track=TrackConfig(signal=signal, n_channels=n_channels,
+                              correlator=correlator),
+            block_ms=block_ms)
+
+    configs = {
+        "gps_l1ca": cfg("gps_l1ca", 8),
+        "galileo_e1b": cfg("galileo_e1b", 4, n_prn=36, non_coherent_ms=16,
+                           detection_threshold=12.0),
+        "glonass_l1of": cfg("glonass_l1of", 4, n_prn=14,
+                            fdma_spacing_hz=FDMA_HZ,
+                            fdma_channels=tuple(range(-7, 7))),
+        "beidou_b1i": cfg("beidou_b1i", 16, n_prn=37,
+                          detection_threshold=10.0),
+    }
+    assert {k: c.track.n_channels for k, c in configs.items()} == \
+        MIXED_CHANNELS
+    return configs
+
+
+def multi_run_counted(mrx, n_blocks, scan_blocks=1):
+    """``mrx.run(max_blocks=n_blocks, scan_blocks=scan_blocks)``, each
+    branch's kernel launches and blocks counted around its own turn: the
+    round robin calls each branch's ``step`` (single blocks) or ``run``
+    (spans) once per turn, and that method is wrapped on the instance for
+    the call. Returns {branch: (blocks, launches)}."""
+    per = {name: (0, dict.fromkeys(_launch_counts(), 0))
+           for name in mrx.receivers}
+    attr = "run" if scan_blocks > 1 else "step"
+
+    def counted(name, rx, turn):
+        def call(*args, **kw):
+            before, b0 = _launch_counts(), rx.window.blocks_fed
+            out = turn(*args, **kw)
+            blocks, launches = per[name]
+            per[name] = (blocks + rx.window.blocks_fed - b0,
+                         {k: launches[k] + v - before[k]
+                          for k, v in _launch_counts().items()})
+            return out
+        return call
+
+    for name, rx in mrx.receivers.items():
+        setattr(rx, attr, counted(name, rx, getattr(rx, attr)))
+    try:
+        mrx.run(max_blocks=n_blocks, scan_blocks=scan_blocks)
+    finally:
+        for rx in mrx.receivers.values():
+            delattr(rx, attr)
+    return per
+
+
+def searched(truth, configs):
+    """The scene's PRNs that the acquisition scheduler searches: the cold
+    search takes the first ``cold_pacing[1]`` PRNs (32) and the warm and
+    steady ones the first 8 and 5 untracked (do_acquisition.rs:65-68, as
+    the JAX package), so a PRN above 32 is never searched once one
+    satellite is tracked (ROADMAP C17: BeiDou 33 of the mixed scene, which
+    bench.py's TPU row did not track either)."""
+    return {system: {p: d for p, d in prns.items()
+                     if p <= configs[system].acq.cold_pacing[1]}
+            for system, prns in truth.items()}
+
+
+def _check_multi(mrx, truth, label):
+    """Every PRN of ``truth`` tracked per system and no other, each one's
+    Doppler over the last block (the mean of its carrier-frequency trace
+    over the block's epochs, as phase 9 reads it: B1's held rates jitter
+    from superstep to superstep, by up to ~70 Hz at E1B's 24 ms
+    supersteps, K 6) within 40 Hz; returns the largest |error| per
+    system."""
+    worst = {}
+    for system, prns in truth.items():
+        rx = mrx.receivers[system]
+        tracked = rx.summary()["tracked_prns"]
+        assert tracked == sorted(prns), (label, system, tracked)
+        dop = settled_doppler(rx, rx.epochs_per_block)
+        errs = [abs(dop[p] - want) for p, want in prns.items()]
+        worst[system] = max(errs)
+        assert worst[system] < 40.0, (label, system, errs)
+    return worst
+
+
+def phase_mixed(torch):
+    """Ladder 4 at full width, as bench.py's mixed row runs it: one 8.184
+    MHz stream of the 14 satellites (seed 7), 32 channels over four
+    branches, 96 ms blocks, correlator "fused" (every branch on B1's mxu
+    layout, the lane-chunked layout at these widths), a
+    DeviceArraySource(store="int8") per branch; single blocks, then
+    10-block spans, each branch's B1 launches equal to its blocks; the
+    real-time factor of two timed passes of two spans each; every scene
+    PRN that the acquisition searches (``searched``: all but BeiDou 33)
+    tracked per system, its Doppler over the last block within 40 Hz.
+    Then presets.ladder4_multi_constellation() with correlator "fused" at
+    its 20 ms blocks: Galileo on seg (B4c and B4b once per block at wp
+    33,152), the others on B1 at K = 5. Returns the B1 launches per
+    branch of the mixed row and each kernel's launches per branch of
+    ladder 4's."""
+    import dataclasses
+
+    from gnss_sdr_tpu_torch import models, presets
+    from gnss_sdr_tpu_torch.receiver import DeviceArraySource, \
+        MultiConstellationReceiver
+
+    sats = mixed_sats(models)
+    truth = mixed_truth(sats)
+    # what the run reads: the single blocks, one span, the timed passes
+    blocks = MIXED_WARM + MIXED_SPAN + MIXED_PASSES * MIXED_SPANS \
+        * MIXED_SPAN + 1
+    n = blocks * MIXED_BLOCK_MS * int(WIDE_FS) // 1000
+    t0 = time.perf_counter()
+    sig = render_scene(models, sats, n, WIDE_FS, seed=7)
+    print(f"mixed scene: {n / WIDE_FS:.3f} s at {WIDE_FS:g} Hz, 14 "
+          f"satellites, rendered in {time.perf_counter() - t0:.1f} s")
+    configs = mixed_configs()
+    mrx = MultiConstellationReceiver(configs, sources={
+        name: DeviceArraySource(sig, WIDE_FS, store="int8")
+        for name in configs})
+    assert all(rx.device.type == "cuda" for rx in mrx.receivers.values())
+    _reset_launch_counts()                  # this path starts here
+    per = multi_run_counted(mrx, MIXED_WARM)
+    spans = multi_run_counted(mrx, MIXED_SPAN, scan_blocks=MIXED_SPAN)
+    for name, rx in mrx.receivers.items():
+        assert rx.fused.layout == "mxu", (name, rx.fused.layout)
+        for part in (per, spans):
+            b, launches = part[name]
+            _expect_launches(launches, track_block_fused_mxu=b)
+    launches = {name: per[name][1]["track_block_fused_mxu"]
+                + spans[name][1]["track_block_fused_mxu"]
+                for name in per}
+    rtf = []
+    for _ in range(MIXED_PASSES):
+        t0 = time.perf_counter()
+        timed = multi_run_counted(mrx, MIXED_SPANS * MIXED_SPAN,
+                                  scan_blocks=MIXED_SPAN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rtf.append(MIXED_SPANS * MIXED_SPAN * MIXED_BLOCK_MS / 1000 / wall)
+        for name, (b, got) in timed.items():
+            assert b == MIXED_SPANS * MIXED_SPAN, (name, b)
+            _expect_launches(got, track_block_fused_mxu=b)
+            launches[name] += got["track_block_fused_mxu"]
+    summary = mrx.summary()
+    worst = _check_multi(mrx, searched(truth, configs), "mixed")
+    shares = {name: {k: round(v["total_s"], 4)
+                     for k, v in out["stage_timing"].items()}
+              for name, out in summary.items()}
+    print(f"mixed receiver [32 ch, {MIXED_BLOCK_MS} ms blocks, spans of "
+          f"{MIXED_SPAN}, DeviceArraySource int8]: tracked "
+          f"{ {k: v['tracked_prns'] for k, v in summary.items()} }, max "
+          f"|doppler error| {json.dumps(worst)} Hz; B1 launches per "
+          f"branch {json.dumps(launches)} (= blocks); real-time factor "
+          f"{[round(r, 3) for r in rtf]} (pass agreement "
+          f"{min(rtf) / max(rtf):.3f})")
+    print("  stage totals (s) per branch: " + json.dumps(shares))
+
+    # ladder 4 as its preset stands, correlator "fused", 20 ms blocks
+    cfgs = {name: dataclasses.replace(c, track=dataclasses.replace(
+        c.track, correlator="fused"))
+        for name, c in presets.ladder4_multi_constellation().items()}
+    n4 = int(LADDER4_S * WIDE_FS)
+    mrx4 = MultiConstellationReceiver(cfgs, sources={
+        name: DeviceArraySource(sig[:n4], WIDE_FS, store="int8")
+        for name in cfgs})
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    per4 = multi_run_counted(mrx4, n4 * 1000 // int(WIDE_FS)
+                             // LADDER4_BLOCK_MS)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    layouts = {name: rx.fused.layout for name, rx in mrx4.receivers.items()}
+    assert layouts == {"gps_l1ca": "mxu", "galileo_e1b": "seg",
+                       "beidou_b1i": "mxu", "glonass_l1of": "mxu"}, layouts
+    for name, (b, got) in per4.items():
+        if name == "galileo_e1b":
+            _expect_launches(got, track_block_fused_seg=b, gather_segments=b)
+        else:
+            _expect_launches(got, track_block_fused_mxu=b)
+    worst4 = _check_multi(mrx4, searched(truth, cfgs), "ladder 4")
+    print(f"ladder 4 preset [fused, {LADDER4_BLOCK_MS} ms blocks, "
+          f"{LADDER4_S} s, layouts {json.dumps(layouts)}]: launches "
+          f"per branch {json.dumps({k: {n: c for n, c in v[1].items() if c} for k, v in per4.items()})}"
+          f"; max |doppler error| {json.dumps(worst4)} Hz; "
+          f"{LADDER4_S / wall4:.3f}x real time")
+    return {"launches": launches,
+            "ladder4": {k: v[1] for k, v in per4.items()}}
+
+
+def render_scene(models, sats, n, fs, seed, chunk=1 << 20):
+    """``models.synthesize(sats, n, fs, noise_std=1.0, seed=seed)``
+    rendered in chunks on the host's cores: each chunk's satellites at
+    its ``start_sample`` (the carrier and code continue exactly), then
+    the whole stream's noise from one generator, as synthesize draws
+    it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty(n, np.complex64)
+
+    def one(i0):
+        m = min(chunk, n - i0)
+        out[i0:i0 + m] = models.synthesize(sats, m, fs, start_sample=i0)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(one, range(0, n, chunk)))
+    rng = np.random.default_rng(seed)
+    noise = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) / np.sqrt(
+        2.0)
+    out += noise.astype(np.complex64)
+    return out
+
+
+# the live-decode scenes of tests/test_nav_live_multi.py: the truths of
+# tests/test_nav_messages.py, each scene's satellite, rate, length, seed
+def live_truths(gn, ephemeris_cls):
+    gal = ephemeris_cls(
+        prn=11, system="galileo", sqrt_a=5440.588, e=0.01, m0=1.2,
+        omega0=-2.1, i0=0.96, omega=0.5, omega_dot=-8.0e-9, idot=3.0e-10,
+        delta_n=4.5e-9, c_uc=1e-6, c_us=2e-6, c_rc=200.0, c_rs=-50.0,
+        c_ic=5e-8, c_is=-4e-8, t_oe=3600.0, t_oc=3600.0, a_f0=1e-4,
+        a_f1=-2e-11, a_f2=0.0, t_gd=3e-9, ura=107, week=1234)
+    bds = ephemeris_cls(
+        prn=8, system="beidou", sqrt_a=5282.6, e=0.002, m0=0.7,
+        omega0=1.1, i0=0.956, omega=-2.4, omega_dot=-7e-9, idot=2e-10,
+        delta_n=4e-9, c_uc=1e-6, c_us=7e-6, c_rc=180.0, c_rs=60.0,
+        c_ic=4e-8, c_is=1e-8, t_oe=241920.0, t_oc=241920.0, a_f0=2e-5,
+        a_f1=1e-12, a_f2=0.0, t_gd=4e-9, week=700, ura=2, iodc=11,
+        iode=11, health=0)
+    glo = gn.GlonassEphemeris(
+        prn=5, pos_m=np.array([11e6, -13e6, 19e6]),
+        vel_m_s=np.array([-1200.0, 2500.0, 900.0]),
+        acc_m_s2=np.array([1e-6, -2e-6, 3e-6]),
+        t_b_s=11700.0, gamma_n=2e-12, tau_n=-5e-7, nt=400, health=0)
+    return gal, bds, glo
+
+
+def live_scenes():
+    """The three scenes of tests/test_nav_live_multi.py as (name,
+    receiver config, satellite, rate, seconds, seed, truth, the PRN the
+    receiver reports)."""
+    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
+        TrackConfig, models
+    from gnss_sdr_tpu_torch.models.constellation import BEIDOU_B1I, \
+        GALILEO_E1B, GLONASS_L1OF
+    from gnss_sdr_tpu_torch.nav import bds_d1, glonass_nav as gn, inav
+    from gnss_sdr_tpu_torch.nav.ephemeris import Ephemeris
+
+    gal, bds, glo = live_truths(gn, Ephemeris)
+
+    def cfg(fs, signal, n_channels=4, **acq):
+        return ReceiverConfig(
+            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=fs),
+            acq=AcqConfig(signal=signal, **acq),
+            track=TrackConfig(signal=signal, n_channels=n_channels),
+            block_ms=100)
+
+    sat = models.SatelliteScenario
+    return [
+        ("galileo_e1b",
+         cfg(4_092_000.0, "galileo_e1b", n_prn=36, non_coherent_ms=16,
+             detection_threshold=12.0),
+         sat(prn=gal.prn, doppler_hz=987.0, amplitude=0.3,
+             nav_bits=inav.encode_symbol_stream(
+                 gal, wn=gal.week, tow0_s=432_000.0, n_pages=7,
+                 order=[5, 1, 2, 3, 4]), signal=GALILEO_E1B),
+         4_092_000.0, 13.0, 31, gal, gal.prn),
+        ("beidou_b1i",
+         cfg(4_092_000.0, "beidou_b1i", n_prn=37, detection_threshold=10.0),
+         sat(prn=bds.prn, doppler_hz=-1543.0, amplitude=0.3,
+             nav_bits=bds_d1.encode_bit_stream(bds, sow0=345_600,
+                                               n_subframes=4,
+                                               order=[5, 1, 2, 3]),
+             signal=BEIDOU_B1I),
+         4_092_000.0, 25.0, 32, bds, bds.prn),
+        ("glonass_l1of",
+         cfg(4_088_000.0, "glonass_l1of", n_prn=14, fdma_spacing_hz=FDMA_HZ,
+             fdma_channels=tuple(range(-7, 7))),
+         sat(prn=10, doppler_hz=2 * FDMA_HZ + 777.0, amplitude=0.3,
+             nav_bits=gn.encode_bit_stream(glo, tk_s=11_430.0, n_strings=6,
+                                           order=[15, 1, 2, 3, 4]),
+             signal=GLONASS_L1OF),
+         4_088_000.0, 12.5, 33, glo, 10),
+    ]
+
+
+def live_ephemeris_ok(name, eph, truth):
+    """tests/test_nav_live_multi.py's checks of a decoded ephemeris."""
+    if name == "glonass_l1of":
+        assert eph.system == "glonass"
+        assert np.allclose(eph.pos_m, truth.pos_m, atol=2.0)
+        assert np.allclose(eph.vel_m_s, truth.vel_m_s, atol=1e-3)
+        assert eph.t_b_s == truth.t_b_s
+        assert abs(eph.tau_n - truth.tau_n) < 2e-9
+        return
+    assert eph.system == {"galileo_e1b": "galileo",
+                          "beidou_b1i": "beidou"}[name]
+    assert abs(eph.sqrt_a - truth.sqrt_a) <= 2**-19
+    assert abs(eph.e - truth.e) <= 2**-33
+    assert eph.t_oe == truth.t_oe and eph.week == truth.week
+    assert abs(eph.a_f0 - truth.a_f0) <= (2**-33 if name == "galileo_e1b"
+                                          else 2**-32)
+    if name == "galileo_e1b":
+        assert abs(eph.m0 - truth.m0) <= 2**-30 * np.pi
+
+
+def phase_live_nav(torch):
+    """The three live-decode scenes of tests/test_nav_live_multi.py on
+    the card (Galileo E1B I/NAV 13 s, BeiDou B1I D1 25 s, GLONASS L1OF
+    12.5 s; one satellite each with its genuine message, 100 ms blocks,
+    the default tracker; the test's SyntheticSource and seeds, rendered on
+    the host as the receiver reads): a cold start, the one PRN tracked,
+    bit sync and
+    frame lock, and its ephemeris equal to its truth as that test checks.
+    Returns {scene: (seconds of signal, wall s)}."""
+    from gnss_sdr_tpu_torch.receiver import Receiver, SyntheticSource
+
+    out = {}
+    for name, cfg, sat, fs, seconds, seed, truth, prn in live_scenes():
+        # the test's source: rendered block by block as the receiver reads
+        src = SyntheticSource([sat], fs, noise_std=1.0, seed=seed,
+                              total_samples=int(seconds * fs))
+        rx = Receiver(cfg, src)
+        assert rx.device.type == "cuda"
+        t0 = time.perf_counter()
+        summary = rx.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert set(rx.active) == {prn}, (name, rx.active)
+        status = list(summary["nav"].values())[0]
+        assert status["bit_synced"] and status["frame_locked"], status
+        assert prn in rx.nav.ephemerides, (name, sorted(rx.nav.ephemerides))
+        live_ephemeris_ok(name, rx.nav.ephemerides[prn], truth)
+        out[name] = (seconds, wall)
+        print(f"live decode [{name}]: {seconds} s of signal in {wall:.3f} s "
+              f"({seconds / wall:.2f}x), PRN {prn} tracked, nav "
+              f"{json.dumps(status)}, ephemeris equal to its truth")
+    return out
+
+
+def _wide_row(res):
+    """A wide shape's numbers for the kernels line."""
+    keep = ("wp", "rows", "k_epochs", "channels", "t_epochs", "l_seg", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_per_block")
+    return {k: res[k] for k in keep if k in res}
+
+
 def main() -> int:
     import torch
 
@@ -2900,6 +3549,10 @@ def main() -> int:
     journey = phase_cli(torch)
     phase_ingest(torch)
     phase_pad_fft(torch)
+    wide_abs = phase_wide_check(torch)
+    wtiming = phase_wide_timing(torch)
+    mixed = phase_mixed(torch)
+    phase_live_nav(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -2914,10 +3567,16 @@ def main() -> int:
             "single_block": launches,
             "steady_pipelined": steady["a"]["track_block_fused_mxu"],
             "steady_sync": steady["b"]["track_block_fused_mxu"],
-            "cli_journey": journey["launches"]["track_block_fused_mxu"]},
+            "cli_journey": journey["launches"]["track_block_fused_mxu"],
+            "mixed_8184k": mixed["launches"],
+            "ladder4_20ms": {k: v["track_block_fused_mxu"]
+                             for k, v in mixed["ladder4"].items()
+                             if v["track_block_fused_mxu"]}},
         "lean_mode_checked": True,
         "registers_stack": timing["ptxas"],
-        "max_abs_err": max_abs,
+        "wide_shapes": {k[4:]: _wide_row(v) for k, v in wtiming.items()
+                        if k.startswith("mxu_")},
+        "max_abs_err": max(max_abs, wide_abs["mxu"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -2944,7 +3603,8 @@ def main() -> int:
         "source": src + "track_block_direct.cu",
         "replaces": replaces + "848",
         "launches": steady["c"]["track_block_fused_direct"],
-        "max_abs_err": direct_abs,
+        "wide_shape": _wide_row(wtiming["direct"]),
+        "max_abs_err": max(direct_abs, wide_abs["direct"]),
         "ms": dtiming["ms"],
         "plain_ms": dtiming["plain_ms"],
         "bound_ms": dtiming["bound_ms"],
@@ -2975,12 +3635,16 @@ def main() -> int:
         "source": src + source,
         "replaces": replaces + line,
         "launches": launches,
-        "max_abs_err": epoch_abs[feed],
+        "max_abs_err": max(epoch_abs[feed], wide_abs.get(feed, 0.0)),
         "ms": etiming[feed]["ms"],
         "plain_ms": etiming[feed]["plain_ms"],
         "bound_ms": etiming[feed]["bound_ms"],
         "bound_by": etiming[feed]["bound_by"],
         "library_ms": etiming[feed]["library_ms"],
+        **({"wide_shape": _wide_row(wtiming[feed]),
+            "launches_ladder4_galileo_20ms":
+                mixed["ladder4"]["galileo_e1b"][name]}
+           if feed in ("seg", "gather") else {}),
     } for name, source, line, feed, launches in (
         # the windows receiver (500 ms blocks) and the receiver at an odd
         # epoch count (125 ms blocks, seg); B6 through its entry point

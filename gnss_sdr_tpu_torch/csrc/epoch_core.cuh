@@ -67,8 +67,14 @@
 // 2560) and 172 KB (resident, 4352); else the replica rows in global
 // memory (the prompt row is built from there, with the same result) and
 // two slots, at 5 rows from wp 5,888 (e.g. the resident layout at 4.092
-// MHz); else that and one slot, from wp 11,648 up to the widest, 16,384
-// (199 KB).
+// MHz); else that and one slot, from wp 11,648 (199 KB at 16,384); else
+// no slot: every epoch mixes its window from global memory, where it
+// lies (the same samples, so the same result), from wp 19,200 (e.g.
+// Galileo E1B at 8.184 MHz, seg wp 33,152: the prompt row 133 KB, in
+// all 136 KB) up to the widest, kMaxW128 * 128 = 49,152 (201 KB). The
+// carrier's 128 + w128 trig factors are built by a loop over the
+// threads, so w128 may pass the 128 of the JAX kernel's iota (ROADMAP
+// C6, which breaks the JAX _epoch_core above 16,384 lanes).
 //
 // Built with --fmad=false so every scalar step rounds as the plain
 // version's separate ops do; the carrier phase and chip ledger advances
@@ -88,9 +94,10 @@ constexpr int kTelem = 17;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDrift = 8;
-// carrier A factors: wp <= 128 * 128 (the JAX kernel's limit, ROADMAP C6)
-constexpr int kMaxW128 = 128;
-static_assert(kThreads >= 128 + kMaxW128, "one trig factor per thread");
+// carrier A factors: wp <= 384 * 128, where the prompt row and the trig
+// factors still fit in shared memory (the JAX kernel stops at 128, ROADMAP
+// C6)
+constexpr int kMaxW128 = 384;
 constexpr int kSlots = 2;       // the window ring's most slots
 constexpr int kSlotPad = 4;     // a slot holds wp + 4 samples
 // the thread that stages windows: lane 0 of the last warp
@@ -111,8 +118,8 @@ struct Params {  // what every feed shares
   float pll_c1, pll_c2, dll_c1, dll_c2;
   float aiding_scale, if_freq, costas_thr;
   int aiding, costas, interp;
-  // set by launch(): the ring's slots (1 or 2), and whether the replica
-  // rows sit in shared memory
+  // set by launch(): the ring's slots (2, 1, or 0: windows read from
+  // global memory), and whether the replica rows sit in shared memory
   int n_slots, reps_shared;
 };
 
@@ -171,7 +178,7 @@ inline size_t smem_floats(const Params& p) {
 }
 
 // choose the first shared-memory layout that fits (the replica rows and
-// two slots; the rows in global memory; one slot), set the kernel's
+// two slots; the rows in global memory; one slot; no slot), set the kernel's
 // shared-memory ceiling, launch one thread block per channel; returns a
 // CUDA error code
 template <class Feed>
@@ -189,6 +196,7 @@ inline int launch(void (*kernel)(Params, Feed), Params p, const Feed& f,
   const size_t room = (size_t)smem_max - fa.sharedSizeBytes;
   if (smem_floats(p) * sizeof(float) > room) p.reps_shared = 0;
   if (smem_floats(p) * sizeof(float) > room) p.n_slots = 1;
+  if (smem_floats(p) * sizeof(float) > room) p.n_slots = 0;
   const size_t smem = smem_floats(p) * sizeof(float);
   if (smem > room) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kernel,
@@ -437,7 +445,7 @@ struct Smem {  // one channel's working set in shared memory
 
 // epoch t's slot of the ring (t mod n_slots), and the parity of the
 // slot's mbarrier phase that lands it ((t / n_slots) mod 2), without a
-// division (n_slots is 1 or 2)
+// division (n_slots is 1 or 2; never called with no slot)
 __device__ __forceinline__ int ring_slot(const Params& p, int t) {
   return t & (p.n_slots - 1);
 }
@@ -524,23 +532,24 @@ __device__ __forceinline__ void run_epoch(const Params& p, const Smem& s,
   const int wp = p.wp, w128 = wp / 128;
   // ---- stage 1: NCO quantities, carrier trig factors, prompt row -------
   const Epoch q = epoch_nco(p, st, f.start_lane(st, t), f.rem(t));
-  // one trig factor per thread (kThreads >= 128 + kMaxW128)
-  if (tid < 128 + w128) {
+  // the 128 + w128 trig factors over the threads (one each up to w128 =
+  // kThreads - 128, the main path's shapes)
+  for (int i = tid; i < 128 + w128; i += kThreads) {
     float th;
-    if (tid < 128) {
-      th = q.step * (float)tid;
+    if (i < 128) {
+      th = q.step * (float)i;
     } else {
-      th = q.phi0 + (q.step * 128.0f) * (float)(tid - 128);
+      th = q.phi0 + (q.step * 128.0f) * (float)(i - 128);
     }
     th = (th - floorf(th)) * kTwoPi;
     float sn, cs;
     sincosf(th, &sn, &cs);
-    if (tid < 128) {
-      s.b_cos[tid] = cs;
-      s.b_sin[tid] = sn;
+    if (i < 128) {
+      s.b_cos[i] = cs;
+      s.b_sin[i] = sn;
     } else {
-      s.a_cos[tid - 128] = cs;
-      s.a_sin[tid - 128] = sn;
+      s.a_cos[i - 128] = cs;
+      s.a_sin[i - 128] = sn;
     }
   }
   // a call site per place of the rows, so each reads its own memory
@@ -552,16 +561,24 @@ __device__ __forceinline__ void run_epoch(const Params& p, const Smem& s,
                      s.prow);
   }
   __syncthreads();
-  const int slot = ring_slot(p, t);
-  mbar_wait(s.bar + slot, ring_parity(p, t));
+  if (p.n_slots) mbar_wait(s.bar + ring_slot(p, t), ring_parity(p, t));
   // ---- stage 2: mix the window's in-mask lanes ---------------------------
   int l0, l1;
   mask_lanes(q, wp, &l0, &l1);
   float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  // the window sits in its slot behind the origin's residue mod 4
-  const float* wre = s.ring + 2 * slot * s.cap + (int)(f.origin(t) & 3LL);
-  mix(q, wp, p.el_shift, l0, l1, wre, wre + s.cap, s.prow, s.b_cos,
-      s.b_sin, s.a_cos, s.a_sin, acc);
+  // a call site per place of the window, so each reads its own memory
+  // space directly
+  if (p.n_slots) {
+    // the window sits in its slot behind the origin's residue mod 4
+    const float* wre = s.ring + 2 * ring_slot(p, t) * s.cap +
+                       (int)(f.origin(t) & 3LL);
+    mix(q, wp, p.el_shift, l0, l1, wre, wre + s.cap, s.prow, s.b_cos,
+        s.b_sin, s.a_cos, s.a_sin, acc);
+  } else {
+    const long long g = f.origin(t);
+    mix(q, wp, p.el_shift, l0, l1, f.re + g, f.im + g, s.prow, s.b_cos,
+        s.b_sin, s.a_cos, s.a_sin, acc);
+  }
   // ---- stage 3: the six correlations: warp sums, then the block's --------
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
@@ -572,7 +589,7 @@ __device__ __forceinline__ void run_epoch(const Params& p, const Smem& s,
   __syncthreads();
   // every warp is done with the window: stage epoch t + n_slots's into
   // its slot
-  if (tid == kStager && t + p.n_slots < p.t_epochs)
+  if (tid == kStager && p.n_slots && t + p.n_slots < p.t_epochs)
     stage_window(p, s, f, t + p.n_slots);
   float corr[6];
 #pragma unroll

@@ -20,8 +20,9 @@
 // Design: epoch::run_block (epoch_core.cuh), shared with B3. One thread
 // block per channel walks its T epochs in order; each epoch's window is
 // staged into shared memory by TMA two epochs ahead (one at windows of
-// 11,648 lanes or more; the TPU kernel's BlockSpec double-buffers B4a's
-// windows the same way), and the epoch
+// 11,648 lanes or more, and read from global memory from 19,200, e.g.
+// Galileo E1B's seg windows at 8.184 MHz; the TPU kernel's BlockSpec
+// double-buffers B4a's windows the same way), and the epoch
 // mixes it there with the prompt row it built once, over the lanes in
 // its mask only; two block barriers per epoch.
 //

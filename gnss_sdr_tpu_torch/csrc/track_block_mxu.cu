@@ -54,6 +54,25 @@
 // rows of one 8x8 matrix fall on distinct banks and the mix's tile
 // stores on consecutive ones.
 //
+// Lane chunks (the template flag kChunk; ROADMAP C15): where the whole
+// bank [R, wp] and tile [2K, wp] do not fit in shared memory (every
+// system at 8.184 MHz: GPS wp 8,704 at R 13 and K 8 needs ~498 KB,
+// Galileo E1B wp 33,280 ~1.4 MB), the contraction walks wp in chunks of
+// Params::chunk lanes (a multiple of 128, the wrapper's plan,
+// mxu_smem_plan). Each chunk's bank rows [R, chunk] are staged by TMA
+// (one cp.async.bulk per row) into one of two buffers, two chunks ahead,
+// so the copy of chunk g + 2 runs while chunks g + 1 and g compute; the
+// chunk sequence runs on across supersteps, since the bank is the same
+// for every superstep of the block. Per chunk every warp mixes its
+// k-steps of the chunk's lanes of the K windows (read from global
+// memory, as the unstaged whole-width mix) into a [2K, chunk] tile and
+// contracts them with the staged bank rows into the same f32 fragments,
+// which thus accumulate across the chunks; one block barrier per chunk
+// frees the tile and the bank buffer. The cross-warp sums and warp 0's
+// chain are the whole-width layout's. Only the order of the f32 sums
+// differs from it (and from the plain version), so the result differs
+// by ulps.
+//
 // Why not wgmma: it multiplies 64-row tiles per warpgroup, and the tile
 // here has 2K <= 16 rows, so at least 75% of its rows would be padding;
 // the contraction is ~0.3 MFLOP per superstep, and mma.sync takes less
@@ -108,7 +127,11 @@ constexpr int kTelem = 21;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8;
+// bank rows: 16 in the whole-width layout (two n-tiles of 8 rows), 24
+// in lane chunks (three; GLONASS at 8.184 MHz has 21), so the main path's
+// static arrays and fragments stay as they were
 constexpr int kMaxR = 16;
+constexpr int kMaxRChunk = 24;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kPad = 8;         // bf16 pad per tile and bank row
 // per-epoch results of the lock and loop-filter recurrences (rv columns)
@@ -138,6 +161,9 @@ struct Params {
   // staged: the windows go through shared memory (0: where they do not
   // fit beside the bank and the tile, the mix reads global memory)
   int span, span_u, win_cap, cs, part, staged;
+  // lane chunks (kChunk): lanes per chunk (a multiple of 128; the last
+  // chunk may be narrower) and chunks per superstep
+  int chunk, n_chunks;
 };
 
 // ---- PTX wrappers: mbarrier, bulk copy, cluster barrier, tensor cores
@@ -554,16 +580,17 @@ __device__ void stage_slice(const Params& p, long long base, int j, int rank,
 }
 
 // stage 1b: this warp's lanes [l0, l1) of the K epochs' mix, masked,
-// as bf16 into the tile (ts the row stride); epoch e's window is at
-// win + rd + a_e, in shared memory (staged) or in global memory
+// as bf16 into the tile (ts the row stride, lane l at column l - col0);
+// epoch e's window is at win + rd + a_e, in shared memory (staged) or in
+// global memory
 __device__ __forceinline__ void mix(const Params& p, const float* st,
                                     const Held& h, const float* win_re,
                                     const float* win_im, int rd,
                                     const float* a_cos, const float* a_sin,
                                     const float* b_cos, const float* b_sin,
-                                    __nv_bfloat16* tile, int l0, int l1,
-                                    int lane) {
-  const int K = p.k_epochs, wp = p.wp, w128 = wp / 128, ts = wp + kPad;
+                                    __nv_bfloat16* tile, int ts, int col0,
+                                    int l0, int l1, int lane) {
+  const int K = p.k_epochs, wp = p.wp, w128 = wp / 128;
   // lanes in pairs (l, l + 1); where the epoch's roll and the window's
   // offset are even (n0 even and a 4-sample-aligned start: the
   // receiver's case) a pair is one 8-byte load of each window
@@ -578,8 +605,8 @@ __device__ __forceinline__ void mix(const Params& p, const float* st,
     const float* wim = win_im + rd + (e * p.n0 / 128) * 128;
     const float* ac_e = a_cos + e * w128;
     const float* as_e = a_sin + e * w128;
-    __nv_bfloat16* t_re = tile + e * ts;
-    __nv_bfloat16* t_im = tile + (K + e) * ts;
+    __nv_bfloat16* t_re = tile + e * ts - col0;
+    __nv_bfloat16* t_im = tile + (K + e) * ts - col0;
     if (((shift | rd) & 1) == 0) {
 #pragma unroll 2
       for (int l = l0 + 2 * lane; l < l1; l += 64) {
@@ -625,13 +652,58 @@ __device__ __forceinline__ void mix(const Params& p, const float* st,
   }
 }
 
-template <bool kLean, bool kShared>
+// kChunk: issue chunk g's bank rows (chunk g % n_chunks of the lanes;
+// g counts chunks across the supersteps) into buffer buf, [R, width] at
+// row stride ts, one bulk copy per row (one thread; rows and chunks start
+// on 256-byte boundaries of the bank, the buffer's rows on 16-byte ones)
+__device__ void stage_bank(const Params& p, const __nv_bfloat16* bank_c,
+                           __nv_bfloat16* buf, int ts, int g, uint64_t* bar) {
+  const int c0 = (g % p.n_chunks) * p.chunk;
+  const uint32_t row_bytes = 2u * (uint32_t)min(p.chunk, p.wp - c0);
+  fence_proxy_async();
+  mbar_expect(bar, row_bytes * (uint32_t)p.r_rows);
+  for (int r = 0; r < p.r_rows; ++r)
+    bulk_g2s(buf + r * ts, bank_c + (long long)r * p.wp + c0, row_bytes, bar);
+}
+
+// stage 2's k-steps [ks0, ks1) of 16 lanes: the tile's rows (ldmatrix at
+// a_base, a_step bytes per k-step) by the bank's rows (row stride ts) on
+// the tensor cores, into this warp's f32 fragments acc (kNT n-tiles)
+template <int kNT>
+__device__ __forceinline__ void contract(float (*acc)[4], uint32_t a_base,
+                                         int a_step,
+                                         const __nv_bfloat16* bank, int ts,
+                                         int ks0, int ks1, int n_tiles,
+                                         int r_rows, uint32_t zero_addr,
+                                         int b_row, int b_kof) {
+  for (int ks = ks0; ks < ks1; ++ks) {
+    uint32_t a0, a1, a2, a3;
+    ldsm_x4(a_base + ks * a_step, a0, a1, a2, a3);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (nt < n_tiles) {
+        const int n = nt * 8 + b_row;
+        const uint32_t b_addr =
+            n < r_rows ? smem_addr(bank + n * ts + ks * 16 + b_kof)
+                       : zero_addr;
+        uint32_t b0, b1;
+        ldsm_x2(b_addr, b0, b1);
+        mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
+      }
+    }
+  }
+}
+
+template <bool kLean, bool kShared, bool kChunk>
 __global__ void __launch_bounds__(kThreads, 1)
     track_block_mxu_kernel(Params p) {
+  constexpr int kRcap = kChunk ? kMaxRChunk : kMaxR;
+  constexpr int kNT = (kRcap + 7) / 8;  // n-tiles of 8 bank rows
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;             // the window's mbarrier
-  __shared__ float red[kWarps][2 * kMaxK * kMaxR];  // stage 2 partials
-  __shared__ float corr[2 * kMaxK * kMaxR];          // [2K, R]
+  __shared__ __align__(8) uint64_t bank_bar[2];     // kChunk: its buffers
+  __shared__ float red[kWarps][2 * kMaxK * kRcap];  // stage 2 partials
+  __shared__ float corr[2 * kMaxK * kRcap];          // [2K, R]
   __shared__ __align__(16) float b_cos[128];  // 8-byte pairs in the mix
   __shared__ __align__(16) float b_sin[128];
   __shared__ float st[16];
@@ -641,12 +713,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = p.k_epochs, R = p.r_rows, wp = p.wp, QK = 2 * K;
-  const int w128 = wp / 128, ts = wp + kPad;
+  // the tile's and bank's row stride: wp wide, or one chunk (kChunk)
+  const int w128 = wp / 128, ts = (kChunk ? p.chunk : wp) + kPad;
 
+  // kChunk: two bank buffers [R, chunk] in place of the bank
   float* win_re = reinterpret_cast<float*>(smem);
   float* win_im = win_re + p.win_cap;
   __nv_bfloat16* bank = reinterpret_cast<__nv_bfloat16*>(win_im + p.win_cap);
-  __nv_bfloat16* tile = bank + R * ts;
+  __nv_bfloat16* tile = bank + (kChunk ? 2 : 1) * R * ts;
   float* a_cos = reinterpret_cast<float*>(tile + QK * ts);  // [K, w128]
   float* a_sin = a_cos + K * w128;
 
@@ -660,7 +734,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const long long start = kShared ? base : p.starts[c];
 
-  if (tid == 0) mbar_init(&bar);
+  if (tid == 0) {
+    mbar_init(&bar);
+    if constexpr (kChunk) {
+      mbar_init(&bank_bar[0]);
+      mbar_init(&bank_bar[1]);
+    }
+  }
   if (tid < 8) zero_row[tid] = __float2bfloat16_rn(0.0f);
   // every block's mbarrier is initialised before any block copies into it
   if constexpr (kShared) cg::this_cluster().sync();
@@ -680,11 +760,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   // a 128-multiple; B2: dc)
   const int rd = kShared ? dc : (int)(start & 3LL);
 
-  // replica bank -> shared memory, rows padded (16-byte copies; wp % 128
-  // == 0, the wrapper checks the bank's alignment)
-  {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        p.replicas + (long long)c * R * wp);
+  const int n_super = p.t_epochs / K;
+  const __nv_bfloat16* bank_c = p.replicas + (long long)c * R * wp;
+  if constexpr (kChunk) {
+    // the first two chunks' bank rows
+    if (tid == 32)
+      for (int g = 0; g < 2 && g < n_super * p.n_chunks; ++g)
+        stage_bank(p, bank_c, bank + g * R * ts, ts, g, &bank_bar[g]);
+  } else {
+    // replica bank -> shared memory, rows padded (16-byte copies; wp %
+    // 128 == 0, the wrapper checks the bank's alignment)
+    const uint4* src = reinterpret_cast<const uint4*>(bank_c);
     const int row8 = wp / 8;
     for (int i = tid; i < R * row8; i += kThreads) {
       int r = i / row8, q = i - r * row8;
@@ -698,7 +784,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_ks = wp / 16;
   const int ks0 = warp * n_ks / kWarps, ks1 = (warp + 1) * n_ks / kWarps;
   const int l0 = ks0 * 16, l1 = ks1 * 16;
-  const int n_tiles = (R + 7) / 8;
+  const int n_tiles = (R + 7) / 8;  // <= kNT
   // ldmatrix row addresses: A (tile) rows 0-15 of two 8-lane halves of a
   // k-step, rows past 2K the zero row; B (bank) rows of each n-tile, rows
   // past R the zero row
@@ -710,7 +796,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int a_step = a_row < QK ? 32 : 0;  // bytes per k-step
   const int b_row = lane & 7, b_kof = ((lane >> 3) & 1) * 8;
 
-  const int n_super = p.t_epochs / K;
   for (int j = 0; j < n_super; ++j) {
     const Held h = held(p, st, j);
 
@@ -738,46 +823,57 @@ __global__ void __launch_bounds__(kThreads, 1)
     // one mix, called on the staged buffer or on global memory: with the
     // pointer chosen at run time its reads become generic loads, and the
     // staged mix took ~560 more cycles per superstep (PERF.md section 6)
-    if (p.staged) {
-      mix(p, st, h, win_re, win_im, rd, a_cos, a_sin, b_cos, b_sin, tile,
-          l0, l1, lane);
-    } else {
-      // the window span from the 4-sample floor of its start, as the
-      // buffer would hold it
+    float acc[kNT][4] = {};
+    if constexpr (kChunk) {
+      // the windows from the 4-sample floor of the span's start, in
+      // global memory; per chunk: mix, wait for the bank rows, contract,
+      // free the tile and the buffer, stage chunk g + 2's rows there
       const long long g0 = (long long)p.starts[c] + h.off;
       const int r0 = (int)(g0 & 3LL);
-      mix(p, st, h, p.stream_re + (g0 - r0), p.stream_im + (g0 - r0), r0,
-          a_cos, a_sin, b_cos, b_sin, tile, l0, l1, lane);
-    }
-    // B2: this block is done with slice j (waited on after stage 2)
-    if constexpr (kShared) cluster_arrive();
-    __syncwarp();
-
-    // ---- stage 2: [2K, wp] x [wp, R] on the tensor cores, this warp's
-    // k-steps; bf16 in, f32 accumulation -----------------------------
-    {
-      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-      for (int ks = ks0; ks < ks1; ++ks) {
-        uint32_t a0, a1, a2, a3;
-        ldsm_x4(a_base + ks * a_step, a0, a1, a2, a3);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          if (nt < n_tiles) {
-            const int n = nt * 8 + b_row;
-            const uint32_t b_addr =
-                n < R ? smem_addr(bank + n * ts + ks * 16 + b_kof)
-                      : zero_addr;
-            uint32_t b0, b1;
-            ldsm_x2(b_addr, b0, b1);
-            mma_bf16(acc[nt], a0, a1, a2, a3, b0, b1);
-          }
-        }
+      for (int ci = 0; ci < p.n_chunks; ++ci) {
+        const int g = j * p.n_chunks + ci, buf = g & 1;
+        const int c0 = ci * p.chunk, nks = min(p.chunk, wp - c0) / 16;
+        const int cks0 = warp * nks / kWarps, cks1 = (warp + 1) * nks / kWarps;
+        mix(p, st, h, p.stream_re + (g0 - r0), p.stream_im + (g0 - r0), r0,
+            a_cos, a_sin, b_cos, b_sin, tile, ts, c0, c0 + cks0 * 16,
+            c0 + cks1 * 16, lane);
+        __syncwarp();
+        mbar_wait(&bank_bar[buf], (uint32_t)((g >> 1) & 1));
+        // ---- stage 2 (chunk): this warp's k-steps of it ---------------
+        contract<kNT>(acc, a_base, a_step, bank + buf * R * ts, ts, cks0,
+                      cks1, n_tiles, R, zero_addr, b_row, b_kof);
+        __syncthreads();
+        if (tid == 32 && g + 2 < n_super * p.n_chunks)
+          stage_bank(p, bank_c, bank + buf * R * ts, ts, g + 2,
+                     &bank_bar[buf]);
       }
+    } else {
+      if (p.staged) {
+        mix(p, st, h, win_re, win_im, rd, a_cos, a_sin, b_cos, b_sin, tile,
+            ts, 0, l0, l1, lane);
+      } else {
+        // the window span from the 4-sample floor of its start, as the
+        // buffer would hold it
+        const long long g0 = (long long)p.starts[c] + h.off;
+        const int r0 = (int)(g0 & 3LL);
+        mix(p, st, h, p.stream_re + (g0 - r0), p.stream_im + (g0 - r0), r0,
+            a_cos, a_sin, b_cos, b_sin, tile, ts, 0, l0, l1, lane);
+      }
+      // B2: this block is done with slice j (waited on after stage 2)
+      if constexpr (kShared) cluster_arrive();
+      __syncwarp();
+
+      // ---- stage 2: [2K, wp] x [wp, R] on the tensor cores, this warp's
+      // k-steps; bf16 in, f32 accumulation ---------------------------
+      contract<kNT>(acc, a_base, a_step, bank, ts, ks0, ks1, n_tiles, R,
+                    zero_addr, b_row, b_kof);
+    }
+    {
       // the fragment's rows g and g + 8, columns 2t and 2t + 1, as corr's
       // [2K, R] (the padding rows and columns dropped)
       const int g = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
           const int row = g + (v >> 1) * 8, n = nt * 8 + t2 + (v & 1);
@@ -822,18 +918,24 @@ extern "C" int track_block_mxu_launch(
     float lock_threshold, int max_lost, float pll_c1, float pll_c2,
     float dll_c1, float dll_c2, int el_shift, float aiding_scale,
     float if_freq, int costas, float costas_thr, int interp, int lean,
-    int spread_cap, int cluster, void* stream) {
+    int spread_cap, int cluster, void* stream, int chunk) {
   // returns a CUDA error code, or -1 when no cluster of `cluster` blocks
   // can run on the card (above the portable size of 8, or
   // cudaOccupancyMaxActiveClusters = 0), -2 when the launch needs more
   // shared memory than a block can have (both found before anything is
-  // launched: the wrapper then tries its next cluster size)
+  // launched: the wrapper then tries its next cluster size). chunk > 0
+  // runs the lane-chunked layout with chunks of that many lanes, one
+  // chunk too where it covers wp (B1 only), 0 the whole-width one: the
+  // wrapper's plan (mxu_smem_plan), taken as given, the launcher only
+  // checking that it fits.
   (void)stream_len;  // the wrapper checks the read bounds before launch
   const bool shared = spread_cap > 0;
-  if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 || r_rows > kMaxR ||
-      wp % 128 || t_epochs % k_epochs || c_channels < 1 ||
+  if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 ||
+      r_rows > (chunk ? kMaxRChunk : kMaxR) || wp % 128 ||
+      t_epochs % k_epochs || c_channels < 1 ||
       (shared && (spread_cap % 128 || cluster < 1 ||
-                  c_channels % cluster)))
+                  c_channels % cluster)) ||
+      chunk < 0 || chunk % 128 || chunk > wp || (chunk && shared))
     return (int)cudaErrorInvalidValue;
   if (shared && cluster > kMaxCluster) return -1;
   Params p;
@@ -873,13 +975,19 @@ extern "C" int track_block_mxu_launch(
   p.cs = shared ? cluster : 1;
   p.span_u = shared ? p.span + spread_cap : 0;
   p.part = shared ? ((p.span_u + 4 * p.cs - 1) / (4 * p.cs)) * 4 : 0;
+  p.chunk = chunk;
+  p.n_chunks = chunk ? (wp + chunk - 1) / chunk : 1;
   // B1's buffer holds the span behind an offset of up to 3 samples
-  const int qk = 2 * k_epochs, w128 = wp / 128, ts = wp + kPad;
+  const int qk = 2 * k_epochs, w128 = wp / 128;
+  const int ts = (p.chunk ? p.chunk : wp) + kPad;
   const int win_cap = shared ? p.span_u : ((p.span + 3 + 3) / 4) * 4;
-  auto kernel = shared ? (lean ? track_block_mxu_kernel<true, true>
-                               : track_block_mxu_kernel<false, true>)
-                       : (lean ? track_block_mxu_kernel<true, false>
-                               : track_block_mxu_kernel<false, false>);
+  auto kernel =
+      shared ? (lean ? track_block_mxu_kernel<true, true, false>
+                     : track_block_mxu_kernel<false, true, false>)
+      : p.chunk ? (lean ? track_block_mxu_kernel<true, false, true>
+                        : track_block_mxu_kernel<false, false, true>)
+                : (lean ? track_block_mxu_kernel<true, false, false>
+                        : track_block_mxu_kernel<false, false, false>);
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -889,14 +997,18 @@ extern "C" int track_block_mxu_launch(
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  // the bank, the tile and the trig factors; the staged windows beside
-  // them where they fit, else the mix reads global memory (wide windows,
-  // e.g. 4.092 MHz, or a wide bank beside B2's slice); the static arrays
-  // (mbarrier, partial sums, chain) sit beside it all
-  const size_t base_smem = (size_t)(r_rows + qk) * ts * sizeof(__nv_bfloat16) +
-                           (size_t)2 * k_epochs * w128 * sizeof(float);
+  // the bank (kChunk: two buffers of a chunk's bank rows), the tile and
+  // the trig factors; the staged windows beside them where they fit, else
+  // the mix reads global memory (wide windows, e.g. 4.092 MHz, a wide
+  // bank beside B2's slice, and every chunked launch); the static arrays
+  // (mbarriers, partial sums, chain) sit beside it all
+  const size_t base_smem =
+      (size_t)((p.chunk ? 2 : 1) * r_rows + qk) * ts *
+          sizeof(__nv_bfloat16) +
+      (size_t)2 * k_epochs * w128 * sizeof(float);
   const size_t win_smem = (size_t)2 * win_cap * sizeof(float);
-  p.staged = base_smem + win_smem + fa.sharedSizeBytes <= (size_t)smem_max;
+  p.staged = !p.chunk &&
+             base_smem + win_smem + fa.sharedSizeBytes <= (size_t)smem_max;
   p.win_cap = p.staged ? win_cap : 0;
   const size_t smem = base_smem + (p.staged ? win_smem : 0);
   if (smem + fa.sharedSizeBytes > (size_t)smem_max) return -2;

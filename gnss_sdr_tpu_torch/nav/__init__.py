@@ -14,3 +14,6 @@ from .rinex import parse_nav_file, select_ephemerides  # noqa: F401
 from .download import brdc_filename, brdc_url, fetch_brdc  # noqa: F401
 from .filter import NavigationFilter  # noqa: F401
 from .rinex_obs import RinexObsWriter, parse_obs_file  # noqa: F401
+from .inav import InavDecoder, InavWord  # noqa: F401
+from .bds_d1 import BdsD1Chain  # noqa: F401
+from .glonass_nav import GlonassEphemeris, GlonassNavChain  # noqa: F401

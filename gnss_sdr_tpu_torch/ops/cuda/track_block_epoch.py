@@ -76,9 +76,16 @@ with 16-byte loads (the starts are 128 samples, 512 bytes, aligned), one
 thread block per chunk of a channel's segment, and is bound by its
 bytes.
 
-The port rejects wp > 16384 (ROADMAP C6): the JAX ``_epoch_core`` builds
-its carrier A factors from a fixed 128-wide iota, so a wider window
-breaks there, and the CUDA kernel builds at most 128 A factors.
+Widths (ROADMAP C6): the JAX ``_epoch_core`` builds its carrier A
+factors from a fixed 128-wide iota, so it breaks above wp = 16,384; the
+port's plain version builds the whole [C, wp/128] table and the CUDA
+core builds its w128 factors in a loop over the threads. Past one ring
+slot (wp >= 19,200, e.g. Galileo E1B's seg windows at 8.184 MHz, wp
+33,152) the core mixes every window from global memory
+(``epoch_smem_plan``). The port takes wp <= ``MAX_WP`` = 49,152, where
+the prompt row and the trig factors still fit in a block's shared
+memory, and raises above it, naming C6. Above 16,384 the plain version,
+not the JAX kernel, is what the card is held to.
 """
 from __future__ import annotations
 
@@ -93,7 +100,36 @@ from . import _build, launches
 N_FIELDS = 128
 N_TELEM = 17            # telemetry columns (fused_runner.N_TELEM_COLS)
 TWO_PI = 6.283185307179586
-MAX_WP = 128 * 128      # ROADMAP C6
+MAX_WP = 384 * 128      # the widest window (ROADMAP C6; epoch_core.cuh)
+SMEM_BLOCK = 232_448    # shared memory one block may have on the H100
+
+
+def check_max_wp(wp: int) -> None:
+    """Raise ValueError naming ROADMAP C6 for wp > MAX_WP."""
+    if wp > MAX_WP:
+        raise ValueError(
+            f"wp={wp} > {MAX_WP}: the per-epoch fused layouts take at most "
+            f"{MAX_WP // 128} carrier A factors, where the prompt row and "
+            "the trig factors still fit in shared memory (ROADMAP C6; the "
+            "JAX _epoch_core's 128-wide iota breaks above 16384)")
+
+
+def epoch_smem_plan(wp: int, n_drift: int, smem: int = SMEM_BLOCK) -> dict:
+    """The per-epoch core's shared-memory layout (csrc/epoch_core.cuh
+    ``launch`` decides it; this mirrors it for the tests and the
+    reports): the first that fits of the replica rows and two window
+    slots, the rows in global memory and two slots, one slot, no slot
+    (every window mixed from global memory). Returns {"reps_shared",
+    "slots", "bytes"}; raises ValueError naming ROADMAP C6 for wp >
+    MAX_WP."""
+    check_max_wp(wp)
+    w128 = wp // 128
+    for reps, slots in ((True, 2), (False, 2), (False, 1), (False, 0)):
+        floats = (4 + (n_drift * wp if reps else 0) + 2 * slots * (wp + 4)
+                  + wp + 256 + 2 * w128 + 6 * 8)
+        if 4 * floats <= smem:
+            return {"reps_shared": reps, "slots": slots, "bytes": 4 * floats}
+    raise ValueError(f"wp={wp}: no shared-memory layout fits (ROADMAP C6)")
 
 # launches of each CUDA kernel (plain ints, counted by launches.record;
 # the plain versions never count): B4a (windows), B4b (seg), B4c (gather) and B6 (resident)
@@ -411,11 +447,7 @@ def _check_tensors(names, win_re, win_im, replicas, state_in, wp,
     [C, R, wp] replicas and the wp limit of ROADMAP C6."""
     if wp % 128:
         raise ValueError(f"the fused kernels require wp % 128 == 0, got {wp}")
-    if wp > MAX_WP:
-        raise ValueError(
-            f"wp={wp} > {MAX_WP}: the per-epoch fused layouts take at most "
-            f"128 carrier A factors (ROADMAP C6: the JAX _epoch_core's "
-            "fixed 128-wide iota breaks there)")
+    check_max_wp(wp)
     if lock_mode not in ("power", "costas"):
         raise ValueError(f"unknown lock_mode {lock_mode!r}")
     dev = state_in.device

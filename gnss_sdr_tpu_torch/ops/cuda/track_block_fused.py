@@ -71,6 +71,12 @@ starts at the 4-sample floor of the window and ends at the window's
 end, so its read bound is the plain version's. Where the windows do not
 fit in shared memory beside the bank and the tile (4.092 MHz; a wide
 bank beside B2's slice), the mix reads them from global memory instead.
+Where the bank and the tile themselves do not fit (every system at
+8.184 MHz, ROADMAP C15), B1 contracts in lane chunks (``mxu_smem_plan``
+picks the layout): each chunk's bank rows are staged by TMA two chunks
+ahead, each warp mixes its lanes of the chunk from global memory into a
+[2K, chunk] tile and the tensor cores accumulate into the same f32
+fragments across the chunks. Only the order of the f32 sums changes.
 
 The shared fetch (B2): on the TPU one DMA of [span + spread_cap]
 samples per superstep replaces C overlapping per-channel window DMAs.
@@ -101,6 +107,7 @@ from ..correlator import fma as _fma  # noqa: F401  (fused_runner's scan)
 from . import _build, launches
 from .track_block_epoch import (  # noqa: F401  (the JAX module's names)
     MAX_WP, _atan_poly, _check_aligned, _epoch_core_reference,
+    check_max_wp, epoch_smem_plan,
     build_replicas_shared, gather_segments, gather_segments_reference,
     resident_chunk, seg_length, slice_windows, track_block_fused,
     track_block_fused_reference, track_block_fused_resident,
@@ -750,11 +757,71 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-# track_block_mxu_launch's parameters (csrc/track_block_mxu.cu)
+# track_block_mxu_launch's parameters (csrc/track_block_mxu.cu; the lane
+# chunk last, after the stream)
 MXU_ARGTYPES = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                 _I, _I, _I, _I, _I, _I,
                 _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                _F, _F, _I, _F, _I, _I, _I, _I, _VP]
+                _F, _F, _I, _F, _I, _I, _I, _I, _VP, _I]
+
+# shared memory on the H100: what one block may have (227 KB), and an
+# upper bound of the mxu kernel's static arrays, which the plan keeps free
+# beside the dynamic part: in lane chunks the warps' partial sums
+# [16, 2 * 8 * 24] f32, the correlations [2 * 8 * 24], the mix's factors
+# [2, 128], the chain's [16] and [8, 5], three mbarriers and a zero row
+# come to 27,400 B, here rounded up to 28 KB (the whole-width layout's,
+# at 16 rows, are smaller). The plan is the only decision: the launcher
+# runs the layout and chunk it is given and returns -2 where they do not
+# fit. Bank rows: up to 16 whole-width, 24 in lane chunks.
+SMEM_BLOCK = 232_448
+MXU_STATIC_SMEM = 28_672
+MXU_MAX_K, MXU_MAX_R, MXU_WHOLE_MAX_R = 8, 24, 16
+_MXU_PAD = 8            # bf16 pad per tile and bank row
+
+
+def mxu_smem_plan(wp: int, r_rows: int, k_epochs: int,
+                  smem: int = SMEM_BLOCK) -> dict:
+    """B1's shared-memory layout for [R, wp] banks at K-epoch supersteps,
+    which the launcher (csrc/track_block_mxu.cu) runs as given, one chunk
+    included where it covers wp: ``"whole"`` while the bank
+    [R, wp] and the tile [2K, wp] (bf16, rows padded by 8) fit beside
+    the trig factors [2, K, wp/128] f32 and R <= 16 (the window staged
+    beside them when it fits too, which the launcher decides); else
+    ``"chunked"``:
+    two bank buffers [R, chunk] and a tile [2K, chunk], chunk the
+    widest multiple of 128 that fits, evened out over
+    ceil(wp / widest) chunks. Returns {"layout", "chunk" (0 for whole),
+    "chunks" [(lane0, width), ...] covering [0, wp) once, "bytes" (the
+    dynamic part), "max_wp" (the widest wp this R and K take)}; raises
+    ValueError naming ROADMAP C15 above that width."""
+    w128 = wp // 128
+    trig = 2 * k_epochs * w128 * 4
+    room = smem - MXU_STATIC_SMEM
+
+    def chunk_bytes(width):
+        return (2 * r_rows + 2 * k_epochs) * (width + _MXU_PAD) * 2 + trig
+
+    per_chunk = (2 * r_rows + 2 * k_epochs) * (128 + _MXU_PAD) * 2
+    max_wp = max(0, (room - per_chunk) // (8 * k_epochs)) * 128
+    whole = (r_rows + 2 * k_epochs) * (wp + _MXU_PAD) * 2 + trig
+    if whole <= room and r_rows <= MXU_WHOLE_MAX_R:
+        return {"layout": "whole", "chunk": 0, "chunks": [(0, wp)],
+                "bytes": whole, "max_wp": max_wp}
+    widest = 0
+    while (widest + 128 <= wp
+           and chunk_bytes(widest + 128) <= room):
+        widest += 128
+    if widest == 0:
+        raise ValueError(
+            f"track_block_mxu (B1): wp={wp} at R={r_rows}, K={k_epochs} "
+            f"is wider than the kernel takes (wp <= {max_wp}: its trig "
+            f"factors and one 128-lane chunk fill the {smem} bytes of "
+            "shared memory a block may have; ROADMAP C15)")
+    n = -(-w128 // (widest // 128))
+    chunk = -(-w128 // n) * 128
+    chunks = [(l0, min(chunk, wp - l0)) for l0 in range(0, wp, chunk)]
+    return {"layout": "chunked", "chunk": chunk, "chunks": chunks,
+            "bytes": chunk_bytes(chunk), "max_wp": max_wp}
 
 
 def _lib():
@@ -859,14 +926,27 @@ def track_block_fused_mxu(
         raise ValueError(f"unsupported device {state_in.device}")
     if telem_mode not in TELEM_MODES:
         raise ValueError(f"unknown telem_mode {telem_mode!r}")
+    # B2 refuses a width only B1's lane chunks take before its bounds are
+    # checked (the shape is all the plan needs)
+    if spread_cap and isinstance(replicas, torch.Tensor) and \
+            replicas.dim() == 3 and mxu_smem_plan(
+                wp, replicas.shape[1], k_epochs)["layout"] != "whole":
+        raise ValueError(
+            f"track_block_mxu (B2, shared fetch): wp={wp} at "
+            f"R={replicas.shape[1]}, "
+            f"K={k_epochs} needs the lane-chunked layout, which only B1 "
+            "has; B2 takes the whole-width layout alone ((R + 2K) * (wp + "
+            f"8) * 2 bytes of bank and tile within {SMEM_BLOCK - MXU_STATIC_SMEM}"
+            "; ROADMAP C15)")
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
                 starts_bound=starts_bound, spread_cap=spread_cap)
     c, r_rows = replicas.shape[0], replicas.shape[1]
-    if k_epochs > 8 or r_rows > 16:
-        raise ValueError(f"the CUDA kernel takes K <= 8 and R <= 16, got "
-                         f"K={k_epochs}, R={r_rows}")
+    if k_epochs > MXU_MAX_K or r_rows > MXU_MAX_R:
+        raise ValueError(f"the CUDA kernel takes K <= {MXU_MAX_K} and R <= "
+                         f"{MXU_MAX_R}, got K={k_epochs}, R={r_rows}")
+    plan = mxu_smem_plan(wp, r_rows, k_epochs)
     _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
                    ("replicas", replicas))
     fn = _lib()
@@ -890,7 +970,7 @@ def track_block_fused_mxu(
                      pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
                      aiding_scale, if_freq, int(lock_mode == "costas"),
                      costas_thr, int(bool(interp)), int(lean),
-                     int(spread_cap), cluster, stream)
+                     int(spread_cap), cluster, stream, plan["chunk"])
             if err not in (_ERR_NO_CLUSTER, _ERR_SMEM):
                 break
     name = "track_block_mxu (B2, shared fetch)" if spread_cap else \
@@ -902,7 +982,9 @@ def track_block_fused_mxu(
     if err == _ERR_SMEM:
         raise RuntimeError(f"{name}: the launch needs more shared memory "
                            "than a block can have (wp, K, R or spread_cap "
-                           "too large)")
+                           f"too large; the plan was {plan['layout']}, "
+                           f"chunk {plan['chunk']}, {plan['bytes']} bytes; "
+                           "ROADMAP C15)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches.record(__name__, "shared_launch_count" if spread_cap
@@ -1038,10 +1120,10 @@ def track_block_fused_direct(
                 lock_mode=lock_mode, starts_host=starts_host,
                 starts_bound=starts_bound, replica_dtype=torch.float32)
     c, n_drift = replicas.shape[0], replicas.shape[1]
-    if n_drift > 8 or wp > MAX_WP:
-        raise ValueError(f"the CUDA kernel takes <= 8 replica rows and "
-                         f"wp <= {MAX_WP} (ROADMAP C6), got {n_drift} and "
-                         f"{wp}")
+    if n_drift > 8:
+        raise ValueError(f"the CUDA kernel takes <= 8 replica rows, got "
+                         f"{n_drift}")
+    check_max_wp(wp)
     _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
                    ("replicas", replicas))
     fn = _direct_lib()

@@ -12,7 +12,9 @@ loop. Detection is the reference detector: peak power / average power of
 the best Doppler bin (peak excluded) > threshold. ``pad_fft=True`` takes
 the power-of-two linear-correlation path (``pcps_power_padded``: plain
 XLA FFTs in the JAX package, ``torch.fft`` here). The FFT-free conv
-engine is not ported yet (ROADMAP A11).
+engine is not ported yet (ROADMAP A11). The fine Doppler's squaring
+search despreads before it squares, where the JAX FFT engine does not
+(``fine_doppler``; ROADMAP C16).
 """
 from __future__ import annotations
 
@@ -325,11 +327,23 @@ def fine_doppler(
     zero_pad: int = 8,
     window_hz: float = 500.0,
     squaring: bool = False,
+    n_sub: int = 1,
 ) -> torch.Tensor:
     """Refine the carrier frequency with a long zero-padded FFT of the
     code-stripped signal, searched within +/- ``window_hz`` of the
-    coarse estimate. ``squaring`` wipes residual BPSK modulation (the
-    line then sits at 2f, folded and unaliased). Returns [P] f32."""
+    coarse estimate. Returns [P] f32.
+
+    ``squaring`` wipes residual BPSK modulation (secondary codes, data
+    symbols within the window). The JAX package's FFT engine squares the
+    code-wiped signal sample by sample; that squares away every other
+    satellite's code as well (+-1 chips square to 1), so each one leaves a
+    line at twice its own Doppler, and with several satellites of a
+    system within a coarse bin every PRN picks the strongest of them
+    (ROADMAP C16: the BeiDou and Galileo handoffs of ladder 4's mixed
+    scene all land on one Doppler). Here the squared series is the
+    despread one, as the JAX conv engine's ``fine_doppler_conv`` forms
+    it (``_fine_doppler_despread``): only the PRN's own signal survives
+    the per-period sums."""
     p, n_fft = code_samples.shape
     length = n_int * n_fft
     pad_len = zero_pad * length
@@ -339,22 +353,65 @@ def fine_doppler(
     idx = (i[None, :] - code_phase.to(torch.int64)[:, None]) % n_fft
     rep = torch.gather(code_samples, 1, idx)
     wiped = samples[None, :length] * rep.repeat(1, n_int)
+    if squaring:
+        return _fine_doppler_despread(
+            wiped, coarse_freq, fs_hz=fs_hz, n_int=n_int, n_fft=n_fft,
+            window_hz=window_hz, n_sub=n_sub)
     freqs = torch.fft.fftfreq(pad_len, d=1.0 / fs_hz, device=dev,
                               dtype=torch.float32)
     f0 = coarse_freq.to(torch.float32)[:, None]
     neg = torch.tensor(-math.inf, dtype=torch.float32, device=dev)
-    if squaring:
-        spec = torch.fft.fft(wiped * wiped, n=pad_len, dim=-1)
-        fs_f = torch.tensor(fs_hz, dtype=torch.float32, device=dev)
-        target = torch.remainder(2.0 * f0 + fs_f / 2, fs_f) - fs_f / 2
-        dist = torch.abs(freqs[None, :] - target)
-        dist = torch.minimum(dist, fs_f - dist)
-        mag = torch.where(dist <= 2.0 * window_hz, torch.abs(spec), neg)
-        peak = freqs[torch.argmax(mag, dim=-1)]
-        delta = torch.remainder(peak - target[:, 0] + fs_f / 2,
-                                fs_f) - fs_f / 2
-        return coarse_freq.to(torch.float32) + delta * 0.5
     spec = torch.fft.fft(wiped, n=pad_len, dim=-1)
     mag = torch.where(torch.abs(freqs[None, :] - f0) <= window_hz,
                       torch.abs(spec), neg)
     return freqs[torch.argmax(mag, dim=-1)]
+
+
+def _fine_doppler_despread(wiped, coarse_freq, *, fs_hz, n_int, n_fft,
+                           window_hz, n_sub, n_steps=129):
+    """The squaring fine search on despread sums (the arithmetic of the
+    JAX package's ``fine_doppler_conv``, ``gnss_sdr_tpu/ops/pcps.py:631``,
+    batched over the PRNs): the code-wiped samples [P, n_int * N] mixed
+    to the coarse carrier and summed per code period; with ``n_sub`` > 1
+    each period in n_sub parts, whose within-period phase slope gives an
+    unambiguous first estimate delta1 (the modulation is constant within
+    a period), the parts derotated by it and summed; the period sums
+    squared, and the residual tone searched on n_steps offsets within an
+    alias-free span. Returns f0 + delta1 + half the squared tone's
+    offset, [P] f32."""
+    p = wiped.shape[0]
+    dev = wiped.device
+    length = n_int * n_fft
+    two_pi = 2.0 * math.pi
+    i = torch.arange(length, device=dev, dtype=torch.float32)
+    f0 = coarse_freq.to(torch.float32)
+    theta = f0[:, None] / float(fs_hz) * i[None, :]
+    theta = (theta - torch.floor(theta)) * two_pi
+    w = wiped * torch.polar(torch.ones_like(theta), -theta)
+    delta1 = torch.zeros(p, device=dev, dtype=torch.float32)
+    if n_sub > 1 and n_fft % n_sub == 0:
+        t_sub = n_fft / n_sub / fs_hz
+        # the doubled domain's alias spacing is 1 / T_period: stay well
+        # inside it around the first estimate
+        span = min(2.0 * window_hz, 0.45 * fs_hz / n_fft)
+        sub = w.reshape(p, n_int, n_sub, n_fft // n_sub).sum(-1)
+        xprod = (sub[:, :, 1:] * sub[:, :, :-1].conj()).sum((1, 2))
+        delta1 = torch.angle(xprod) / (two_pi * t_sub)
+        ts = (torch.arange(n_int, device=dev, dtype=torch.float32)[:, None]
+              * n_fft + torch.arange(n_sub, device=dev,
+                                     dtype=torch.float32)[None, :]
+              * (n_fft // n_sub)) / float(fs_hz)
+        ang = two_pi * delta1[:, None, None] * ts[None]
+        z = (sub * torch.polar(torch.ones_like(ang), -ang)).sum(-1)
+    else:
+        span = 2.0 * window_hz
+        z = w.reshape(p, n_int, n_fft).sum(-1)
+    z = z * z
+    deltas = torch.linspace(-span, span, n_steps, device=dev,
+                            dtype=torch.float32)
+    t_m = torch.arange(n_int, device=dev, dtype=torch.float32) * (
+        n_fft / fs_hz)
+    ph = two_pi * deltas[:, None] * t_m[None, :]                 # [K, M]
+    tone = z @ torch.polar(torch.ones_like(ph), -ph).T           # [P, K]
+    d_star = deltas[torch.argmax(tone.abs(), dim=-1)]
+    return f0 + delta1 + d_star * 0.5

@@ -1,7 +1,9 @@
 """Ready-made receiver configurations for the BASELINE.md config ladder
 (counterpart of ``gnss_sdr_tpu/presets.py``, the same configs field for
-field). The port's Receiver runs ladders 1, 2 and 5; the non-GPS signals
-of ladders 3 and 4 raise there (ROADMAP A16).
+field). The port runs every ladder: 1, 2 and 5 through ``Receiver``, and
+the dicts of ladders 3 and 4 through
+``receiver.multi.MultiConstellationReceiver``, on the card or, with
+``device="cpu"``, on the CPU.
 
 Each entry returns a ReceiverConfig tuned for that scenario; pass your
 sample rate / IF where they depend on the capture.

@@ -14,3 +14,4 @@ from .tracking import (  # noqa: F401
     track_block,
 )
 from .navproc import ChannelNav, NavProcessor  # noqa: F401
+from .multi import MultiConstellationReceiver, TeeSource  # noqa: F401

@@ -128,6 +128,23 @@ class AcquisitionEngine:
         return symbol_ms < 20
 
     @property
+    def _fine_n_sub(self) -> int:
+        """Sub-period split of the squaring fine search's unambiguous
+        first stage (pcps._fine_doppler_despread; the JAX package's
+        ``_fine_n_sub``): the smallest divisor of the period's sample
+        count giving >= 2 parts whose unambiguous range n_sub / (2 *
+        T_period) covers half a coarse Doppler bin plus margin."""
+        if not self._fine_squaring:
+            return 1
+        t_period = self.n_fft / self.fs_hz
+        need = max(2.0, 2.0 * t_period * (self.cfg.doppler_step_hz / 2.0
+                                          + 150.0))
+        for s in range(int(np.ceil(need)), 65):
+            if self.n_fft % s == 0:
+                return s
+        return 1
+
+    @property
     def samples_needed(self) -> int:
         n_int = self.cfg.non_coherent_ms // self.spec.code_period_ms
         # the pow2 linear path correlates two-period blocks: +1 trailing
@@ -216,7 +233,7 @@ class AcquisitionEngine:
                 res.carrier_freq_hz, fs_hz=self.fs_hz, n_int=n_int,
                 zero_pad=cfg.fine_doppler_zero_pad,
                 window_hz=cfg.doppler_step_hz,
-                squaring=self._fine_squaring)
+                squaring=self._fine_squaring, n_sub=self._fine_n_sub)
             freqs = torch.where(res.detected, fine, freqs)
         rowmap = list(range(1, self.code_samples.shape[0] + 1))
         return self._build_candidates(res, freqs.cpu().numpy(), rowmap,

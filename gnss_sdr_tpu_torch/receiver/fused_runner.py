@@ -48,8 +48,11 @@ as one past ``max_offset`` does. Its results equal B1's bit for bit.
 
 Not ported yet, and raising: a mesh (A14). The in-scan search of the
 JAX package's conv engine (``span_extra``) belongs to A11. The per-epoch
-layouts (direct, seg, windows) reject windows wider than 16384 lanes
-(ROADMAP C6).
+layouts (direct, seg, windows) take windows up to 49,152 lanes and
+reject wider ones (ROADMAP C6; Galileo E1B at 8.184 MHz is 33,152 on
+seg, which the JAX _epoch_core cannot run); B1 (mxu) runs every width
+up to its plan's (``mxu_smem_plan``), in lane chunks where the whole
+bank does not fit in shared memory (ROADMAP C15).
 """
 from __future__ import annotations
 
@@ -192,9 +195,9 @@ class FusedTracker:
         if layout != "mxu" and self.wp > fused.MAX_WP:
             raise ValueError(
                 f"fused layout {layout!r}: wp={self.wp} > {fused.MAX_WP} "
-                "(ROADMAP C6: the per-epoch kernels build at most 128 "
-                "carrier A factors, and the JAX _epoch_core breaks there); "
-                "use layout='mxu'")
+                "(ROADMAP C6: the widest window of the per-epoch kernels, "
+                "whose prompt row and trig factors must fit in shared "
+                "memory); use layout='mxu'")
         self.n_rows = (fused.mxu_rows(N_DRIFT, params.el_shift)
                        if layout == "mxu" else N_DRIFT)
         self.half = (self.n_rows - 1) // 2

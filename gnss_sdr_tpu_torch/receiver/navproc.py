@@ -90,15 +90,62 @@ class GpsLnavChain:
         }
 
 
+class GalileoInavChain:
+    """Galileo E1B: one symbol per 4 ms epoch -> I/NAV pages -> words."""
+
+    signal = "galileo_e1b"
+
+    def __init__(self, prn: int):
+        from ..nav.inav import InavDecoder
+
+        self.prn = prn
+        self.dec = InavDecoder(prn)
+        self._last_gst_id = None
+
+    @property
+    def ephemeris(self):
+        return self.dec.ephemeris
+
+    @property
+    def count(self) -> int:
+        return self.dec.word_count
+
+    def feed_array(self, i_prompts, epochs) -> list[AnchorEvent]:
+        words = self.dec.feed_array(i_prompts, epochs)
+        events = []
+        for w in words:
+            if w.word_type != 5 or w.even_page_epoch is None:
+                continue
+            g = self.dec.assembler.gst
+            if g is None or g.even_page_index != w.even_page_index:
+                continue
+            events.append(AnchorEvent(epoch=w.even_page_epoch,
+                                      tow_s=g.tow_s, payload=w))
+        return events
+
+    def status(self) -> dict:
+        return {
+            "bit_synced": self.dec.synced,
+            "frame_locked": self.dec.frame_locked,
+            "subframes": self.dec.word_count,
+        }
+
+
 def make_chain(signal: str, prn: int):
     """Per-signal decode chain factory."""
     if signal == "gps_l1ca":
         return GpsLnavChain(prn)
-    if signal in ("galileo_e1b", "galileo_e1c", "beidou_b1i",
-                  "glonass_l1of"):
-        raise NotImplementedError(
-            f"nav decode chain for {signal!r} is not ported yet "
-            "(ROADMAP queue A16: non-GPS nav chains)")
+    if signal in ("galileo_e1b", "galileo_e1c"):
+        # E1C is the pilot (no data); decode chain applies to E1B
+        return GalileoInavChain(prn)
+    if signal == "beidou_b1i":
+        from ..nav.bds_d1 import BdsD1Chain
+
+        return BdsD1Chain(prn)
+    if signal == "glonass_l1of":
+        from ..nav.glonass_nav import GlonassNavChain
+
+        return GlonassNavChain(prn)
     raise KeyError(f"no nav decode chain for signal {signal!r}")
 
 

@@ -35,9 +35,11 @@ Observables stream while it runs (``enable_observables``): a RINEX 3
 OBS file and/or the EKF navigation filter, at most once per ``every_ms``
 and attempted once per block, inside spans too.
 
-Not ported yet, and raising NotImplementedError: a device mesh (ROADMAP
-A14), the conv acquisition engine and its in-scan search (A11) and
-non-GPS signals' nav chains (A16).
+Every signal of models/constellation.py runs (GPS L1 C/A, Galileo E1B/C,
+BeiDou B1I, GLONASS L1OF), each with its nav chain (receiver/navproc.py);
+receiver/multi.py runs several over one stream. Not ported yet, and
+raising NotImplementedError: a device mesh (ROADMAP A14) and the conv
+acquisition engine with its in-scan search (A11).
 """
 from __future__ import annotations
 
@@ -84,10 +86,6 @@ class Receiver:
         self.source = source
         self.device = resolve_device(device)
         self.spec = get_signal(cfg.acq.signal)
-        if self.spec.name != "gps_l1ca":
-            raise NotImplementedError(
-                f"signal {self.spec.name!r}: only the GPS L1 C/A nav chain "
-                "is ported yet (ROADMAP A16)")
 
         # digital front end: mixes out the IF and/or decimates before the
         # window, so everything downstream runs at baseband and the
@@ -137,6 +135,21 @@ class Receiver:
                 f"code period ({period} ms)")
         self.epochs_per_block = cfg.block_ms // period
         self.block = self.epochs_per_block * n0
+        if self.spec.name.startswith("galileo_e1"):
+            from ..models.codes import galileo_e1 as _gal
+
+            comp = "E1B" if self.spec.name.endswith("b") else "E1C"
+            if _gal.using_surrogate_codes(comp):
+                import warnings
+
+                warnings.warn(
+                    f"signal={self.spec.name!r} is running on SURROGATE "
+                    "Galileo E1 codes (the ICD memory codes are data, not "
+                    "generatable); real-sky captures will acquire nothing. "
+                    "Load the ICD hex tables via "
+                    "models.codes.galileo_e1.load_codes_hex().",
+                    stacklevel=2,
+                )
         self.engine = AcquisitionEngine(cfg.acq, self.spec, self.fs,
                                         self.f_if, device=self.device)
         self.acq_len = self.engine.samples_needed
@@ -713,7 +726,7 @@ class Receiver:
 
     def summary(self) -> dict:
         traces = self.telemetry.all_traces()
-        return {
+        out = {
             "blocks": self.window.blocks_fed,
             "time_ms": self.time_ms,
             "stage_timing": self.timers.report(),
@@ -739,3 +752,14 @@ class Receiver:
                 for t in traces
             ],
         }
+        if self.spec.name.startswith("galileo_e1"):
+            from ..models.codes import galileo_e1 as _gal
+
+            comp = "E1B" if self.spec.name.endswith("b") else "E1C"
+            # surfaced so an operator can tell at a glance whether the
+            # run used real ICD memory codes or the documented
+            # surrogate family (real-sky captures need the ICD tables,
+            # models/codes/galileo_e1.load_codes_hex)
+            out["code_status"] = {
+                "surrogate_codes": _gal.using_surrogate_codes(comp)}
+        return out

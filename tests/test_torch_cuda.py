@@ -329,16 +329,18 @@ def test_epoch_read_bounds_raise_on_card(card):
         fused.track_block_fused_resident(*res["args"], **dict(
             res["kw"], t_epochs=res["kw"]["t_epochs"] + 20))
     assert chip_smoke._launch_counts() == before
-    assert ep.MAX_WP == 16384
+    assert ep.MAX_WP == 49152
 
 
 @pytest.mark.cuda
 def test_epoch_kernel_widest_window_on_card(card):
-    """B4b at the widest window the port takes (wp = 16384, ROADMAP C6),
-    whose replica rows (320 KB) no longer fit in shared memory and are
-    read from global memory: against its plain version, epoch by epoch,
-    on random segments and replicas."""
-    n0, wp, t_epochs, c = 8184, 16384, 4, 2
+    """B4b at the widest window the port takes (wp = MAX_WP = 49,152,
+    ROADMAP C6: past the JAX kernel's 128 carrier A factors and past one
+    window slot, so every window is mixed from global memory), against
+    its plain version, epoch by epoch, on random segments and replicas;
+    one lane group wider raises naming C6."""
+    n0, wp, t_epochs, c = 8184, fused.MAX_WP, 4, 2
+    assert wp == 49152
     gen = torch.Generator(device=card).manual_seed(5)
     l_seg = fused.seg_length(t_epochs, n0, wp)
     seg = [torch.randn((c, l_seg), generator=gen, device=card)
@@ -355,6 +357,85 @@ def test_epoch_kernel_widest_window_on_card(card):
         fused.track_block_fused_seg(
             *seg, torch.zeros((c, 5, wp + 128), device=card), st,
             **dict(kw, wp=wp + 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["glonass_l1of", "galileo_e1b"])
+def test_b1_lane_chunks_match_plain_at_8184k_on_card(card, system):
+    """B1 in lane chunks (ROADMAP C15) at a ladder-4 shape, 96 ms blocks
+    at 8.184 MHz (GLONASS wp 8704 at R 21 and K 8; Galileo E1B wp 33,280
+    at R 9 and K 6): against its plain version open loop, lean equal to
+    full bit for bit, every satellite's channel still tracking."""
+    inp = chip_smoke.wide_inputs(torch, card, system, {})
+    args, kw = inp["args"], inp["kw"]
+    wp, rows, k = chip_smoke.WIDE_MXU_SHAPES[system]
+    assert (inp["ft"].wp, inp["ft"].n_rows, kw["k_epochs"]) == (wp, rows, k)
+    assert fused.mxu_smem_plan(wp, rows, k)["layout"] == "chunked"
+    before = fused.launch_count
+    tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
+    assert fused.launch_count == before + kw["t_epochs"] // (2 * k)
+    tl, sl = fused.track_block_fused_mxu(*args, **dict(kw, telem_mode="lean"))
+    chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k, costas=False)
+    active = sk[:, 7].cpu().numpy()
+    assert active[:inp["n_sats"]].all() and not active[inp["n_sats"]:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lock", sorted(chip_smoke.WIDE_VARIANTS))
+def test_b1_one_lane_chunk_above_16_rows_on_card(card, lock):
+    """More than 16 bank rows on a window one lane chunk covers (GLONASS
+    at 1.023 MHz with 4-chip early-late spacing: wp 1536, R 21): the
+    launcher runs the plan's single chunk, against the plain version open
+    loop, lean equal to full."""
+    cfg_kw = dict(chip_smoke.WIDE_VARIANTS[lock],
+                  early_late_chips=chip_smoke.ONE_CHUNK_EL)
+    inp = chip_smoke.wide_inputs(torch, card, "glonass_l1of", cfg_kw,
+                                 block_ms=20, fs=chip_smoke.ONE_CHUNK_FS,
+                                 n_channels=2)
+    args, kw = inp["args"], inp["kw"]
+    k = kw["k_epochs"]
+    assert (inp["ft"].wp, inp["ft"].n_rows) == (1536, 21)
+    assert fused.mxu_smem_plan(1536, 21, k)["chunks"] == [(0, 1536)]
+    tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
+    tl, sl = fused.track_block_fused_mxu(*args, **dict(kw, telem_mode="lean"))
+    chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k,
+                                costas=lock == "costas")
+
+
+@pytest.mark.cuda
+def test_b2_refuses_the_chunked_widths_on_card(card):
+    """B2 (the shared fetch) takes the whole-width layout only: at a
+    ladder-4 width it raises naming C15 before it launches."""
+    inp = chip_smoke.wide_inputs(torch, card, "gps_l1ca", {})
+    args, kw = inp["args"], inp["kw"]
+    sre, sim, starts, reps, st = args
+    base = int(kw["starts_host"].min())
+    shared = torch.cat([starts, starts.new_tensor([base])])
+    before = fused.shared_launch_count
+    with pytest.raises(ValueError, match="C15"):
+        fused.track_block_fused_mxu(sre, sim, shared, reps, st,
+                                    **dict(kw, spread_cap=2560))
+    assert fused.shared_launch_count == before
+
+
+@pytest.mark.cuda
+def test_b4b_at_galileo_seg_width_on_card(card):
+    """B4c and B4b at Galileo E1B's seg width at 8.184 MHz (wp 33,152, 20
+    ms blocks of 5 epochs): B4c equal to its plain version bit for bit,
+    B4b against its plain version epoch by epoch, both channels still
+    tracking."""
+    inp = chip_smoke.wide_inputs(torch, card, "galileo_e1b", {},
+                                 layout="seg", block_ms=20)
+    assert (inp["ft"].wp, inp["ft"].t_epochs) == (33152, 5)
+    g_args, g_kw = inp["gather"]
+    got = fused.gather_segments(*g_args, **g_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], inp["args"][0])
+    assert torch.equal(got[1], inp["args"][1])
+    _, sk, _ = chip_smoke.epoch_open_loop(torch, "seg", inp["args"],
+                                          inp["kw"], piece=1)
+    active = sk[:, 7].cpu().numpy()
+    assert active[:inp["n_sats"]].all()
 
 
 @pytest.mark.cuda
@@ -437,8 +518,10 @@ def test_shared_cluster_size_falls_back_on_card(card, monkeypatch):
     refused before any launch and the next size is launched; with no
     size that runs the wrapper raises. A slice that does not fit in a
     block beside the bank and the tile (spread_cap 8192: 18,816 samples,
-    147 KB) runs with the windows read from global memory, equal to B1;
-    a bank and tile that no block can hold (R = 16, wp = 8192) raise
+    147 KB) runs with the windows read from global memory, equal to B1.
+    A bank and tile that no block can hold whole (R = 16, wp = 8192) run
+    B1 in lane chunks since ROADMAP C15 (one launch); a window wider than
+    the lane chunks take (``mxu_smem_plan``'s widest) raises naming C15
     before any launch."""
     _, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20,
                                                shared_fetch=True)
@@ -456,18 +539,26 @@ def test_shared_cluster_size_falls_back_on_card(card, monkeypatch):
     monkeypatch.setattr(fused, "shared_cluster_sizes", lambda c: (2,))
     t3, s3 = fused.track_block_fused_mxu(*args, **dict(kw, spread_cap=8192))
     assert torch.equal(t3, t1) and torch.equal(s3, s1)
-    c, wp, n0 = 2, 8192, kw["n0"]
-    n = fused.direct_span(5, n0, wp) + (5 * n0 // 128) * 128
-    before = fused.launch_count
-    with pytest.raises(RuntimeError, match="shared memory"):
-        fused.track_block_fused_mxu(
+    c, n0 = 2, kw["n0"]
+    widest = fused.mxu_smem_plan(8192, 16, 5)["max_wp"]
+    for wp, launched in ((8192, 1), (widest + 128, 0)):
+        n = fused.direct_span(5, n0, wp) + (5 * n0 // 128) * 128
+        before = fused.launch_count
+        call = lambda: fused.track_block_fused_mxu(  # noqa: E731
             torch.zeros(n, device=card), torch.zeros(n, device=card),
             torch.zeros(c, dtype=torch.int32, device=card),
             torch.zeros((c, 16, wp), dtype=torch.bfloat16, device=card),
             torch.zeros((c, fused.N_FIELDS), device=card), t_epochs=10,
             k_epochs=5, n0=n0, wp=wp, fs=chip_smoke.FS,
             starts_host=np.zeros(c, np.int32))
-    assert fused.launch_count == before
+        if launched:
+            telem, _ = call()
+            torch.cuda.synchronize()
+            assert telem.shape == (10, c, fused.N_TELEM)
+        else:
+            with pytest.raises(ValueError, match="C15"):
+                call()
+        assert fused.launch_count == before + launched
 
 
 @pytest.mark.cuda

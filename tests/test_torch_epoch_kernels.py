@@ -288,25 +288,49 @@ def test_read_bounds_raise(check):
 
 def test_wp_above_16384_raises_naming_c6():
     """The JAX _epoch_core breaks above 128 carrier A factors (ROADMAP
-    C6: Galileo E1B at 8.184 MHz on seg, wp 33152); the port rejects such
-    a window in the kernels' wrappers and at FusedTracker construction."""
+    C6: Galileo E1B at 8.184 MHz on seg, wp 33152). The port lifted its
+    limit to MAX_WP = 49,152 (the widest window whose prompt row and trig
+    factors fit in shared memory; tests/test_torch_wide_windows.py holds
+    the plain version past 128 factors to a float64 oracle): a window of
+    129 factors runs through the wrappers and FusedTracker builds on seg,
+    windows and direct at 16.368 MHz (wp 16,768-16,896); above MAX_WP the
+    wrappers and FusedTracker still raise naming C6."""
     wp = 128 * 129
     st = torch.zeros((2, fused.N_FIELDS))
+    st[:, 3] = 1.023e6
     reps = torch.zeros((2, N_DRIFT, wp))
-    seg = torch.zeros((2, wp))
-    with pytest.raises(ValueError, match="C6"):
-        fused.track_block_fused_seg(seg, seg, reps, st, t_epochs=1, n0=8184,
-                                    wp=wp, fs=8_184_000.0)
+    seg = torch.zeros((2, fused.seg_length(1, 8184, wp)))
+    tel, _ = fused.track_block_fused_seg(seg, seg, reps, st, t_epochs=1,
+                                         n0=8184, wp=wp, fs=8_184_000.0)
+    assert tel.shape == (1, 2, 17)
     win = torch.zeros((1, 2, wp))
+    tel, _ = fused.track_block_fused(win, win, reps, st, n0=8184,
+                                     fs=8_184_000.0)
+    assert tel.shape == (1, 2, 17)
+    big = fused.MAX_WP + 128
+    assert fused.MAX_WP == 49152
     with pytest.raises(ValueError, match="C6"):
-        fused.track_block_fused(win, win, reps, st, n0=8184, fs=8_184_000.0)
-    fs = 16_368_000.0
-    cfg = TrackConfig(n_channels=2, correlator="fused")
-    params = trk.TrackParams.create(cfg, GPS_L1CA, fs)
-    n0 = GPS_L1CA.samples_per_code(fs)
-    codes = trk.make_sampled_code_table(GPS_L1CA, fs, 2,
-                                        window=params.window)
-    for layout in ("seg", "windows", "direct"):
-        with pytest.raises(ValueError, match="C6"):
-            fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes, 15,
-                            4 * 20 * n0, layout=layout, device="cpu")
+        fused.track_block_fused_seg(
+            torch.zeros((2, big)), torch.zeros((2, big)),
+            torch.zeros((2, N_DRIFT, big)), st, t_epochs=1, n0=8184, wp=big,
+            fs=8_184_000.0)
+    with pytest.raises(ValueError, match="C6"):
+        fused.track_block_fused(
+            torch.zeros((1, 2, big)), torch.zeros((1, 2, big)),
+            torch.zeros((2, N_DRIFT, big)), st, n0=8184, fs=8_184_000.0)
+    for fs, ok in ((16_368_000.0, True), (49_104_000.0, False)):
+        cfg = TrackConfig(n_channels=2, correlator="fused")
+        params = trk.TrackParams.create(cfg, GPS_L1CA, fs)
+        n0 = GPS_L1CA.samples_per_code(fs)
+        codes = trk.make_sampled_code_table(GPS_L1CA, fs, 2,
+                                            window=params.window)
+        for layout in ("seg", "windows", "direct"):
+            if ok:
+                ft = fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes, 15,
+                                     4 * 20 * n0, layout=layout,
+                                     device="cpu")
+                assert 16384 < ft.wp <= fused.MAX_WP
+                continue
+            with pytest.raises(ValueError, match="C6"):
+                fr.FusedTracker(params, cfg, GPS_L1CA, fs, codes, 15,
+                                4 * 20 * n0, layout=layout, device="cpu")

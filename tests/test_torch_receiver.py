@@ -154,9 +154,20 @@ def test_nav_processors_same_status():
 
 
 def test_non_gps_nav_chain_raises():
-    proc = NavProcessor(FS, signal="beidou_b1i")
-    with pytest.raises(NotImplementedError, match="A16"):
-        proc.open_channel(0, 3)
+    """The non-GPS nav chains are ported (ROADMAP A16): a NavProcessor of
+    each signal opens its channel on the chain the JAX package builds;
+    only a signal with no chain raises, as there."""
+    for signal in ("galileo_e1b", "galileo_e1c", "beidou_b1i",
+                   "glonass_l1of"):
+        a = NavProcessor(FS, signal=signal)
+        b = JNavProcessor(FS, signal=signal)
+        a.open_channel(0, 3)
+        b.open_channel(0, 3)
+        assert type(a.channels[0].chain).__name__ == \
+            type(b.channels[0].chain).__name__
+        assert a.status() == b.status()
+    with pytest.raises(KeyError, match="no nav decode chain"):
+        NavProcessor(FS, signal="gps_l5").open_channel(0, 3)
 
 
 def test_import_boundary():
@@ -210,8 +221,11 @@ def test_receiver_defaults_to_cuda():
     (dict(acq_kw=dict(engine="conv")), "A11"),
     (dict(par_kw=dict(channel_axis=2)), "A14"),
     (dict(acq_kw=dict(signal="galileo_e1b")), "A16"),
-])
+], ids=["kw0-A11", "kw1-A14", "kw2-A16"])
 def test_unported_receiver_options_raise(kw, item):
+    """A11 and A14 still raise naming their item; A16 (the non-GPS
+    signals) is ported, so its case now builds the receiver: Galileo E1B
+    with the JAX package's surrogate-code warning and ``code_status``."""
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,
                           total_samples=int(0.1 * FS))
     cfg = ReceiverConfig(
@@ -219,5 +233,11 @@ def test_unported_receiver_options_raise(kw, item):
         acq=AcqConfig(**kw.get("acq_kw", {})),
         track=TrackConfig(n_channels=4, **kw.get("track_kw", {})),
         parallel=ParallelConfig(**kw.get("par_kw", {})), block_ms=20)
+    if item == "A16":
+        with pytest.warns(UserWarning, match="SURROGATE"):
+            rx = Receiver(cfg, src, device="cpu")
+        assert rx.spec.name == "galileo_e1b"
+        assert rx.summary()["code_status"] == {"surrogate_codes": True}
+        return
     with pytest.raises(NotImplementedError, match=item):
         Receiver(cfg, src, device="cpu")
