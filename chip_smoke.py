@@ -141,7 +141,30 @@ GPU:
  27. the three live-decode scenes of tests/test_nav_live_multi.py
      (Galileo I/NAV, BeiDou D1, GLONASS strings; one satellite each, cold
      start): each ephemeris decoded on the card and equal to its truth;
- 28. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 28. slice 11: kernel B2 (the shared fetch) in lane chunks at the four
+     ladder-4 shapes (there the wrapper launches B1's chunked kernel
+     on starts[:C]) against its plain version open loop, power and Costas, full and
+     lean, and against B1 kernel to kernel bit for bit at the same chunk
+     width, on the tracker's starts (base 0) and on random starts across
+     the cap above a raised base;
+ 29. B2's times per 96 ms block at those shapes beside B1's in turns, its
+     plain version's and its bounds;
+ 30. B2's path at ladder 4's GPS shape (8 channels, 96 ms blocks):
+     FusedTracker(shared_fetch=True) as single blocks, through run_blocks
+     and in 5-block spans (slim and slim2 wires), every block's telemetry and the final ledger
+     equal bit for bit to shared_fetch=False, B2 launched once per block;
+ 31. the conv acquisition engine (ROADMAP A11): acquire_conv on the
+     24-satellite scene's chunk (2.046 MHz, 32 PRNs) held to the port's
+     CPU run, its time on the card, one search cold (32 PRNs) and steady
+     (the 8-row bucket) against the FFT engine's, and one search on each
+     of the mixed row's branches (GLONASS FDMA: the conv engine's
+     detections equal to the FFT engine's, ROADMAP C4);
+ 32. the in-scan search at full width: 32 channels at 2.046 MHz, mxu,
+     500 ms blocks, spans of 4, the 24-satellite scene with PRN 25 rising
+     at 1.5 s: acquired by a span's own search on synchronous and on
+     pipelined spans, every PRN tracked within 40 Hz; the FFT engine's
+     boundary search beside it; each run's real-time factor;
+ 33. the kernels line, then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -514,6 +537,23 @@ def prefetch_span(start, j, k_epochs, n0, wp, spread_cap=0):
     offset = g - origin
     span = ((k_epochs - 1) * n0 // 128) * 128 + wp
     return origin, offset + span + spread_cap, offset
+
+
+def b2_chunk_reads(base, dc, j, e, lanes, *, k_epochs, n0, wp):
+    """The stream samples B2 in lane chunks (B1's chunked kernel,
+    csrc/track_block_mxu.cu kChunk, on starts[:C]) reads for epoch ``e``
+    of superstep ``j`` over tile lanes ``lanes`` (one chunk's [l0, l0 +
+    width)), for a channel ``dc`` above the shared ``base``: lane l
+    reads m = l + shift, less wp past the window's end (shift = rem_e +
+    rem_j < 256 < wp, the roll), of the epoch's window at starts[c] +
+    off_j + a_e, starts[c] = base + dc. Returns an int64 array."""
+    kk = j * k_epochs * n0
+    off_j = (kk // 128) * 128
+    a_e = (e * n0 // 128) * 128
+    shift = (e * n0 - a_e) + (kk - off_j)
+    m = np.asarray(lanes, np.int64) + shift
+    m = np.where(m >= wp, m - wp, m)
+    return base + dc + off_j + a_e + m
 
 
 def edge_case(torch, args, kw, r):
@@ -2072,10 +2112,12 @@ def shared_cases(torch, device, cfg_kw, block_ms=BLOCK_MS, seed=0):
     return out
 
 
-def offcode_case(args, kw, seed):
+def offcode_case(args, kw, seed, bases=(20, 100)):
     """B2's inputs with every window start replaced by the base plus a
     random 128-multiple in [0, spread_cap], the base a random 128-multiple
-    well above the cap: the ledger's code offsets stay as they were, so
+    (128 times an integer in ``bases``; at 2.046 MHz well above the cap,
+    at 8.184 MHz what the stream's history holds): the ledger's code
+    offsets stay as they were, so
     no channel's code lines up with its window and every channel tracks
     noise. B2 is held to B1 on it kernel to kernel; against the plain
     version such channels' carrier rates part by more than compare's
@@ -2084,7 +2126,7 @@ def offcode_case(args, kw, seed):
     rng = np.random.default_rng(seed)
     c, cap = args[4].shape[0], kw["spread_cap"]
     host = np.empty(c + 1, np.int32)
-    host[c] = 128 * int(rng.integers(20, 100))
+    host[c] = 128 * int(rng.integers(*bases))
     host[:c] = host[c] + 128 * rng.integers(0, cap // 128 + 1, size=c)
     return ((args[0], args[1], args[2].new_tensor(host), *args[3:]),
             dict(kw, starts_host=host))
@@ -2194,22 +2236,28 @@ def shared_edge_case(torch, args, kw):
              *args[2:]), kw)
 
 
-def _drive_tracker(torch, sig, shared, wire, span):
-    """FusedTracker on ``sig`` (the 24-satellite scene, 32 channels, 500 ms
-    blocks, the ledger of full_width_inputs), as single blocks (span 1:
-    run_block + rebase) or as synchronous spans of ``span`` blocks
-    (submit_span, each from the last one's ledger on the card). The
-    launch counts are set to 0 just before and read just after. Returns
-    (the downloaded arrays of every block or span, the final ledger as
-    arrays, whether each channel is active at the end, launches,
-    blocks, seconds)."""
+def _drive_tracker(torch, sig, shared, wire, span, tracker=None,
+                   run_blocks=False):
+    """FusedTracker on ``sig`` (by default the 24-satellite scene, 32
+    channels, 500 ms blocks, the ledger of full_width_inputs; or
+    ``tracker(shared, wire)`` -> (tracker, state, rows, history)), as
+    single blocks (span 1: run_block + rebase) or as synchronous spans
+    of ``span`` blocks (submit_span, each from the last one's ledger on
+    the card; ``run_blocks``: FusedTracker.run_blocks, the ledger
+    absorbed on the host after each span). The launch counts are set to
+    0 just before and read just after. Returns (the downloaded arrays of every block or span, the
+    final ledger as arrays, whether each channel is active at the end,
+    launches, blocks, seconds)."""
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
-    ft, st, rows, history = _scene_tracker(
-        torch, "cuda", {}, N_CHANNELS, BLOCK_MS, layout="mxu", wire=wire,
-        shared_fetch=shared)
-    assert ft.spread_cap == (2560 if shared else 0)
-    block = BLOCK_MS * ft.n0
+    if tracker is None:
+        ft, st, rows, history = _scene_tracker(
+            torch, "cuda", {}, N_CHANNELS, BLOCK_MS, layout="mxu",
+            wire=wire, shared_fetch=shared)
+        assert ft.spread_cap == (2560 if shared else 0)
+    else:
+        ft, st, rows, history = tracker(shared, wire)
+    block = ft.t_epochs * ft.n0
     sre = np.ascontiguousarray(sig.real, dtype=np.float32)
     sim = np.ascontiguousarray(sig.imag, dtype=np.float32)
     n_blocks = (sre.size - history) // block
@@ -2222,6 +2270,16 @@ def _drive_tracker(torch, sig, shared, wire, span):
             st, tl = ft.run_block(st, sre[w], sim[w], rows)
             out.append([np.asarray(v) for v in tl])
             st = trk.rebase(st, block)
+        led = [np.asarray(v) for v in st]
+        active = np.asarray(st.active)
+    elif run_blocks:
+        b0 = 0
+        while b0 < n_blocks:
+            n = min(span, n_blocks - b0)
+            w = slice(b0 * block, b0 * block + history + n * block)
+            st, tels = ft.run_blocks(st, sre[w], sim[w], rows, n)
+            out += [[np.asarray(v) for v in tl] for tl in tels]
+            b0 += n
         led = [np.asarray(v) for v in st]
         active = np.asarray(st.active)
     else:
@@ -2977,22 +3035,18 @@ def mixed_truth(sats):
     return out
 
 
-def wide_inputs(torch, device, system, cfg_kw, layout="mxu",
-                block_ms=MIXED_BLOCK_MS, seed=7, fs=WIDE_FS,
-                n_channels=None):
-    """One block's kernel inputs for ``system`` at ``fs`` (8.184 MHz)
-    through FusedTracker's own re-anchor: the mixed scene's satellites
-    of that system (rendered alone, ``seed``), each channel started on
-    its satellite's code boundary at its true Doppler (the FDMA offset
-    included), the system's other channels (MIXED_CHANNELS, or
-    ``n_channels``) idle.
-    Returns a dict: "ft", "args", "kw", "n_sats"; for seg, args are
-    B4b's on the segments of B4c's plain version and "gather" holds
-    B4c's (args, kw)."""
+def wide_tracker(torch, device, system, cfg_kw, layout="mxu",
+                 block_ms=MIXED_BLOCK_MS, fs=WIDE_FS, n_channels=None,
+                 shared_fetch=False, wire="f32"):
+    """A FusedTracker for ``system`` at ``fs`` (8.184 MHz) with the mixed
+    scene's satellites of that system (each channel started on its
+    satellite's code boundary at its true Doppler, the FDMA offset
+    included; the system's other channels, MIXED_CHANNELS or
+    ``n_channels``, idle). Returns (tracker, state, replica rows on
+    ``device``, the satellites, the history)."""
     from gnss_sdr_tpu_torch import models
     from gnss_sdr_tpu_torch.config import TrackConfig
     from gnss_sdr_tpu_torch.models.constellation import get_signal
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
     from gnss_sdr_tpu_torch.receiver import tracking as trk
     from gnss_sdr_tpu_torch.receiver.fused_runner import FusedTracker
 
@@ -3009,7 +3063,8 @@ def wide_inputs(torch, device, system, cfg_kw, layout="mxu",
                                         window=params.window)
     history = 2 * n0 + 4096
     ft = FusedTracker(params, cfg, spec, fs, codes, t_epochs,
-                      history + t_epochs * n0, layout=layout, device=device)
+                      history + t_epochs * n0, layout=layout, device=device,
+                      shared_fetch=shared_fetch, wire=wire)
     st = trk.init_state(c)
     chips = spec.code_length_chips
     for ch, s in enumerate(sats):
@@ -3020,7 +3075,26 @@ def wide_inputs(torch, device, system, cfg_kw, layout="mxu",
         st = trk.start_channel(st, ch, s.prn - 1, s.doppler_hz, off,
                                spec.code_rate_hz)
     rows = torch.from_numpy(codes[np.maximum(st.prn_idx, 0)]).to(device)
-    sig = models.synthesize(sats, history + t_epochs * n0, fs,
+    return ft, st, rows, sats, history
+
+
+def wide_inputs(torch, device, system, cfg_kw, layout="mxu",
+                block_ms=MIXED_BLOCK_MS, seed=7, fs=WIDE_FS,
+                n_channels=None, shared_fetch=False):
+    """One block's kernel inputs for ``system`` at ``fs`` (8.184 MHz)
+    through FusedTracker's own re-anchor, on wide_tracker's channels and
+    the system's satellites rendered alone (``seed``); with
+    ``shared_fetch`` B2's ([C + 1] starts, spread_cap).
+    Returns a dict: "ft", "args", "kw", "n_sats"; for seg, args are
+    B4b's on the segments of B4c's plain version and "gather" holds
+    B4c's (args, kw)."""
+    from gnss_sdr_tpu_torch import models
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    ft, st, rows, sats, history = wide_tracker(
+        torch, device, system, cfg_kw, layout=layout, block_ms=block_ms,
+        fs=fs, n_channels=n_channels, shared_fetch=shared_fetch)
+    sig = models.synthesize(sats, history + ft.t_epochs * ft.n0, fs,
                             noise_std=1.0, seed=seed)
     args, kw = ft.kernel_args(ft.anchor_block(st),
                               np.real(sig).astype(np.float32),
@@ -3507,6 +3581,423 @@ def phase_live_nav(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 11: B2 in lane chunks at ladder 4's widths (28-30), the conv
+# acquisition engine (31) and the in-scan search (32)
+# ---------------------------------------------------------------------------
+
+# B2's spread_cap at 8.184 MHz: ((n0 + 512 + 127) // 128) * 128
+WIDE_SPREAD_CAP = {"gps_l1ca": 8704, "beidou_b1i": 8704,
+                   "glonass_l1of": 8704, "galileo_e1b": 33280}
+# offcode_case's bases at 8.184 MHz: the highest start plus the last
+# superstep's reach stays inside the block's stream (GPS, BeiDou and
+# GLONASS: base <= 11,376)
+WIDE_OFFCODE_BASES = (1, 60)
+B2_PATH_SYSTEM = "gps_l1ca"         # phase 30's ladder-4 shape
+B2_PATH_BLOCKS = 10                 # ... 96 ms blocks: 0.96 s
+B2_PATH_SPAN = 5
+CONV_PASSES = 10                    # timed searches per engine
+INSCAN_S = 6                        # the in-scan receiver's scene
+INSCAN_RISE_S = 1.5                 # PRN 25 rises here
+INSCAN_PRN = 25
+INSCAN_SPAN = 4
+INSCAN_PACING = (1000, 8)           # steady re-search every 1 s, 8 PRNs
+
+
+def phase_b2_wide_check(torch):
+    """B2 (the shared fetch) in lane chunks at the four ladder-4 shapes
+    (8.184 MHz, 96 ms blocks; there the wrapper launches B1's chunked
+    kernel on starts[:C]), power and Costas lock, full and lean: against
+    its plain version open loop within B1's tolerances (compare), and
+    against B1
+    kernel to kernel bit for bit at the same chunk width, on the
+    tracker's own starts (the base clamped at 0) and on offcode_case's
+    (a raised base, every dc across the cap). Returns the largest
+    |error| of the correlations against the plain version."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    max_abs = 0.0
+    for system, (wp, rows, k) in WIDE_MXU_SHAPES.items():
+        for name, cfg_kw in WIDE_VARIANTS.items():
+            inp = wide_inputs(torch, "cuda", system, cfg_kw,
+                              shared_fetch=True)
+            ft, args, kw = inp["ft"], inp["args"], inp["kw"]
+            cap = WIDE_SPREAD_CAP[system]
+            assert (ft.wp, ft.n_rows, ft.spread_cap) == (wp, rows, cap), (
+                system, ft.wp, ft.n_rows, ft.spread_cap)
+            k_run = kw["k_epochs"]
+            plan = fused.mxu_smem_plan(wp, rows, k_run)
+            assert plan["layout"] == "chunked", plan
+            host = np.asarray(kw["starts_host"])
+            assert host[-1] == 0 and (host[:-1] <= cap).all(), host
+            for mode in ("full", "lean"):
+                m_kw = dict(kw, telem_mode=mode)
+                before = fused.shared_launch_count
+                tk, sk, err = open_loop_compare(torch, args, m_kw)
+                assert fused.shared_launch_count > before
+                _check_active(sk, inp["n_sats"], (system, name, "B2"))
+                max_abs = max(max_abs, err["corr_max_abs"])
+                print(f"B2 vs plain, open loop [{system} {name} {mode}: "
+                      f"wp {wp}, R {rows}, K {k_run}, spread_cap {cap}, "
+                      f"chunks {len(plan['chunks'])} x {plan['chunk']} "
+                      f"lanes, B1's chunked kernel]: {_margins(err)}")
+                cases = {"clamped": (args, m_kw),
+                         "offcode": offcode_case(args, m_kw,
+                                                 seed=len(system) + k_run,
+                                                 bases=WIDE_OFFCODE_BASES)}
+                for case, (c_args, c_kw) in cases.items():
+                    n2, n1 = b2_equals_b1(torch, c_args, c_kw)
+                    assert (n2, n1) == (1, 1), (n2, n1)
+            print(f"B2 vs B1, kernel to kernel [{system} {name}]: telemetry "
+                  "and state equal bit for bit at the same chunk width "
+                  "(clamped and offcode bases, full and lean)")
+    return max_abs
+
+
+def phase_b2_wide_timing(torch):
+    """B2's time per 96 ms block at the four ladder-4 shapes beside B1's
+    in lane chunks, in turns (B1, B2, B2, B1; events around each queued
+    launch behind a head start, the L2 flushed, median of 2 x
+    KERNEL_PASSES each), each equal to B1 bit for bit; its plain
+    version's (two passes); its bound, from this run's inputs (each input
+    read once, telemetry and state written once; the mixed lanes' bf16
+    and f32 operations), and its bytes."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    out = {}
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    for system, (wp, rows, _) in WIDE_MXU_SHAPES.items():
+        inp = wide_inputs(torch, "cuda", system, {}, shared_fetch=True)
+        args, kw = inp["args"], inp["kw"]
+        b1_args, b1_kw = b1_of(args, kw)
+        plan = fused.mxu_smem_plan(wp, rows, kw["k_epochs"])
+
+        def b1():
+            return fused.track_block_fused_mxu(*b1_args, **b1_kw)
+
+        def b2():
+            return fused.track_block_fused_mxu(*args, **kw)
+
+        t_ref, s_ref = b1()
+        telem, st = b2()
+        assert torch.equal(telem, t_ref) and torch.equal(st, s_ref), system
+        for _ in range(3):
+            b1()
+            b2()
+        torch.cuda.synchronize()
+        t1 = _time_queued(torch, b1, KERNEL_PASSES, flush)
+        t2 = _time_queued(torch, b2, KERNEL_PASSES, flush)
+        t2 += _time_queued(torch, b2, KERNEL_PASSES, flush)
+        t1 += _time_queued(torch, b1, KERNEL_PASSES, flush)
+        ps = []
+        for _ in range(2):
+            flush.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused.track_block_fused_mxu_reference(*args, **kw)
+            torch.cuda.synchronize()
+            ps.append((time.perf_counter() - t0) * 1e3)
+        lanes = float((telem[..., 12] * telem[..., 16]).double().sum())
+        n_bytes = _nbytes(*args, telem, st)
+        bf16_ops = 2.0 * 2 * rows * lanes
+        f32_ops = MIX_OPS_PER_LANE * lanes
+        bound, bound_by = _bound(n_bytes, f32_ops, bf16_ops)
+        res = dict(ms=statistics.median(t2), ms_min=min(t2),
+                   ms_max=max(t2), b1_ms_in_turns=statistics.median(t1),
+                   b1_min=min(t1), b1_max=max(t1),
+                   plain_ms=statistics.median(ps), plain_passes=ps,
+                   bound_ms=bound, bound_by=bound_by, bytes=n_bytes,
+                   mixed_lanes=lanes, wp=wp, rows=rows,
+                   k_epochs=kw["k_epochs"], channels=MIXED_CHANNELS[system],
+                   spread_cap=kw["spread_cap"], chunk=plan["chunk"],
+                   chunks=len(plan["chunks"]), layout=plan["layout"],
+                   library_ms=None)
+        out[system] = res
+        print(f"timing [B2 {system}] (ms per 96 ms block, "
+              f"{res['channels']} ch): " + json.dumps(
+                  {k: (round(v, 6) if isinstance(v, float) else v)
+                   for k, v in res.items()}))
+    return out
+
+
+def phase_b2_wide_path(torch):
+    """B2's path at ladder 4's GPS shape (8.184 MHz, 8 channels, 96 ms
+    blocks, wp 8704 in lane chunks): FusedTracker(shared_fetch=True) as
+    single blocks (f32 wire, full mode), through run_blocks (f32) and in
+    chained spans of B2_PATH_SPAN (the slim wire, full mode, and the
+    slim2 wire, lean mode), each against the same run with
+    shared_fetch=False. Both run B1's chunked kernel at the same chunk
+    width, so every block's telemetry and the final ledger are equal bit
+    for bit; B2 launched once per block, B1 never. Returns B2's launches
+    on the slim2 span run."""
+    from gnss_sdr_tpu_torch import models
+
+    ft, _, _, sats, history = wide_tracker(torch, "cuda", B2_PATH_SYSTEM,
+                                           {})
+    block = ft.t_epochs * ft.n0
+    sig = models.synthesize(sats, history + B2_PATH_BLOCKS * block, WIDE_FS,
+                            noise_std=1.0, seed=11)
+
+    def tracker(shared, wire):
+        ft, st, rows, _, _ = wide_tracker(torch, "cuda", B2_PATH_SYSTEM, {},
+                                          shared_fetch=shared, wire=wire)
+        assert ft.spread_cap == (WIDE_SPREAD_CAP[B2_PATH_SYSTEM]
+                                 if shared else 0)
+        return ft, st, rows, history
+
+    launched = 0
+    for label, wire, n_span, api in (
+            ("single-block", "f32", 1, False),
+            ("run_blocks", "f32", B2_PATH_SPAN, True),
+            ("spans", "slim", B2_PATH_SPAN, False),
+            ("spans", "slim2", B2_PATH_SPAN, False)):
+        res = {shared: _drive_tracker(torch, sig, shared, wire, n_span,
+                                      tracker, run_blocks=api)
+               for shared in (True, False)}
+        (out_s, led_s, active, l_s, n, sec_s), \
+            (out_b, led_b, _, l_b, _, sec_b) = res[True], res[False]
+        _expect_launches(l_s, _mxu_kernel_shared=n)
+        _expect_launches(l_b, track_block_fused_mxu=n)
+        n_arrays = 0
+        for xs, ys in zip(out_s + [led_s], out_b + [led_b]):
+            assert len(xs) == len(ys)
+            for x, y in zip(xs, ys):
+                assert np.array_equal(x, y), label
+                n_arrays += 1
+        n_sats = len(sats)
+        assert active[:n_sats].all() and not active[n_sats:].any(), active
+        launched = l_s["_mxu_kernel_shared"]
+        print(f"B2 path at 8.184 MHz [{B2_PATH_SYSTEM}, {label}, wire "
+              f"{wire}]: {n} blocks of 96 ms, {n_arrays} arrays equal bit "
+              f"for bit to shared_fetch=False, {n_sats} channels tracking; "
+              f"launches {json.dumps(l_s)}; wall {sec_s:.3f} s (B1 "
+              f"{sec_b:.3f} s)")
+    return launched
+
+
+def _conv_engines(torch, system, fs, acq_kw, device):
+    """(conv engine, FFT engine) for ``system`` at ``fs`` on ``device``."""
+    from gnss_sdr_tpu_torch.config import AcqConfig
+    from gnss_sdr_tpu_torch.models.constellation import get_signal
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    spec = get_signal(system)
+    return tuple(AcquisitionEngine(AcqConfig(signal=system, engine=e,
+                                             **acq_kw), spec, fs,
+                                   device=device)
+                 for e in ("conv", "fft"))
+
+
+def _search_ms(torch, eng, chunk, allowed, passes=CONV_PASSES):
+    """One search's wall (ms, host clock, synchronized; median of
+    ``passes``) and its candidates."""
+    cands = eng.search(chunk, allowed_prns=allowed)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        eng.search(chunk, allowed_prns=allowed)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), cands
+
+
+def phase_conv_engine(torch):
+    """The conv acquisition engine on the card (ROADMAP A11): acquire_conv
+    on the 24-satellite scene's search chunk (2.046 MHz, 32 PRNs, the
+    full grid) held to the port's CPU run on the same samples (detections
+    and code phases equal, the fine Doppler within one line-search step,
+    the ratio within 1e-3), its device search alone (CUDA events, queued),
+    then one search (host clock, synchronized, median of CONV_PASSES)
+    cold (32 PRNs) and steady (the 8-row bucket), conv against the FFT
+    engine on the same chunk; then each branch of the mixed row (GPS,
+    Galileo E1B, BeiDou B1I and GLONASS FDMA at 8.184 MHz, bench.py's
+    AcqConfig each, its satellites rendered alone), conv against FFT:
+    GLONASS's detections equal (ROADMAP C4), the others reported.
+    Returns the times."""
+    from gnss_sdr_tpu_torch import models
+    from gnss_sdr_tpu_torch.ops import pcps
+
+    sats, sig = _scene(SCAN_S)
+    out = {}
+    conv, fft = _conv_engines(torch, "gps_l1ca", FS, {}, "cuda")
+    conv_cpu, _ = _conv_engines(torch, "gps_l1ca", FS, {}, "cpu")
+    n = conv.samples_needed
+    x = sig[:n]
+    re = np.ascontiguousarray(x.real, dtype=np.float32)
+    im = np.ascontiguousarray(x.imag, dtype=np.float32)
+    dev = tuple(torch.from_numpy(v).cuda() for v in (re, im))
+    res = conv.conv_search_device(*dev)
+    ref = conv_cpu.conv_search_device(torch.from_numpy(re),
+                                      torch.from_numpy(im))
+    got = [v.cpu().numpy() for v in res]
+    want = [v.numpy() for v in ref]
+    det = want[0]
+    assert np.array_equal(got[0], det), (got[0], det)
+    assert np.array_equal(got[3][det], want[3][det])
+    step = 2.0 * conv.cfg.doppler_step_hz / 128
+    f_err = float(np.abs(got[4][det] - want[4][det]).max())
+    assert f_err <= step, f_err
+    r_err = float(np.abs(got[1] / want[1] - 1.0)[det].max())
+    assert r_err < 1e-3, r_err
+    found = sorted(np.flatnonzero(det) + 1)
+    assert set(found) >= set(range(1, 25)), found
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    sel8 = torch.from_numpy(conv.steady_sel(range(25, 33))[0]).cuda()
+    dev_ms = {}
+    for name, sel in (("cold", None), ("steady", sel8)):
+        for _ in range(2):
+            conv.conv_search_device(*dev, sel)
+        ts = _time_queued(torch, lambda: conv.conv_search_device(*dev, sel),
+                          KERNEL_PASSES, flush)
+        dev_ms[name] = statistics.median(ts)
+    times = {}
+    for name, allowed in (("cold", None), ("steady", set(range(25, 33)))):
+        for eng_name, eng in (("conv", conv), ("fft", fft)):
+            chunk = (dev if eng_name == "conv" else
+                     tuple(v[:eng.samples_needed] for v in dev))
+            ms, cands = _search_ms(torch, eng, chunk, allowed)
+            times[f"{name}_{eng_name}"] = ms
+            if name == "cold":
+                assert {c.prn for c in cands} >= set(range(1, 25)), (
+                    eng_name, [c.prn for c in cands])
+    out["gps_2046k"] = dict(search_ms=times, device_ms=dev_ms,
+                            detected=len(found), f_err_hz=f_err,
+                            ratio_rel_err=r_err, decim=conv.decim)
+    print("conv engine [gps_l1ca, 2.046 MHz, 32 PRNs x "
+          f"{conv.grid.size} bins, decim {conv.decim}]: detections and "
+          f"code phases equal to the CPU run's ({len(found)} PRNs), fine "
+          f"Doppler within {f_err:.3g} Hz, ratio within {r_err:.2e}; "
+          "acquire_conv on the card (ms, queued): " + json.dumps(
+              {k: round(v, 4) for k, v in dev_ms.items()})
+          + "; one search (ms, synchronized): " + json.dumps(
+              {k: round(v, 3) for k, v in times.items()}))
+    # the mixed row's CDMA branches, each with bench.py's AcqConfig
+    configs = mixed_configs()
+    msats = mixed_sats(models)
+    for system in ("gps_l1ca", "galileo_e1b", "beidou_b1i", "glonass_l1of"):
+        acq = configs[system].acq
+        acq_kw = {f: getattr(acq, f) for f in (
+            "n_prn", "doppler_span_hz", "doppler_step_hz", "non_coherent_ms",
+            "coherent_ms", "bit_edge_hypotheses", "detection_threshold",
+            "fdma_spacing_hz", "fdma_channels")}
+        conv, fft = _conv_engines(torch, system, WIDE_FS, acq_kw, "cuda")
+        scene = [s for s in msats if s.signal.name == system]
+        n = conv.samples_needed
+        xs = models.synthesize(scene, n, WIDE_FS, noise_std=1.0, seed=7)
+        dev = tuple(torch.from_numpy(np.ascontiguousarray(
+            v, dtype=np.float32)).cuda() for v in (xs.real, xs.imag))
+        row = {}
+        for eng_name, eng in (("conv", conv), ("fft", fft)):
+            chunk = tuple(v[:eng.samples_needed] for v in dev)
+            ms, cands = _search_ms(torch, eng, chunk, None)
+            row[eng_name + "_ms"] = ms
+            row[eng_name + "_prns"] = sorted(c.prn for c in cands)
+        truth = sorted(mixed_truth(scene)[system]) if acq.fdma_spacing_hz \
+            else sorted(s.prn for s in scene if s.prn <= acq.n_prn)
+        for eng_name in ("conv", "fft"):
+            row[eng_name + "_finds_truth"] = \
+                set(row[eng_name + "_prns"]) >= set(truth)
+        if acq.fdma_spacing_hz:
+            # ROADMAP C4: the FDMA channels mixed out before the coarse
+            # decimation, the conv engine finds what the FFT engine finds
+            assert row["conv_prns"] == row["fft_prns"] == truth, row
+        row["decim"] = conv.decim
+        out[system + "_8184k"] = row
+        print(f"conv engine [{system}, 8.184 MHz, mixed row's AcqConfig, "
+              f"decim {conv.decim}]: " + json.dumps(
+                  {k: (round(v, 3) if isinstance(v, float) else v)
+                   for k, v in row.items()}) + f"; truth {truth}")
+    return out
+
+
+def _inscan_scene():
+    """The 24-satellite scene for INSCAN_S seconds with PRN INSCAN_PRN
+    rising at INSCAN_RISE_S (bench.py's scene's amplitude, 1900 Hz)."""
+    from gnss_sdr_tpu_torch.models import SatelliteScenario, synthesize
+
+    sats = scene_sats(SatelliteScenario)
+    riser = SatelliteScenario(prn=INSCAN_PRN, doppler_hz=1900.0,
+                              code_phase_chips=311.0, amplitude=0.3)
+    n1 = int(INSCAN_RISE_S * FS)
+    n2 = int(INSCAN_S * FS)
+    a = synthesize(sats, n1, FS, noise_std=1.0, seed=3)
+    b = synthesize(sats + [riser], n2 - n1, FS, noise_std=1.0, seed=4,
+                   start_sample=n1)
+    return sats + [riser], np.concatenate([a, b])
+
+
+def phase_inscan(torch):
+    """The in-scan search at full width: 32 channels at 2.046 MHz, mxu,
+    500 ms blocks, spans of INSCAN_SPAN, on the 24-satellite scene with
+    PRN 25 rising at 1.5 s: the conv engine's steady search queued inside
+    each span (synchronous and pipelined spans) must acquire the riser
+    from a span's own search (an acquisition event at or after the rise,
+    the search stage's calls the spans'), every satellite tracked within
+    40 Hz; beside them the FFT engine's boundary search on the same
+    scene. Returns each run's real-time factor, stage totals and
+    launches."""
+    from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
+        TrackConfig
+    from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
+
+    sats, sig = _inscan_scene()
+    truth = {s.prn: s.doppler_hz for s in sats}
+    out = {}
+    for label, engine, pipe in (("conv, synchronous spans", "conv", False),
+                                ("conv, pipelined spans", "conv", True),
+                                ("fft boundary search", "fft", False)):
+        rx = Receiver(ReceiverConfig(
+            rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+            acq=AcqConfig(engine=engine, steady_pacing=INSCAN_PACING),
+            track=TrackConfig(n_channels=N_CHANNELS, correlator="fused",
+                              fused_layout="mxu"),
+            block_ms=BLOCK_MS), ArraySource(sig, FS), device="cuda")
+        assert rx._span_acq == (engine == "conv")
+        # the boundary searches' times (Receiver._run_acquisition): the
+        # conv runs' riser must come from a span's own search instead
+        boundary = []
+
+        def searched(run=rx._run_acquisition, rx=rx):
+            boundary.append(rx.time_ms)
+            run()
+
+        rx._run_acquisition = searched
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = rx.run(scan_blocks=INSCAN_SPAN, span_pipeline=pipe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        rise = [t for t, c in rx.acq_events if c.prn == INSCAN_PRN]
+        assert summary["tracked_prns"] == sorted(truth), summary
+        assert rise and rise[0] >= INSCAN_RISE_S * 1000.0, rise
+        if engine == "conv":
+            assert rx.fused.last_span_extra is not None or pipe
+            assert rise[0] not in boundary, (rise, boundary)
+        errs = {c["prn"]: abs(c["last_doppler_hz"] - truth[c["prn"]])
+                for c in summary["channels"]}
+        assert max(errs.values()) < 40.0, errs
+        timing = summary["stage_timing"]
+        out[label] = dict(
+            wall_s=wall, rtf=INSCAN_S / wall, rise_ms=rise[0],
+            boundary_searches_ms=boundary,
+            launches=launches,
+            stages={k: v["total_s"] for k, v in timing.items()},
+            calls={k: v["calls"] for k, v in timing.items()})
+        print(f"in-scan receiver [{label}, 32 ch, 2.046 MHz, mxu, spans of "
+              f"{INSCAN_SPAN}]: {INSCAN_S} s in {wall:.3f} s, real-time "
+              f"factor {INSCAN_S / wall:.2f}x; PRN {INSCAN_PRN} acquired at "
+              f"{rise[0]:.0f} ms (rises at {INSCAN_RISE_S * 1000:.0f}; "
+              f"boundary searches at {boundary} ms); max "
+              f"|doppler error| {max(errs.values()):.2f} Hz; stages "
+              + json.dumps({k: round(v, 4)
+                            for k, v in out[label]["stages"].items()})
+              + f"; calls {json.dumps(out[label]['calls'])}; launches "
+              + json.dumps(launches))
+    return out
+
+
 def _wide_row(res):
     """A wide shape's numbers for the kernels line."""
     keep = ("wp", "rows", "k_epochs", "channels", "t_epochs", "l_seg", "ms",
@@ -3553,6 +4044,11 @@ def main() -> int:
     wtiming = phase_wide_timing(torch)
     mixed = phase_mixed(torch)
     phase_live_nav(torch)
+    b2w_abs = phase_b2_wide_check(torch)
+    b2w_timing = phase_b2_wide_timing(torch)
+    b2w_launches = phase_b2_wide_path(torch)
+    phase_conv_engine(torch)
+    phase_inscan(torch)
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
@@ -3589,7 +4085,12 @@ def main() -> int:
         "replaces": replaces + "1713",
         # its path: FusedTracker(shared_fetch=True), synchronous spans
         "launches": shared_launches,
-        "max_abs_err": shared_abs,
+        "launches_by_path": {"spans_2046k": shared_launches,
+                             "ladder4_gps_spans": b2w_launches},
+        "wide_shapes": {k: dict(_wide_row(v), b1_ms_in_turns=v[
+            "b1_ms_in_turns"], chunk=v["chunk"], chunks=v["chunks"],
+            layout=v["layout"]) for k, v in b2w_timing.items()},
+        "max_abs_err": max(shared_abs, b2w_abs),
         "equals_b1_bit_for_bit": True,
         "ms": stiming["ms"],
         "b1_ms_in_turns": stiming["b1_ms_in_turns"],

@@ -95,6 +95,17 @@
 // masked), so every block reaches every barrier. Only where the samples
 // are read from differs from B1, so the result is B1's bit for bit. The
 // wrapper checks the slices' read bound on the host.
+// In lane chunks (every system at 8.184 MHz) B2 launches B1's chunked
+// kernel on starts[:C], without a cluster: base + dc is starts[c], so
+// its windows are B1's samples and the result is B1's bit for bit at the
+// same chunk width. The TPU kernel's one shared fetch has no counterpart
+// there. A slice does not fit beside a chunk's bank buffers and tile; a
+// (chunk, epoch) sub-slice [base + off_j + a_e + l0, + w + spread_cap)
+// multicast within a cluster is >= 70.7 KB for GPS, BeiDou and GLONASS
+// (>= 267 KB for Galileo E1B, more than a block may have), and a double
+// buffer of it fits only beside chunks of <= 512 lanes (GPS) or <= 256
+// (GLONASS). That design is not built and its time not measured
+// (ROADMAP queue B).
 //
 // Telemetry modes: the template flag kLean selects which columns the
 // kernel stores (full: all 21 per epoch; lean: the slim2 wire's feed,
@@ -925,9 +936,10 @@ extern "C" int track_block_mxu_launch(
   // shared memory than a block can have (both found before anything is
   // launched: the wrapper then tries its next cluster size). chunk > 0
   // runs the lane-chunked layout with chunks of that many lanes, one
-  // chunk too where it covers wp (B1 only), 0 the whole-width one: the
-  // wrapper's plan (mxu_smem_plan), taken as given, the launcher only
-  // checking that it fits.
+  // chunk too where it covers wp, 0 the whole-width one: the wrapper's
+  // plan (mxu_smem_plan), taken as given, the launcher only checking
+  // that it fits. B2 in lane chunks runs B1's chunked kernel on
+  // starts[:C] and ignores `cluster`.
   (void)stream_len;  // the wrapper checks the read bounds before launch
   const bool shared = spread_cap > 0;
   if (k_epochs < 1 || k_epochs > kMaxK || r_rows < 1 ||
@@ -935,7 +947,7 @@ extern "C" int track_block_mxu_launch(
       t_epochs % k_epochs || c_channels < 1 ||
       (shared && (spread_cap % 128 || cluster < 1 ||
                   c_channels % cluster)) ||
-      chunk < 0 || chunk % 128 || chunk > wp || (chunk && shared))
+      chunk < 0 || chunk % 128 || chunk > wp)
     return (int)cudaErrorInvalidValue;
   if (shared && cluster > kMaxCluster) return -1;
   Params p;
@@ -970,20 +982,22 @@ extern "C" int track_block_mxu_launch(
   p.interp = interp;
   // the window span; B2's slice (span + spread_cap, a 128-multiple) and
   // each block's part of it, a multiple of 4 samples (16 bytes; the
-  // parts of the highest ranks may be empty)
+  // parts of the highest ranks may be empty); in lane chunks B2 has no
+  // slice (B1's kernel)
+  const bool slice = shared && !chunk;
   p.span = ((k_epochs - 1) * n0 / 128) * 128 + wp;
-  p.cs = shared ? cluster : 1;
-  p.span_u = shared ? p.span + spread_cap : 0;
-  p.part = shared ? ((p.span_u + 4 * p.cs - 1) / (4 * p.cs)) * 4 : 0;
+  p.cs = slice ? cluster : 1;
+  p.span_u = slice ? p.span + spread_cap : 0;
+  p.part = slice ? ((p.span_u + 4 * p.cs - 1) / (4 * p.cs)) * 4 : 0;
   p.chunk = chunk;
   p.n_chunks = chunk ? (wp + chunk - 1) / chunk : 1;
   // B1's buffer holds the span behind an offset of up to 3 samples
   const int qk = 2 * k_epochs, w128 = wp / 128;
   const int ts = (p.chunk ? p.chunk : wp) + kPad;
-  const int win_cap = shared ? p.span_u : ((p.span + 3 + 3) / 4) * 4;
+  const int win_cap = slice ? p.span_u : ((p.span + 3 + 3) / 4) * 4;
   auto kernel =
-      shared ? (lean ? track_block_mxu_kernel<true, true, false>
-                     : track_block_mxu_kernel<false, true, false>)
+      slice ? (lean ? track_block_mxu_kernel<true, true, false>
+                    : track_block_mxu_kernel<false, true, false>)
       : p.chunk ? (lean ? track_block_mxu_kernel<true, false, true>
                         : track_block_mxu_kernel<false, false, true>)
                 : (lean ? track_block_mxu_kernel<true, false, false>
@@ -1017,7 +1031,7 @@ extern "C" int track_block_mxu_launch(
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!shared) {
+  if (!slice) {
     kernel<<<c_channels, kThreads, smem, st>>>(p);
     return (int)cudaGetLastError();
   }

@@ -239,6 +239,10 @@ class FrameDecoder:
         self.polarity = 1
         self.frame_start: Optional[int] = None   # index of subframe start
         self.subframes: list[Subframe] = []
+        # parity-failed subframes in a row at the locked alignment, and
+        # the bit count when the lock was last dropped (0: never locked)
+        self.failed_run = 0
+        self.unlocked_at = 0
 
     def feed(self, bit: int) -> Optional[Subframe]:
         self.bits.append(int(bit))
@@ -248,16 +252,23 @@ class FrameDecoder:
         rel = n - self.frame_start
         if rel >= SUBFRAME_BITS and rel % SUBFRAME_BITS == 0:
             sf = self._decode_subframe(n - SUBFRAME_BITS)
-            if sf is None:
-                # parity failed at the locked alignment: a bit slip
-                # (e.g. an epoch lost to the fused path's offset walk
-                # dropping one 20 ms group) shifts EVERY later
-                # subframe, so a permanent lock decodes nothing again.
-                # Unlock and let the preamble search re-acquire the
-                # alignment from the bits already buffered.
+            if sf is not None:
+                self.failed_run = 0
+                return sf
+            # parity failed at the locked alignment: one noise-flipped
+            # bit costs that subframe only, so the alignment is kept
+            # through one failure. A bit slip (e.g. an epoch lost to the
+            # fused path's offset walk dropping one 20 ms group) shifts
+            # EVERY later subframe: after two failures in a row, unlock
+            # and let the preamble search re-acquire the alignment from
+            # the bits buffered since (ROADMAP C2)
+            self.failed_run += 1
+            if self.failed_run >= 2:
                 self.frame_locked = False
                 self.frame_start = None
-            return sf
+                self.failed_run = 0
+                self.unlocked_at = n
+            return None
         return None
 
     def _bits01(self, start: int, count: int, polarity: int) -> np.ndarray:

@@ -86,9 +86,15 @@ the superstep's slice as a TMA multicast into every block of the
 cluster, each block holds the whole slice and reads its channel's
 window at dc = starts[c] - base, and a cluster barrier per superstep
 lets the next slice be multicast. Only where a sample is read from
-changes, so B2 equals B1 bit for bit. The slice's read bound is checked
-on the host (``_check_shared``, ROADMAP C3): with the base clamped at 0
-it reaches past every channel's own window.
+changes, so B2 equals B1 bit for bit. Where the plan takes lane chunks
+(every system at 8.184 MHz) the slice fits in no block's shared memory
+beside the chunk's bank buffers and tile: B2 then launches B1's chunked
+kernel on starts[:C] (base + dc), with no cluster, so it is B1 there
+and has no shared fetch (a sub-slice multicast is not built; ROADMAP
+queue B). The
+slice's read bound is checked on the host (``_check_shared``, ROADMAP
+C3): with the base clamped at 0 it reaches past every channel's own
+window.
 
 What the port drops from the TPU kernel: the C-fold block-diagonal
 contraction and its selection matmuls (on the card it is a per-channel
@@ -790,10 +796,11 @@ def mxu_smem_plan(wp: int, r_rows: int, k_epochs: int,
     ``"chunked"``:
     two bank buffers [R, chunk] and a tile [2K, chunk], chunk the
     widest multiple of 128 that fits, evened out over
-    ceil(wp / widest) chunks. Returns {"layout", "chunk" (0 for whole),
-    "chunks" [(lane0, width), ...] covering [0, wp) once, "bytes" (the
-    dynamic part), "max_wp" (the widest wp this R and K take)}; raises
-    ValueError naming ROADMAP C15 above that width."""
+    ceil(wp / widest) chunks. B2 takes the same plan (in lane chunks it
+    launches B1's chunked kernel). Returns {"layout", "chunk" (0 for
+    whole), "chunks" [(lane0, width), ...] covering [0, wp) once,
+    "bytes" (the dynamic part), "max_wp" (the widest wp this R and K
+    take)}; raises ValueError naming ROADMAP C15 above that width."""
     w128 = wp // 128
     trig = 2 * k_epochs * w128 * 4
     room = smem - MXU_STATIC_SMEM
@@ -898,8 +905,10 @@ def track_block_fused_mxu(
     base, every starts[c] - base a 128-multiple in [0, spread_cap]; each
     superstep's [span + spread_cap] slice at base + off_j is read once
     per thread-block cluster (a TMA multicast into each of its blocks)
-    and every channel cuts its window out of it. The result equals B1's
-    on ``starts[:C]`` bit for bit.
+    and every channel cuts its window out of it (in lane chunks, the
+    8.184 MHz widths, B1's chunked kernel runs on ``starts[:C]``). The
+    result equals B1's on ``starts[:C]`` at the same chunk width bit for
+    bit.
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA
     kernel or raise (failed build, refused launch, bad argument). There
@@ -926,18 +935,6 @@ def track_block_fused_mxu(
         raise ValueError(f"unsupported device {state_in.device}")
     if telem_mode not in TELEM_MODES:
         raise ValueError(f"unknown telem_mode {telem_mode!r}")
-    # B2 refuses a width only B1's lane chunks take before its bounds are
-    # checked (the shape is all the plan needs)
-    if spread_cap and isinstance(replicas, torch.Tensor) and \
-            replicas.dim() == 3 and mxu_smem_plan(
-                wp, replicas.shape[1], k_epochs)["layout"] != "whole":
-        raise ValueError(
-            f"track_block_mxu (B2, shared fetch): wp={wp} at "
-            f"R={replicas.shape[1]}, "
-            f"K={k_epochs} needs the lane-chunked layout, which only B1 "
-            "has; B2 takes the whole-width layout alone ((R + 2K) * (wp + "
-            f"8) * 2 bytes of bank and tile within {SMEM_BLOCK - MXU_STATIC_SMEM}"
-            "; ROADMAP C15)")
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
@@ -959,8 +956,11 @@ def track_block_fused_mxu(
         stream = torch.cuda.current_stream().cuda_stream
         # the launcher refuses a cluster size that cannot run, or shared
         # memory that does not fit, before it launches anything; the next
-        # size then has a try
-        for cluster in shared_cluster_sizes(c) if spread_cap else (1,):
+        # size then has a try (B2 in lane chunks runs B1's kernel, with no
+        # cluster)
+        for cluster in (shared_cluster_sizes(c)
+                        if spread_cap and plan["layout"] == "whole"
+                        else (1,)):
             err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
                      stream_re.shape[0], starts.data_ptr(),
                      replicas.data_ptr(), state_in.data_ptr(),

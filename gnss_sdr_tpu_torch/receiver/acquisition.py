@@ -1,6 +1,10 @@
 """Acquisition engine + adaptive search scheduler (counterpart of
-``gnss_sdr_tpu/receiver/acquisition.py``, FFT engine only: circular,
-or power-of-two linear with ``pad_fft``).
+``gnss_sdr_tpu/receiver/acquisition.py``): the FFT engine (circular, or
+power-of-two linear with ``pad_fft``) and the conv engine
+(``engine="conv"``: pcps.acquire_conv, whose search the receiver can
+also queue inside a span, ``conv_search_device``). ``engine="auto"`` is
+the FFT engine on the CPU and on the card, as the JAX package resolves
+it on cpu and gpu.
 
 The scheduling policy mirrors the reference's AcquisitionManager
 (do_acquisition.rs:33-74): cold/warm/steady modes by tracked-satellite
@@ -20,7 +24,7 @@ import torch
 from ..config import AcqConfig
 from ..device import resolve_device
 from ..models.constellation import SignalSpec
-from ..ops import pcps
+from ..ops import nco, pcps
 
 
 class SearchMode(enum.Enum):
@@ -84,7 +88,8 @@ class SearchScheduler:
 
 
 class AcquisitionEngine:
-    """Precomputed replica FFTs + one-batch search on ``device``."""
+    """Precomputed replicas (FFTs, or the conv engine's sampled and
+    boxcar-decimated codes) + one-batch search on ``device``."""
 
     def __init__(self, cfg: AcqConfig, spec: SignalSpec, fs_hz: float,
                  f_if_hz: float = 0.0, device=None):
@@ -96,17 +101,18 @@ class AcquisitionEngine:
         self.n_fft = spec.samples_per_code(fs_hz)
         n_code_rows = 1 if cfg.fdma_spacing_hz else cfg.n_prn
         engine = "fft" if cfg.engine == "auto" else cfg.engine
-        if engine == "conv":
-            raise NotImplementedError(
-                "engine='conv' (FFT-free matched-filter search) is not "
-                "ported yet (ROADMAP A11)")
-        if engine != "fft":
+        if engine not in ("fft", "conv"):
             raise ValueError(f"unknown acquisition engine {engine!r}")
         self.engine = engine
-        replica_ffts = (pcps.code_replica_ffts_padded if cfg.pad_fft
-                        else pcps.code_replica_ffts)
-        self.code_ffts = replica_ffts(spec, fs_hz, n_code_rows,
-                                      device=self.device)
+        if engine == "conv" and cfg.detector != "peak_avg":
+            raise ValueError(
+                "engine='conv' supports the peak_avg detector only")
+        self.code_ffts = None
+        if engine == "fft":
+            replica_ffts = (pcps.code_replica_ffts_padded if cfg.pad_fft
+                            else pcps.code_replica_ffts)
+            self.code_ffts = replica_ffts(spec, fs_hz, n_code_rows,
+                                          device=self.device)
         base = pcps.doppler_grid(cfg.doppler_span_hz, cfg.doppler_step_hz)
         self._base_grid_len = base.shape[0]
         self.grid = base + np.float32(f_if_hz)
@@ -116,6 +122,38 @@ class AcquisitionEngine:
         ).astype(np.float32)
         self._code_samples_dev = torch.from_numpy(self.code_samples).to(
             self.device)
+        self.decim = 1
+        if engine == "conv":
+            self.decim = self._pick_decim()
+            # boxcar-decimated replicas: the matched filter of
+            # boxcar-decimated samples
+            coarse = (self.code_samples.reshape(
+                n_code_rows, self.n_fft // self.decim, self.decim
+            ).mean(axis=-1) if self.decim > 1 else self.code_samples)
+            self._codes_coarse_dev = torch.from_numpy(np.ascontiguousarray(
+                coarse, dtype=np.float32)).to(self.device)
+            self._sel_identity = torch.eye(n_code_rows, dtype=torch.float32,
+                                           device=self.device)
+            self._grid_dev = torch.from_numpy(np.ascontiguousarray(
+                self.grid, dtype=np.float32)).to(self.device)
+
+    def _pick_decim(self) -> int:
+        """Coarse-stage decimation (AcqConfig.coarse_decim; 0 picks the
+        largest power-of-two divisor of the period's samples that keeps
+        >= 1 sample per chip, 2 for BOC)."""
+        cfg = self.cfg
+        if cfg.coarse_decim:
+            r = cfg.coarse_decim
+            if r > 1 and self.n_fft % r:
+                raise ValueError(f"coarse_decim={r} does not divide "
+                                 f"samples/code ({self.n_fft})")
+            return r
+        floor = self.spec.code_length_chips * (
+            2 if self.spec.boc_cycles_per_chip else 1)
+        r, k = 1, 2
+        while self.n_fft % k == 0 and self.n_fft // k >= floor:
+            r, k = k, k * 2
+        return r
 
     @property
     def _fine_squaring(self) -> bool:
@@ -147,9 +185,21 @@ class AcquisitionEngine:
     @property
     def samples_needed(self) -> int:
         n_int = self.cfg.non_coherent_ms // self.spec.code_period_ms
-        # the pow2 linear path correlates two-period blocks: +1 trailing
-        # period
-        return (n_int + (1 if self.cfg.pad_fft else 0)) * self.n_fft
+        # the pow2 and conv linear paths correlate two-period blocks: +1
+        # trailing period
+        extra = 1 if (self.cfg.pad_fft or self.engine == "conv") else 0
+        return (n_int + extra) * self.n_fft
+
+    def _planar_chunk(self, samples):
+        """(re, im) f32 tensors on the engine's device from a complex
+        array or a planar pair of numpy arrays or tensors (tensors
+        already there pass through)."""
+        if isinstance(samples, tuple):
+            return tuple(torch.as_tensor(x, dtype=torch.float32).to(
+                self.device) for x in samples)
+        x = np.asarray(samples, np.complex64)
+        return (torch.from_numpy(np.ascontiguousarray(x.real)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(x.imag)).to(self.device))
 
     def _complex_chunk(self, samples) -> torch.Tensor:
         """complex64 tensor on the engine's device from a complex array
@@ -168,15 +218,29 @@ class AcquisitionEngine:
         window, so candidates carry window-relative boundary indices.
 
         FDMA mode (cfg.fdma_spacing_hz != 0): one search per frequency
-        channel, reported as pseudo-PRN = channel-list index + 1."""
-        x = self._complex_chunk(samples)
+        channel, reported as pseudo-PRN = channel-list index + 1. The conv
+        engine with a coarse decimation mixes each channel's centre out at
+        the full rate first and searches the base grid around it (ROADMAP
+        C4: the boxcar decimation ahead of the search would otherwise
+        attenuate a channel k * 562.5 kHz off by its response there, -21
+        dB at channel +2 with 8.184 MHz / 8, nulls at multiples of
+        fs / decim, and the search found nothing)."""
+        x = (self._planar_chunk(samples) if self.engine == "conv"
+             else self._complex_chunk(samples))
         if self.cfg.fdma_spacing_hz:
             out = []
+            base = self.grid[:self._base_grid_len]
             for i, k in enumerate(self.cfg.fdma_channels):
                 shift = np.float32(k * self.cfg.fdma_spacing_hz)
-                cands = self._search_grid(
-                    x, self.grid[:self._base_grid_len] + shift,
-                    window_offset)
+                if self.engine == "conv" and self.decim > 1:
+                    cands = self._search_grid(self._mix(x, shift), base,
+                                              window_offset)
+                    for c in cands:
+                        c.carrier_freq_hz = float(
+                            np.float32(c.carrier_freq_hz) + shift)
+                else:
+                    cands = self._search_grid(x, base + shift,
+                                              window_offset)
                 for c in cands:
                     c.prn = i + 1
                     if allowed_prns is None or c.prn in allowed_prns:
@@ -207,13 +271,113 @@ class AcquisitionEngine:
                 hypotheses=cfg.bit_edge_hypotheses)
         return threshold, 0
 
-    def _search_grid(self, x: torch.Tensor, grid: np.ndarray,
-                     window_offset: int,
+    def _mix(self, x, freq_hz: float):
+        """Planar samples mixed down by ``freq_hz`` (the u32 NCO from
+        phase 0, as the searches mix their Doppler bins)."""
+        step = nco.freq_to_step(torch.tensor([freq_hz], dtype=torch.float32,
+                                             device=self.device), self.fs_hz)
+        c, s = nco.cis(nco.phase_ramp(torch.zeros_like(step), step,
+                                      x[0].shape[-1]))
+        return x[0] * c[0] + x[1] * s[0], x[1] * c[0] - x[0] * s[0]
+
+    def _conv_kw(self, n_int: int, threshold: float) -> dict:
+        cfg = self.cfg
+        return dict(fs_hz=self.fs_hz, n_int=n_int, decim=self.decim,
+                    threshold=threshold, seg_width=cfg.seg_width,
+                    fine=cfg.fine_doppler,
+                    fine_window_hz=float(cfg.doppler_step_hz),
+                    fine_squaring=self._fine_squaring,
+                    fine_n_sub=self._fine_n_sub)
+
+    def conv_search_device(self, s_re, s_im, sel=None) -> pcps.AcqResults:
+        """The conv search as tensors in and out, with no host sync: the
+        in-scan search queues it behind a span's kernels
+        (FusedTracker.span_extra) and forms candidates once the span's
+        download lands (candidates_from_conv). ``sel`` selects replica
+        rows ([B, n_prn] 0/1, default the identity; the steady re-search
+        passes the 8-row bucket of steady_sel)."""
+        if self.engine != "conv":
+            raise ValueError("conv_search_device requires engine='conv'")
+        n_int = self.cfg.non_coherent_ms // self.spec.code_period_ms
+        sel = (self._sel_identity if sel is None
+               else torch.as_tensor(sel, dtype=torch.float32).to(self.device))
+        return pcps.acquire_conv(
+            s_re, s_im, self._code_samples_dev, self._codes_coarse_dev, sel,
+            self._grid_dev,
+            **self._conv_kw(n_int, self._default_threshold(n_int,
+                                                           self.grid)))
+
+    def steady_sel(self, allowed_prns, rows: int = 8
+                   ) -> tuple[np.ndarray, list]:
+        """A selection bucket of ``rows`` rows over ``allowed_prns`` and
+        its rowmap: the in-scan steady re-search's 8 rows (one shape for
+        every span). Zero rows select a zero replica, have zero power and
+        are never detected."""
+        n_rows = self.code_samples.shape[0]
+        rowmap = [p for p in sorted(allowed_prns)
+                  if 1 <= p <= n_rows][:rows]
+        sel = np.zeros((rows, n_rows), np.float32)
+        for i, p in enumerate(rowmap):
+            sel[i, p - 1] = 1.0
+        return sel, rowmap + [None] * (rows - len(rowmap))
+
+    def candidates_from_conv(self, res, window_offset: int,
+                             allowed_prns: Optional[set[int]],
+                             rowmap=None) -> list[Candidate]:
+        """Candidates from a conv_search_device result (tensors, or the
+        numpy arrays of a span's download): the back half of
+        _search_conv_grid."""
+        res = pcps.AcqResults(*(np.asarray(
+            x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+            for x in res))
+        if not res.detected.any():
+            return []
+        if rowmap is None:
+            rowmap = list(range(1, self.code_samples.shape[0] + 1))
+        return self._build_candidates(res, res.carrier_freq_hz, rowmap,
+                                      window_offset, allowed_prns)
+
+    def _default_threshold(self, n_int: int, grid) -> float:
+        """The peak_avg threshold with the coherent-grouping rescale (the
+        conv engine takes the peak_avg detector only)."""
+        return self._threshold(n_int, grid)[0]
+
+    def _search_conv_grid(self, x, grid: np.ndarray, window_offset: int,
+                          allowed_prns: Optional[set[int]], *, n_int: int,
+                          threshold: float) -> list[Candidate]:
+        """One acquire_conv over the candidate list bucketed into the
+        replica batch by a selection matmul: 8 rows for up to 8
+        candidates (the steady re-search), else every row."""
+        n_rows = self.code_samples.shape[0]
+        if (allowed_prns is None or self.cfg.fdma_spacing_hz
+                or len(allowed_prns) >= n_rows):
+            sel = self._sel_identity
+            rowmap: list = list(range(1, n_rows + 1))
+        else:
+            n_sel = sum(1 <= p <= n_rows for p in allowed_prns)
+            if not n_sel:
+                return []
+            sel_np, rowmap = self.steady_sel(
+                allowed_prns, 8 if n_sel <= 8 else n_rows)
+            sel = torch.from_numpy(sel_np).to(self.device)
+        grid_t = torch.from_numpy(
+            np.ascontiguousarray(grid, dtype=np.float32)).to(self.device)
+        res = pcps.acquire_conv(
+            x[0], x[1], self._code_samples_dev, self._codes_coarse_dev, sel,
+            grid_t, **self._conv_kw(n_int, threshold))
+        return self.candidates_from_conv(res, window_offset, allowed_prns,
+                                         rowmap)
+
+    def _search_grid(self, x, grid: np.ndarray, window_offset: int,
                      allowed_prns: Optional[set[int]] = None
                      ) -> list[Candidate]:
         cfg = self.cfg
         n_int = cfg.non_coherent_ms // self.spec.code_period_ms
         threshold, excl = self._threshold(n_int, grid)
+        if self.engine == "conv":
+            return self._search_conv_grid(
+                x, grid, window_offset, allowed_prns, n_int=n_int,
+                threshold=threshold)
         grid_t = torch.from_numpy(
             np.ascontiguousarray(grid, dtype=np.float32)).to(self.device)
         res = pcps.pcps_search(
@@ -243,10 +407,11 @@ class AcquisitionEngine:
                           window_offset: int,
                           allowed_prns: Optional[set[int]]
                           ) -> list[Candidate]:
-        detected = res.detected.cpu().numpy()
-        ratios = res.ratio.cpu().numpy()
-        peaks = res.peak_power.cpu().numpy()
-        lags = res.code_phase_samples.cpu().numpy()
+        detected, ratios, peaks, lags = (
+            np.asarray(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                       else x)
+            for x in (res.detected, res.ratio, res.peak_power,
+                      res.code_phase_samples))
         out = []
         for idx in np.where(detected)[0]:
             prn = rowmap[int(idx)]

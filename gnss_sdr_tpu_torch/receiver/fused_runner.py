@@ -46,13 +46,18 @@ thread-block cluster, anchored at base = max(0, max(eligible starts) -
 spread_cap); a channel whose start lies below the base defers one block,
 as one past ``max_offset`` does. Its results equal B1's bit for bit.
 
-Not ported yet, and raising: a mesh (A14). The in-scan search of the
-JAX package's conv engine (``span_extra``) belongs to A11. The per-epoch
+``span_extra`` (the JAX package's hook, which the receiver's in-scan
+search sets to the conv engine's search): a function of a span's stream
+queued on the card after the span's kernels, its outputs downloaded
+with the span's telemetry (``last_span_extra`` after run_blocks;
+``collect_span(handle, with_extra=True)`` on the span API).
+
+Not ported yet, and raising: a mesh (A14). The per-epoch
 layouts (direct, seg, windows) take windows up to 49,152 lanes and
 reject wider ones (ROADMAP C6; Galileo E1B at 8.184 MHz is 33,152 on
-seg, which the JAX _epoch_core cannot run); B1 (mxu) runs every width
-up to its plan's (``mxu_smem_plan``), in lane chunks where the whole
-bank does not fit in shared memory (ROADMAP C15).
+seg, which the JAX _epoch_core cannot run); B1 and B2 (mxu) run every
+width up to their plan's (``mxu_smem_plan``), in lane chunks where the
+whole bank does not fit in shared memory (ROADMAP C15).
 """
 from __future__ import annotations
 
@@ -74,15 +79,22 @@ MAX_HANDOFFS = 8                          # handoff slots per span
 
 class _SpanHandle(NamedTuple):
     """One submitted span: the device ledger after it (chain it into the
-    next submit), its download in flight and its block count."""
+    next submit), its download in flight, its block count, the parts of
+    each block in the download (the wire's fields, then the four
+    block-entry snapshots) and the span_extra output's type and field
+    count (0: none), which follow them."""
 
     led: tuple
     ys: "_SpanDownload"
     n_blocks: int
+    n_parts: int
+    extra_type: type = tuple
+    n_extra: int = 0
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
-              torch.int16: np.int16, torch.int8: np.int8}
+              torch.int16: np.int16, torch.int8: np.int8,
+              torch.bool: np.bool_}
 
 
 class _SpanDownload:
@@ -263,6 +275,12 @@ class FusedTracker:
         if shared_fetch and layout == "mxu":
             self.spread_cap = ((self.n0 + 512 + 127) // 128) * 128
             self._kernel_kw.update(spread_cap=self.spread_cap)
+        # optional work queued after a span's kernels:
+        # span_extra(stream_re, stream_im, *extra_args) -> a tuple (or
+        # NamedTuple) of tensors on the card, which come down with the
+        # span's telemetry; run_blocks leaves them in last_span_extra
+        self.span_extra = None
+        self.last_span_extra = None
 
     # ------------------------------------------------------------------
     def _seg_step(self, block_re, block_im, starts, reps, mat, *,
@@ -644,7 +662,7 @@ class FusedTracker:
     # ops on the card, so the host waits once per span.
     # ------------------------------------------------------------------
     def run_blocks(self, state: trk.ChannelState, stream_re, stream_im,
-                   codes_rows, n_blocks: int
+                   codes_rows, n_blocks: int, extra_args=()
                    ) -> tuple[trk.ChannelState, list[trk.EpochTelemetry]]:
         """Process ``n_blocks`` consecutive blocks with the ledger on the
         card.
@@ -659,12 +677,15 @@ class FusedTracker:
         Block b's telemetry offsets are relative to window b (global
         start advances by one block per b); the returned state's offsets
         are already rebased past the whole span (the caller must NOT
-        rebase again).
+        rebase again). ``span_extra``'s output, if set (called with the
+        span's stream and ``extra_args``), lands in ``last_span_extra``.
         """
         handle = self.submit_span(state, stream_re, stream_im, codes_rows,
-                                  n_blocks, with_ledger=True)
+                                  n_blocks, with_ledger=True,
+                                  extra_args=extra_args)
         arrays = handle.ys.fetch()
-        telems = self._telems_from_arrays(arrays, n_blocks)
+        telems = self._telems_from_arrays(handle, arrays)
+        self.last_span_extra = self._extra_from_arrays(handle, arrays)
         return self.absorb_led(state, tuple(arrays[-6:])), telems
 
     # ------------------------------------------------------------------
@@ -707,14 +728,17 @@ class FusedTracker:
                     non_blocking=True).contiguous()
 
     def submit_span(self, led_or_state, stream_re, stream_im, codes_rows,
-                    n_blocks: int, with_ledger: bool = False):
+                    n_blocks: int, with_ledger: bool = False,
+                    extra_args=()):
         """Queue one span of ``n_blocks`` blocks. ``led_or_state`` is a
         host ChannelState OR a previous handle's ``led`` (device tuple,
         the chaining path). Nothing here waits for the card: the kernels'
         starts stay on the card, the read bound is checked once for the
         span from the static bound the eligibility rule gives every
-        start, and the span's telemetry (and, ``with_ledger``, its final
-        ledger) leaves in one non-blocking copy. Returns a handle."""
+        start, ``span_extra`` (if set) is queued after the span's kernels
+        on the span's stream, and the span's telemetry (then
+        span_extra's outputs and, ``with_ledger``, its final ledger)
+        leaves in one non-blocking copy. Returns a handle."""
         if self.layout not in ("direct", "mxu"):
             raise ValueError("run_blocks and the span API require "
                              "layout='direct' or 'mxu'")
@@ -744,10 +768,16 @@ class FusedTracker:
             outs.append(y)
         parts = [torch.stack([y[i] for y in outs])
                  for i in range(len(outs[0]))]
+        extra = ()
+        if self.span_extra is not None:
+            extra = self.span_extra(stream_re, stream_im, *extra_args)
+            parts += list(extra)
         if with_ledger:
             parts += list(led)
         return _SpanHandle(led=led, ys=_SpanDownload(parts),
-                           n_blocks=n_blocks)
+                           n_blocks=n_blocks, n_parts=len(outs[0]),
+                           extra_type=type(extra),
+                           n_extra=len(extra))
 
     def _scan_block(self, led, b, stream_re, stream_im, codes_rows):
         """Block b of a span: run_block's re-anchor, kernel and absorb as
@@ -836,29 +866,43 @@ class FusedTracker:
                 "f32": lambda x: (x,)}[self.wire]
         return led_n, (*pack(telem), offset_w, epochs, ci, cf)
 
-    def _telems_from_arrays(self, arrays, n_blocks):
+    def _telems_from_arrays(self, handle, arrays):
         """Per-block EpochTelemetry from a span's downloaded arrays (the
         wire fields, then the block-entry snapshots, each [B, ...])."""
-        n_wire = {"f32": 1, "slim": 7, "slim2": 5}[self.wire]
+        n_wire = handle.n_parts - 4
         wire = arrays[:n_wire]
-        aux_off, aux_ep, aux_ci, aux_cf = arrays[n_wire:n_wire + 4]
+        aux_off, aux_ep, aux_ci, aux_cf = arrays[n_wire:handle.n_parts]
         from_wire = {"slim2": self._telem_from_wire2,
                      "slim": self._telem_from_wire,
                      "f32": lambda w, *a: self._telem_from(w[0], *a)
                      }[self.wire]
         telems = []
-        for b in range(n_blocks):
+        for b in range(handle.n_blocks):
             cp0 = aux_ci[b].astype(np.float64) + aux_cf[b]
             telems.append(from_wire(
                 tuple(w[b] for w in wire), aux_off[b].astype(np.int64),
                 aux_ep[b].astype(np.int64), cp0))
         return telems
 
-    def collect_span(self, handle) -> list[trk.EpochTelemetry]:
+    def _extra_from_arrays(self, handle, arrays):
+        """span_extra's downloaded outputs (numpy, in its own tuple
+        type), or None when the span ran none."""
+        if not handle.n_extra:
+            return None
+        fields = arrays[handle.n_parts:handle.n_parts + handle.n_extra]
+        make = getattr(handle.extra_type, "_make", tuple)
+        return make(fields)
+
+    def collect_span(self, handle, with_extra: bool = False):
         """Wait for one span's download (its own event only) and build
-        the per-block EpochTelemetry list. The ledger stays on the card
-        for chaining."""
-        return self._telems_from_arrays(handle.ys.fetch(), handle.n_blocks)
+        the per-block EpochTelemetry list (``with_extra``: and
+        span_extra's outputs, None when it ran none). The ledger stays
+        on the card for chaining."""
+        arrays = handle.ys.fetch()
+        telems = self._telems_from_arrays(handle, arrays)
+        if with_extra:
+            return telems, self._extra_from_arrays(handle, arrays)
+        return telems
 
     def absorb_led(self, state: trk.ChannelState, led
                    ) -> trk.ChannelState:

@@ -48,7 +48,8 @@ class GpsLnavChain:
         self.count = 0
         self.ephemeris: Optional[Ephemeris] = None
 
-    #: bits without a verified double-preamble before declaring the
+    #: bits without a verified double-preamble, counted since the frame
+    #: decoder was built or last dropped its lock, before declaring the
     #: bit-sync phase wrong and rebuilding it: a correct phase locks
     #: within ~616 bits (one partial + one full subframe + preamble)
     RESYNC_BITS = 650
@@ -69,7 +70,8 @@ class GpsLnavChain:
             events.append(AnchorEvent(epoch=sf_epoch,
                                       tow_s=sf.tow_s - 6.0, payload=sf))
         if (not self.frames.frame_locked
-                and len(self.frames.bits) > self.RESYNC_BITS):
+                and len(self.frames.bits) - self.frames.unlocked_at
+                > self.RESYNC_BITS):
             # anti-stuck resync: a bit-sync boundary captured from the
             # pull-in transient's rotating prompts is otherwise
             # PERMANENT (BitSynchronizer.synced never re-evaluates) and
@@ -77,7 +79,9 @@ class GpsLnavChain:
             # preamble can never verify (observed: 2 of 6 channels on
             # the live TTFF scene, bit_synced w/ 0 subframes). Rebuild
             # sync from the now-converged prompts; frame state restarts
-            # clean (subframe count survives on self.count).
+            # clean (subframe count survives on self.count). Gated on
+            # the bits since the last unlock, not on all buffered bits,
+            # so a dropped lock first re-locks from the buffer (C2).
             self.bit_sync = BitSynchronizer()
             self.frames = FrameDecoder()
         return events

@@ -28,6 +28,16 @@ per span; ``span_pipeline=True``
 chains the spans' ledger on the card and downloads each span's telemetry
 from a collector thread while the next span runs.
 
+The in-scan search: with the conv acquisition engine (``AcqConfig(
+engine="conv")``), the fused tracker on mxu or direct, no FDMA and the
+peak_avg detector, the steady re-search is queued inside each span
+(``FusedTracker.span_extra``: the conv search over the span stream's
+last ``acq_len`` samples, on the 8-row bucket of the scheduler's
+candidates) and its results come down with the span's telemetry, so a
+steady search costs no separate host round trip. Synchronous spans hand
+its candidates off at once; pipelined spans queue them and apply them
+to the ledger on the card before the next span (one span late).
+
 Channel lifecycle (Idle -> Tracking -> Lost -> re-search) is a set of
 state transitions plus a host-side PRN <-> channel map.
 
@@ -38,11 +48,11 @@ and attempted once per block, inside spans too.
 Every signal of models/constellation.py runs (GPS L1 C/A, Galileo E1B/C,
 BeiDou B1I, GLONASS L1OF), each with its nav chain (receiver/navproc.py);
 receiver/multi.py runs several over one stream. Not ported yet, and
-raising NotImplementedError: a device mesh (ROADMAP A14) and the conv
-acquisition engine with its in-scan search (A11).
+raising NotImplementedError: a device mesh (ROADMAP A14).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Optional
@@ -189,6 +199,28 @@ class Receiver:
                 self.epochs_per_block, self.history + self.block,
                 layout=layout, wire=wire, device=self.device)
         self.scheduler = SearchScheduler(cfg.acq)
+        # the in-scan search (the JAX package's conditions): the conv
+        # engine's search queued inside each span; FDMA (a search per
+        # frequency channel) and the two_peak / cfar detectors keep the
+        # boundary search
+        self._span_acq = False
+        self._span_rowmap = None
+        self._pipeline_handoffs: list = []
+        self._pipeline_active_mask = None
+        if (self.fused is not None and self.engine.engine == "conv"
+                and self.fused.layout in ("direct", "mxu")
+                and not cfg.acq.fdma_spacing_hz
+                and cfg.acq.detector == "peak_avg"):
+            eng, n_acq = self.engine, self.acq_len
+
+            def _span_search(sre, sim, sel):
+                # the chunk the boundary search would take: the span
+                # stream's last acq_len samples
+                return eng.conv_search_device(sre[-n_acq:], sim[-n_acq:],
+                                              sel)
+
+            self.fused.span_extra = _span_search
+            self._span_acq = True
         self.telemetry = TelemetryLog(cfg.track.n_channels)
         self.nav = NavProcessor(
             self.fs, self.spec.code_period_s, self.spec.code_length_chips,
@@ -412,32 +444,110 @@ class Receiver:
             self.time_ms += self.cfg.block_ms
             self._emit_observables()
 
+    def _span_sel(self):
+        """The in-scan search's argument for the next span (its 8-row
+        bucket of the scheduler's candidates) and the bucket's rowmap."""
+        if not self._span_acq:
+            return (), None
+        sel, rowmap = self.engine.steady_sel(
+            self.scheduler.candidates(set(self.active)))
+        return (torch.from_numpy(sel).to(self.device, non_blocking=True),
+                ), rowmap
+
+    def _span_candidates(self, extra, rowmap):
+        """Candidates from a span's in-scan search when a search is due
+        (the scheduler then records it); None when none is due."""
+        allowed = set(self.scheduler.candidates(set(self.active)))
+        if not allowed:
+            return None
+        cands = self.engine.candidates_from_conv(
+            extra, window_offset=self.history + self.block - self.acq_len,
+            allowed_prns=allowed, rowmap=rowmap)
+        self.scheduler.mark_run(self.time_ms)
+        return cands
+
     def _process_span(self, blocks: list) -> int:
         """Run ``len(blocks)`` full fresh blocks through the multi-block
         scan; mirrors _process_block's bookkeeping (telemetry, nav,
-        lifecycle) from the one downloaded span."""
+        lifecycle) from the one downloaded span, then hands off the
+        in-scan search's candidates when a search is due."""
         k = len(blocks)
         with self.timers.stage("track", self.block * k):
             # the window rolls past the whole span (state offsets come
             # back already rebased: no trk.rebase here)
             stream_re, stream_im, g0 = self._advance_span_window(blocks)
+            extra_args, self._span_rowmap = self._span_sel()
             self.state, telems = self.fused.run_blocks(
                 self.state, stream_re, stream_im, self._codes_for_state(),
-                k)
+                k, extra_args=extra_args)
         with self.timers.stage("nav", self.block * k):
             self._emit_span(telems, g0)
+        # the in-scan paced re-search: the span already searched the
+        # chunk the boundary search would take; mark_run keeps run()'s
+        # boundary search from running again
+        if self._span_acq and self.fused.last_span_extra is not None:
+            have_enough = (self.window.blocks_fed * self.block
+                           >= self.acq_len)
+            if have_enough and self.scheduler.due(self.time_ms):
+                with self.timers.stage("acquire", self.acq_len):
+                    cands = self._span_candidates(
+                        self.fused.last_span_extra, self._span_rowmap)
+                    if cands is not None:
+                        self._handoff(cands)
         self.scheduler.update_mode(len(self.active))
         return k
 
     # ------------------------------------------------------------------
+    def _pipeline_quick(self, extra, rowmap=None):
+        """The cheap step after a span that must come before the next
+        submit: the in-scan search's candidates, queued as handoffs."""
+        if (self._span_acq and extra is not None
+                and self.scheduler.due(self.time_ms)):
+            cands = self._span_candidates(extra, rowmap)
+            if cands:
+                self._pipeline_handoffs.extend(cands)
+
     def _collect_pipelined(self, handle, g0, on_block, telems):
-        """Consume one collected span: telemetry, nav and lifecycle.
+        """Consume one collected span: telemetry, nav and lifecycle (a
+        lost channel frees its slot in the pipeline's active mask).
         Returns (n_blocks, stop_requested)."""
         with self.timers.stage("nav", self.block * handle.n_blocks):
+            lost_before = set(self.active.values())
             self._emit_span(telems, g0)
+            if self._pipeline_active_mask is not None:
+                for ch in lost_before - set(self.active.values()):
+                    self._pipeline_active_mask[ch] = False
         self.scheduler.update_mode(len(self.active))
         stop = bool(on_block is not None and on_block(self))
         return handle.n_blocks, stop
+
+    def _apply_pipeline_handoffs(self, ft, led, prn_idx, k):
+        """Start the queued handoffs in the ledger on the card
+        (apply_handoffs_device): each detected code boundary re-mapped to
+        the window position [n0, 2 n0) of the same code phase (a block
+        is a whole number of code periods). Returns the ledger."""
+        chans, freqs, offs = [], [], []
+        for cand in self._pipeline_handoffs[:8]:
+            if cand.prn in self.active:
+                continue
+            idle = np.where(~self._pipeline_active_mask)[0]
+            if idle.size == 0:
+                break
+            ch = int(idle[0])
+            delta = cand.sample_local_index - k * self.block
+            chans.append(ch)
+            freqs.append(cand.carrier_freq_hz)
+            offs.append(self.n0 + delta % self.n0)
+            prn_idx[ch] = cand.prn - 1
+            self._pipeline_active_mask[ch] = True
+            self.active[cand.prn] = ch
+            self.telemetry.open_channel(ch, cand.prn)
+            self.nav.open_channel(ch, cand.prn)
+            self.acq_events.append((self.time_ms, cand))
+        self._pipeline_handoffs = []
+        if chans:
+            led = ft.apply_handoffs_device(led, chans, freqs, offs)
+        return led
 
     def _run_pipelined(self, k: int, budget, on_block):
         """Steady-state span pipeline: spans chain their ledger ON THE
@@ -445,19 +555,21 @@ class Receiver:
         queued before span n's telemetry is read; the download and the
         host nav overlap the next span's kernels, and the host waits once
         per span for telemetry only. Lost-channel bookkeeping trails by
-        one span. Cold and warm acquisition never run pipelined; the JAX
-        package's handoffs from the in-scan search, applied to the device
-        ledger one span late, come with that search (ROADMAP A11; the
-        ledger update itself is FusedTracker.apply_handoffs_device).
+        one span. Cold and warm acquisition never run pipelined; the
+        in-scan search's handoffs are queued when a span lands and
+        applied to the ledger on the card before the next submit
+        (FusedTracker.apply_handoffs_device), one span late.
         Returns (blocks, eos)."""
         ft = self.fused
         led = self.state                  # first submit uploads host state
-        pending = None                    # (handle, g0) being collected
+        pending = None                    # (handle, g0, rowmap) collected
         done = 0
         leftovers = []
         eos = False
         stop = False
         prn_idx = np.asarray(self.state.prn_idx).copy()
+        self._pipeline_handoffs = []
+        self._pipeline_active_mask = np.asarray(self.state.active).copy()
 
         # collector thread: ONLY the download wait and the numpy unpack
         # (FusedTracker.collect_span waits on the span's own event); all
@@ -471,7 +583,8 @@ class Receiver:
                 if item is None:
                     return
                 try:
-                    out_q.put((ft.collect_span(item), None))
+                    out_q.put((ft.collect_span(item, with_extra=True),
+                               None))
                 except Exception as e:  # noqa: BLE001 - re-raised below
                     out_q.put((None, e))
 
@@ -479,15 +592,17 @@ class Receiver:
         th.start()
 
         def pop_pending():
-            """Wait for the collector's result for the pending span."""
+            """Wait for the collector's result for the pending span.
+            Returns (handle, g0, telems, the in-scan search's output,
+            its rowmap)."""
             nonlocal pending
-            handle, g0 = pending
+            handle, g0, rowmap = pending
             with self.timers.stage("track", self.block * handle.n_blocks):
-                telems, err = out_q.get()
+                result, err = out_q.get()
             if err is not None:
                 raise err
             pending = None
-            return handle, g0, telems
+            return (handle, g0, *result, rowmap)
 
         try:
             while (not stop
@@ -514,15 +629,26 @@ class Receiver:
                     # single-block path after the pipeline drains
                     leftovers = [(s, self.block) for s in full] + leftovers
                     break
-                prev = pop_pending() if pending is not None else None
+                prev = None
+                if pending is not None:
+                    # only the cheap step (search -> handoff queue) runs
+                    # before the next submit; the span's nav runs after
+                    # it, overlapping the next span's kernels
+                    prev = pop_pending()
+                    self._pipeline_quick(*prev[3:])
                 with self.timers.stage("track"):
+                    if self._pipeline_handoffs:
+                        led = self._apply_pipeline_handoffs(ft, led,
+                                                            prn_idx, k)
                     codes_rows = self._codes_for_prns(prn_idx)
+                    extra_args, rowmap = self._span_sel()
                     stream_re, stream_im, g0 = \
                         self._advance_span_window(full)
                     handle = ft.submit_span(led, stream_re, stream_im,
-                                            codes_rows, k)
+                                            codes_rows, k,
+                                            extra_args=extra_args)
                 led = handle.led
-                pending = (handle, g0)
+                pending = (handle, g0, rowmap)
                 in_q.put(handle)          # the collector waits for it
                 if prev is not None:
                     # nav of span n-1 overlaps span n's kernels and copy
@@ -531,9 +657,10 @@ class Receiver:
                     done += n_done
                     stop = stop or s
             if pending is not None:
-                handle, g0, telems = pop_pending()
+                handle, g0, telems, extra, rowmap = pop_pending()
                 n_done, s = self._collect_pipelined(handle, g0, on_block,
                                                     telems)
+                self._pipeline_quick(extra, rowmap)
                 done += n_done
                 stop = stop or s
         finally:
@@ -547,7 +674,18 @@ class Receiver:
         # sync the exact host ledger once at pipeline exit (led is still
         # the host state if no span was submitted)
         if led is not self.state:
-            self.state = ft.absorb_led(self.state, led)
+            self.state = ft.absorb_led(self.state, led)._replace(
+                prn_idx=prn_idx.copy())
+        self._pipeline_active_mask = None
+        if self._pipeline_handoffs:
+            # the last span's candidates landed after the last submit:
+            # hand them to the synced host ledger (the search is already
+            # recorded), each boundary re-mapped into [n0, 2 n0)
+            remapped = [dataclasses.replace(
+                c, sample_local_index=self.n0 + c.sample_local_index
+                % self.n0) for c in self._pipeline_handoffs]
+            self._pipeline_handoffs = []
+            self._handoff(remapped)
         if not stop:
             for samples, n_valid in leftovers:
                 if self._process_block(samples, n_valid):

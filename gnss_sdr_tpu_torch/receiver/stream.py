@@ -431,6 +431,13 @@ class DeviceStreamWindow:
         self.global_start = -history
         self.blocks_fed = 0
 
+    @property
+    def buf(self) -> np.ndarray:
+        """Complex numpy copy of the window (downloads from the card; for
+        diagnostics and checkpoints only)."""
+        return (self.re.cpu().numpy() + 1j * self.im.cpu().numpy()).astype(
+            np.complex64)
+
     def advance(self, fresh) -> Optional[int]:
         if fresh is None:
             return None
@@ -464,3 +471,9 @@ class DeviceStreamWindow:
                 raise ValueError(f"window load: {name} has shape "
                                  f"{tuple(x.shape)}, not ({self.h + self.b},)")
             setattr(self, name, x)
+
+    def to_global(self, local_index: int) -> int:
+        return self.global_start + local_index
+
+    def to_local(self, global_index: int) -> int:
+        return global_index - self.global_start

@@ -404,18 +404,20 @@ def test_b1_one_lane_chunk_above_16_rows_on_card(card, lock):
 
 @pytest.mark.cuda
 def test_b2_refuses_the_chunked_widths_on_card(card):
-    """B2 (the shared fetch) takes the whole-width layout only: at a
-    ladder-4 width it raises naming C15 before it launches."""
-    inp = chip_smoke.wide_inputs(torch, card, "gps_l1ca", {})
+    """B2 (the shared fetch) at a ladder-4 width, where it raised naming
+    C15 until it ran in lane chunks: there the wrapper launches B1's
+    chunked kernel on starts[:C] (the same chunk width), so it equals B1
+    bit for bit, full and lean, one launch each."""
+    inp = chip_smoke.wide_inputs(torch, card, "gps_l1ca", {},
+                                 shared_fetch=True)
     args, kw = inp["args"], inp["kw"]
-    sre, sim, starts, reps, st = args
-    base = int(kw["starts_host"].min())
-    shared = torch.cat([starts, starts.new_tensor([base])])
-    before = fused.shared_launch_count
-    with pytest.raises(ValueError, match="C15"):
-        fused.track_block_fused_mxu(sre, sim, shared, reps, st,
-                                    **dict(kw, spread_cap=2560))
-    assert fused.shared_launch_count == before
+    assert kw["spread_cap"] == 8704
+    reps = args[3]
+    plan = fused.mxu_smem_plan(kw["wp"], reps.shape[1], kw["k_epochs"])
+    assert plan["layout"] == "chunked"
+    for mode in ("full", "lean"):
+        assert chip_smoke.b2_equals_b1(
+            torch, args, dict(kw, telem_mode=mode)) == (1, 1)
 
 
 @pytest.mark.cuda

@@ -232,9 +232,35 @@ class TestAcquisition:
             assert a.ratio == pytest.approx(b.ratio, rel=1e-3)
 
     def test_unported_engines_raise(self):
-        with pytest.raises(NotImplementedError, match="A11"):
-            acquisition.AcquisitionEngine(AcqConfig(engine="conv"),
-                                          GPS_L1CA, FS, device=CPU)
+        """The conv engine (ROADMAP A11) is ported: it builds, with the
+        JAX engine's grid, decimation, replicas, threshold, fine-search
+        settings and window length; ``auto`` stays the FFT engine, and an
+        unknown engine or a detector the conv engine lacks still
+        raises."""
+        cfg_kw = dict(engine="conv", coherent_ms=2, bit_edge_hypotheses=2)
+        a = acquisition.AcquisitionEngine(AcqConfig(**cfg_kw), GPS_L1CA, FS,
+                                          device=CPU)
+        b = j_acq.AcquisitionEngine(JAcqConfig(**cfg_kw), J_GPS, FS)
+        assert (a.engine, b.engine) == ("conv", "conv")
+        np.testing.assert_array_equal(a.grid, b.grid)
+        assert a.decim == b.decim == 2
+        np.testing.assert_array_equal(a._codes_coarse_dev.numpy(),
+                                      np.asarray(b._codes_coarse_dev))
+        n_int = AcqConfig().non_coherent_ms
+        assert a._default_threshold(n_int, a.grid) == \
+            b._default_threshold(n_int, b.grid) > AcqConfig().detection_threshold
+        assert (a._fine_squaring, a._fine_n_sub) == \
+            (b._fine_squaring, b._fine_n_sub)
+        assert a.samples_needed == b.samples_needed == (n_int + 1) * 2046
+        assert acquisition.AcquisitionEngine(
+            AcqConfig(), GPS_L1CA, FS, device=CPU).engine == "fft"
+        with pytest.raises(ValueError, match="peak_avg"):
+            acquisition.AcquisitionEngine(
+                AcqConfig(engine="conv", detector="two_peak"), GPS_L1CA, FS,
+                device=CPU)
+        with pytest.raises(ValueError, match="unknown acquisition engine"):
+            acquisition.AcquisitionEngine(AcqConfig(engine="dft"), GPS_L1CA,
+                                          FS, device=CPU)
 
     def test_scheduler_matches(self):
         a = acquisition.SearchScheduler(AcqConfig())

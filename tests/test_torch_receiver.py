@@ -218,14 +218,17 @@ def test_receiver_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(acq_kw=dict(engine="conv")), "A11"),
+    (dict(acq_kw=dict(engine="conv"),
+          track_kw=dict(correlator="fused", fused_layout="mxu")), "A11"),
     (dict(par_kw=dict(channel_axis=2)), "A14"),
     (dict(acq_kw=dict(signal="galileo_e1b")), "A16"),
 ], ids=["kw0-A11", "kw1-A14", "kw2-A16"])
 def test_unported_receiver_options_raise(kw, item):
-    """A11 and A14 still raise naming their item; A16 (the non-GPS
-    signals) is ported, so its case now builds the receiver: Galileo E1B
-    with the JAX package's surrogate-code warning and ``code_status``."""
+    """A14 still raises naming its item. A16 (the non-GPS signals) is
+    ported, so its case builds the receiver: Galileo E1B with the JAX
+    package's surrogate-code warning and ``code_status``. A11 (the conv
+    engine) is ported: with the fused tracker on mxu it arms the in-scan
+    search, as tests/test_span_acq.py checks the JAX receiver."""
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,
                           total_samples=int(0.1 * FS))
     cfg = ReceiverConfig(
@@ -238,6 +241,13 @@ def test_unported_receiver_options_raise(kw, item):
             rx = Receiver(cfg, src, device="cpu")
         assert rx.spec.name == "galileo_e1b"
         assert rx.summary()["code_status"] == {"surrogate_codes": True}
+        return
+    if item == "A11":
+        rx = Receiver(cfg, src, device="cpu")
+        assert rx.engine.engine == "conv"
+        assert rx._span_acq, "conv engine + fused layout must arm " \
+            "the in-scan search"
+        assert rx.fused.span_extra is not None
         return
     with pytest.raises(NotImplementedError, match=item):
         Receiver(cfg, src, device="cpu")
