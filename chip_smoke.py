@@ -164,7 +164,32 @@ GPU:
      at 1.5 s: acquired by a span's own search on synchronous and on
      pipelined spans, every PRN tracked within 40 Hz; the FFT engine's
      boundary search beside it; each run's real-time factor;
- 33. the kernels line, then the last line: {"ok": true, "device": {...}}.
+ 33. slice 12, the device mesh (parallel/) as 2 and 4 channel shards of
+     the one card (``make_mesh(devices=[cuda:0] * n)``): the fused
+     tracker at 32 channels on the 24-satellite scene, mxu single-block
+     and in 8-block slim2 spans (10 s), direct in 4-block spans (5 s),
+     one 125 ms seg block (B4c + B4b) and one 500 ms windows block (B4a),
+     every downloaded array and the final ledger equal to the unsharded
+     run bit for bit, each kernel launched blocks x shards times; the
+     sharded B1 step's time per block at 1, 2 and 4 shards in turns;
+ 34. the receiver on meshes of 2 and 4 shards (``Receiver._use_mesh``)
+     against the unsharded one: the fused receiver in spans of 4 over 9
+     blocks and a 200 ms tail (the tail through
+     ``parallel.sharded_track_block``), and the scanned receiver with
+     "pallas" over 3 blocks and a tail (B5 per shard); telemetry and
+     summaries equal (the fused tail at 4 shards within tolerance: torch
+     sums its 8-row correlations in another order), every PRN within 40
+     Hz; ``ParallelConfig(channel_axis=2)`` raising on a one-card
+     machine;
+ 35. the sharded searches at full width (32 PRNs x 29 bins): time-
+     sharded over 10 ms in 2 shards and 20 ms in 4, PRN-sharded in 4,
+     each against one pcps_search, and their times beside it;
+ 36. two processes on the one card (gloo, 2 shards of cuda:0 each): the
+     time-sharded search all-reduced across the process boundary equal
+     to each rank's unsharded search, the ranks' events merged;
+ 37. ``parallel.dryrun.dryrun_multichip(4)`` on the card;
+ 38. the kernels line (each kernel's launches on phases 33-34 under
+     "launches_mesh"), then the last line: {"ok": true, "device": {...}}.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and nvcc; without a device it exits non-zero and prints no
@@ -875,13 +900,15 @@ def _expect_launches(launches, **counts):
 def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
                   span_pipeline=False, on_block=None, device="cuda",
                   correlator="fused", source=None, rf_kw=None,
-                  n_blocks=None, block_ms=BLOCK_MS, scan_graph=True):
+                  n_blocks=None, block_ms=BLOCK_MS, scan_graph=True,
+                  mesh=None):
     """One receiver run from a cold start on ``sig`` (or ``source``):
     checks every PRN tracked within 40 Hz and all blocks processed;
     prints its real-time factor and stage shares. The launch counts are
     set to 0 just before the run and read just after. ``scan_graph``:
-    the scanned tracker's CUDA graph (True) or its eager loop. Returns
-    (receiver, summary with the run's wall time "wall_s" added,
+    the scanned tracker's CUDA graph (True) or its eager loop; ``mesh``:
+    given to the receiver through its own ``_use_mesh`` before the run.
+    Returns (receiver, summary with the run's wall time "wall_s" added,
     launches)."""
     from gnss_sdr_tpu_torch import AcqConfig, ReceiverConfig, RfConfig, \
         TrackConfig
@@ -900,6 +927,8 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
         source if source is not None else ArraySource(sig, FS),
         device=device, scan_graph=scan_graph)
     assert rx.device.type == device
+    if mesh is not None:
+        rx._use_mesh(mesh)
     _reset_launch_counts()                  # this path starts here
     t0 = time.perf_counter()
     summary = rx.run(on_block=on_block, scan_blocks=scan_blocks,
@@ -918,6 +947,8 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     path = (f"layout {rx.fused.layout}, wire {rx.fused.wire}"
             if rx.fused is not None else
             f"scanned tracker, {'graph' if scan_graph else 'eager'}")
+    if mesh is not None:
+        path += f", mesh {mesh.shape}"
     print(f"receiver [{label}: correlator {correlator}, {path}, "
           f"block_ms {block_ms}, scan_blocks {scan_blocks}, "
           f"span_pipeline {span_pipeline}]: "
@@ -1303,6 +1334,81 @@ def _same_run(label, a, b, what="graph and eager runs"):
     assert plain(a[1]) == plain(b[1]), label
     print(f"{label}: {what} equal: {len(ta)} traces bit for bit, "
           "summaries equal")
+
+
+def _close_tree(label, a, b, path=""):
+    """Two summaries equal but for their floats, which agree within 1e-4
+    relative with a 1e-3 floor (the kernel tests' rate tolerance)."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), (label, path)
+        for k in a:
+            _close_tree(label, a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple, np.ndarray)):
+        assert len(a) == len(b), (label, path)
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close_tree(label, x, y, f"{path}[{i}]")
+    elif isinstance(a, (float, np.floating)):
+        assert abs(float(a) - float(b)) <= (RATE_ATOL_HZ
+                                            + 1e-4 * abs(float(b))), \
+            (label, path, a, b)
+    else:
+        assert a == b, (label, path, a, b)
+
+
+_SUM_FIELDS = ("i_p", "q_p", "i_e", "q_e", "i_l", "q_l")
+
+
+def _same_run_but_tail(label, a, b, tail_from, what):
+    """Two receiver runs ``a``, ``b`` = (receiver, summary): every epoch
+    that starts before sample ``tail_from`` (the fused kernel's) equal
+    bit for bit; the later ones (the partial tail block's, through the
+    scanned tracker) with the same epochs and lock flags, the
+    correlation sums within 1e-3 of the trace's largest |i_p| and the
+    rates within the kernel tests' rate tolerance, and the summaries as
+    _close_tree. Returns the tail's largest deviations."""
+    from gnss_sdr_tpu_torch.utils.telemetry import _FIELDS
+
+    ta, tb = a[0].telemetry.all_traces(), b[0].telemetry.all_traces()
+    assert [t.prn for t in ta] == [t.prn for t in tb], label
+    worst = {"sums_rel": 0.0, "rates_over_tol": 0.0, "epochs_differing": 0}
+    for x, y in zip(ta, tb):
+        gs = np.asarray(x.global_sample)
+        assert gs.tobytes() == np.asarray(y.global_sample).tobytes(), \
+            (label, x.prn)
+        head = gs < tail_from
+        for f in _FIELDS:
+            u, v = np.asarray(getattr(x, f)), np.asarray(getattr(y, f))
+            assert u[head].tobytes() == v[head].tobytes(), (label, x.prn, f)
+            if f in ("epoch_index", "locked"):
+                assert u[~head].tobytes() == v[~head].tobytes(), \
+                    (label, x.prn, f)
+        if not (~head).any():
+            continue
+        scale = max(float(np.abs(np.asarray(y.i_p)).max()), 1e-30)
+        diff = np.zeros(int((~head).sum()), bool)
+        for f in _SUM_FIELDS:
+            u = np.asarray(getattr(x, f), np.float64)[~head]
+            v = np.asarray(getattr(y, f), np.float64)[~head]
+            diff |= u != v
+            worst["sums_rel"] = max(worst["sums_rel"],
+                                    float(np.abs(u - v).max()) / scale)
+        for f in ("carr_freq", "code_rate"):
+            u = np.asarray(getattr(x, f), np.float64)[~head]
+            v = np.asarray(getattr(y, f), np.float64)[~head]
+            diff |= u != v
+            worst["rates_over_tol"] = max(worst["rates_over_tol"], float(
+                (np.abs(u - v) / (RATE_ATOL_HZ + 1e-4 * np.abs(v))).max()))
+        worst["epochs_differing"] += int(diff.sum())
+    assert worst["sums_rel"] < 1e-3 and worst["rates_over_tol"] <= 1.0, \
+        (label, worst)
+
+    def plain(summary):
+        return {k: v for k, v in summary.items() if k not in _RUN_ONLY}
+    _close_tree(label, plain(a[1]), plain(b[1]))
+    print(f"{label}: {what}: {len(ta)} traces, the epochs before sample "
+          f"{tail_from} bit for bit; the tail within tolerance "
+          f"({json.dumps(worst)}); summaries within it")
+    return worst
 
 
 def _profile(torch, fn):
@@ -3998,6 +4104,446 @@ def phase_inscan(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the device mesh (parallel/) as shards of the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 4)                # channel shards of the one card
+MESH_SPAN = 8                       # blocks per span, mxu
+MESH_DIRECT_SPAN = 4                # ... direct
+MESH_TAIL_MS = 200                  # the receivers' partial last block
+MESH_SCAN_FULL = 3                  # full blocks of the scanned receiver
+MESH_PASSES = 15                    # timed sharded steps per turn
+# shard counts whose fused receiver's tail (the slice correlator's torch
+# row sums at C / n rows) equals the unsharded run bit for bit on the
+# H100: torch sums [16, W] rows as it sums [32, W], [8, W] in another
+# order (measured for W 2048-4096)
+MESH_EXACT_TAIL = (2,)
+# (kind, ms integrated, shards) of the sharded searches (phase 35)
+MESH_SEARCHES = (("time", 10, 2), ("time", 20, 4), ("prn", 10, 4))
+DIST_TIMEOUT_S = 300
+
+
+def card_mesh(torch, n_channel, n_time=1, device="cuda:0"):
+    """A mesh of ``n_time * n_channel`` shards, every one on ``device``
+    (the one card; the CPU in a rehearsal); ``device`` "cards": one
+    shard on each visible card (parallel.make_mesh's default)."""
+    from gnss_sdr_tpu_torch import parallel
+
+    if device == "cards":
+        return parallel.make_mesh(n_time, n_channel)
+    return parallel.make_mesh(n_time, n_channel, devices=device)
+
+
+def _mesh_where(mesh):
+    """The devices a mesh's shards run on, for a log line."""
+    return ", ".join(sorted({str(d) for d in mesh.devices.reshape(-1)}))
+
+
+def _history():
+    """The fused trackers' history (_scene_tracker's): the acquisition's
+    samples and two code periods."""
+    from gnss_sdr_tpu_torch.config import AcqConfig
+    from gnss_sdr_tpu_torch.models import GPS_L1CA
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    return (AcquisitionEngine(AcqConfig(), GPS_L1CA, FS,
+                              device="cpu").samples_needed
+            + 2 * GPS_L1CA.samples_per_code(FS))
+
+
+def _same_arrays(label, a, b):
+    """Two _drive_tracker runs downloaded the same arrays (every block's
+    or span's, then the final ledger), byte for byte. Returns the count."""
+    n = 0
+    assert len(a[0]) == len(b[0]), label
+    for xs, ys in zip(a[0] + [a[1]], b[0] + [b[1]]):
+        assert len(xs) == len(ys), label
+        for x, y in zip(xs, ys):
+            x, y = np.asarray(x), np.asarray(y)
+            assert x.shape == y.shape and x.dtype == y.dtype, label
+            assert x.tobytes() == y.tobytes(), (label, n)
+            n += 1
+    return n
+
+
+def phase_mesh_fused(torch, device="cuda", mesh_devices=None):
+    """The fused tracker on meshes of 2 and 4 channel shards of the one
+    card (parallel.shard_fused_step), 32 channels, the 24-satellite
+    scene: mxu single-block (full telemetry) and in synchronous 8-block
+    spans (slim2, lean mode) over 10 s, direct in 4-block spans over 5
+    s, one 125 ms block on seg (B4c + B4b) and one 500 ms block on
+    windows (B4a); every downloaded array and the final ledger equal to
+    the unsharded run bit for bit, each kernel launched blocks x shards
+    times (``device`` "cpu" rehearses it on the plain versions, where
+    nothing counts). Each run goes unsharded, 2, 4 shards, unsharded
+    again: the first run of a path pays its first launches, so each
+    shard count's wall per block is its last run's. ``mesh_devices``
+    "cards" puts the shards on the visible cards, one each (the tracker
+    on ``device``). Returns the launches by run and shards and the walls
+    per block."""
+    _, sig10 = _scene(STEADY_S)
+    _, sig5 = _scene(DIRECT_S)
+    hist = _history()
+
+    def cut(block_ms):
+        return sig5[:hist + block_ms * 2046]
+
+    meshes = {1: None, **{n: card_mesh(torch, n,
+                                       device=mesh_devices or device)
+                          for n in MESH_SHARDS}}
+    runs = (("mxu, single-block", "mxu", "f32", 1, sig10, BLOCK_MS,
+             ("track_block_fused_mxu",)),
+            ("mxu, spans, slim2", "mxu", "slim2", MESH_SPAN, sig10,
+             BLOCK_MS, ("track_block_fused_mxu",)),
+            ("direct, spans, slim", "direct", "slim", MESH_DIRECT_SPAN, sig5,
+             BLOCK_MS, ("track_block_fused_direct",)),
+            ("seg, 125 ms", "seg", "f32", 1, cut(SEG_BLOCK_MS),
+             SEG_BLOCK_MS, ("track_block_fused_seg", "gather_segments")),
+            ("windows, 500 ms", "windows", "f32", 1, cut(WINDOWS_BLOCK_MS),
+             WINDOWS_BLOCK_MS, ("track_block_fused",)))
+    out = {"launches": {}, "wall_ms_per_block": {}}
+    for label, layout, wire, span, x, block_ms, kernels in runs:
+        base = None
+        for n in (1, *MESH_SHARDS, 1):
+            mesh = meshes[n]
+
+            def tracker(shared, w, mesh=mesh, layout=layout,
+                        block_ms=block_ms):
+                ft, st, rows, history = _scene_tracker(
+                    torch, device, {}, N_CHANNELS, block_ms, layout=layout,
+                    wire=w, mesh=mesh)
+                assert ft.layout == layout and ft.mesh is mesh
+                return ft, st, rows, history
+
+            r = _drive_tracker(torch, x, False, wire, span, tracker=tracker)
+            launches, n_blocks = r[3], r[4]
+            if device == "cuda":
+                _expect_launches(launches,
+                                 **{k: n_blocks * n for k in kernels})
+            assert r[2][:24].all() and not r[2][24:].any(), (label, n)
+            out["launches"].setdefault(label, {})[n] = launches
+            out["wall_ms_per_block"].setdefault(label, {})[n] = \
+                r[5] / n_blocks * 1e3
+            if base is None:
+                base = r
+                continue
+            n_arrays = _same_arrays(f"{label}, {n} shards", base, r)
+            where = ("unsharded, again" if mesh is None else
+                     f"{n} shards of {_mesh_where(mesh)}")
+            print(f"mesh [{label}, {where}]: {n_blocks} blocks, "
+                  f"{n_arrays} arrays equal bit for bit to the unsharded "
+                  f"run; launches {json.dumps(launches)}; wall "
+                  f"{r[5]:.3f} s (unsharded {base[5]:.3f} s)")
+    return out
+
+
+def mesh_step_timing(torch):
+    """The sharded B1 step's time per 500 ms block at 1, 2 and 4 shards
+    of the one card in turns (1, 2, 4, 4, 2, 1; the L2 flushed, queued
+    behind a head start), after one step at each equal to the unsharded
+    kernel. Returns {shards: median ms} and the ranges."""
+    from gnss_sdr_tpu_torch import parallel
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    _, args, kw = full_width_inputs(torch, "cuda", {}, layout="mxu")
+    steps = {1: fused.track_block_fused_mxu,
+             **{n: parallel.shard_fused_step(card_mesh(torch, n),
+                                             fused.track_block_fused_mxu)
+                for n in MESH_SHARDS}}
+    ref = steps[1](*args, **kw)
+    for n in MESH_SHARDS:
+        tl, st = steps[n](*args, **kw)
+        assert torch.equal(tl, ref[0]) and torch.equal(st, ref[1]), n
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    times = {n: [] for n in steps}
+    for n in (1, *MESH_SHARDS, *reversed(MESH_SHARDS), 1):
+        times[n] += _time_queued(torch, lambda: steps[n](*args, **kw),
+                                 MESH_PASSES, flush)
+    out = {"step_ms": {n: statistics.median(t) for n, t in times.items()},
+           "step_ms_range": {n: (min(t), max(t))
+                             for n, t in times.items()}}
+    print("mesh: B1's step per 500 ms block (32 channels; n launches of "
+          "B1 and the gather on the one card; median of "
+          f"{2 * MESH_PASSES}, in turns): " + json.dumps(
+              {n: round(v, 6) for n, v in out["step_ms"].items()})
+          + "; range " + json.dumps(out["step_ms_range"]))
+    return out
+
+
+def phase_mesh_receiver(torch, device="cuda", mesh_devices=None):
+    """The receiver on meshes of 2 and 4 shards of the one card, given
+    through its own ``Receiver._use_mesh``, against the unsharded
+    receiver on the same stream: (1) the fused receiver (mxu),
+    ``run(scan_blocks=4)`` on 9 blocks and a 200 ms tail, whose tail goes
+    through ``parallel.sharded_track_block`` (the slice correlator); (2)
+    the scanned receiver with correlator="pallas" on 3 blocks and a 200
+    ms tail, every block through sharded_track_block, B5 launched per
+    shard (16 and 8 channels a shard: cluster 8, as at 32, so the sums
+    match). Each run tracks every PRN within 40 Hz; telemetry and
+    summaries equal to the unsharded run's (the fused receiver's tail at
+    a shard count outside MESH_EXACT_TAIL within tolerance,
+    _same_run_but_tail); the kernels launched shards x the unsharded
+    count. On a one-card machine a
+    ParallelConfig(channel_axis=2) without given devices raises, naming
+    the count. ``mesh_devices`` "cards": the shards on the visible
+    cards, one each. Returns the launches and each run's track stage
+    seconds per block by shards (``device`` "cpu": a rehearsal on the
+    plain versions)."""
+    from gnss_sdr_tpu_torch import ParallelConfig, ReceiverConfig, \
+        RfConfig, TrackConfig
+    from gnss_sdr_tpu_torch.ops.cuda.epl_correlator import cluster_size
+    from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
+
+    sats, sig = _scene(SCAN_S)
+    block = BLOCK_MS * 2046
+    n_sm = (torch.cuda.get_device_properties(0).multi_processor_count
+            if device == "cuda" else 132)
+    assert {cluster_size(N_CHANNELS // n, n_sm)
+            for n in (1, *MESH_SHARDS)} == {8}
+    out = {"launches": {}, "track_s_per_block": {}}
+    for label, correlator, n_full, kernel, kw in (
+            ("fused, spans of 4", "fused", 9, "track_block_fused_mxu",
+             dict(scan_blocks=4)),
+            ("scanned, pallas", "pallas", MESH_SCAN_FULL,
+             "epl_correlate_pallas", {})):
+        x = sig[:n_full * block + MESH_TAIL_MS * 2046]
+        runs = {}
+        for n in (1, *MESH_SHARDS):
+            marks = []
+            runs[n] = _run_receiver(
+                torch, sats, x, f"mesh receiver, {n} shard(s)",
+                correlator=correlator, n_blocks=n_full + 1, device=device,
+                block_ms=BLOCK_MS,
+                mesh=None if n == 1 else card_mesh(
+                    torch, n, device=mesh_devices or device),
+                on_block=lambda r: marks.append(
+                    (r.window.blocks_fed, r.timers.stats["track"].total_s)),
+                **kw)
+            rx, summary, launches = runs[n]
+            assert (rx.mesh is None) == (n == 1)
+            ends = [int(t.global_sample[-1])
+                    for t in rx.telemetry.all_traces()]
+            assert min(ends) >= n_full * block, ends     # the tail ran
+            # the whole run's, and the blocks' after the first two (the
+            # scanned tracker's graph warm-up and capture)
+            (b2, t2), (b_end, t_end) = marks[1], marks[-1]
+            out["track_s_per_block"].setdefault(label, {})[n] = {
+                "all": summary["stage_timing"]["track"]["total_s"]
+                / (n_full + 1),
+                "after_block_2": (t_end - t2) / max(b_end - b2, 1)}
+        l1 = runs[1][2]
+        if device == "cuda":
+            assert l1[kernel] > 0
+            for n in MESH_SHARDS:
+                _expect_launches(runs[n][2], **{kernel: n * l1[kernel]})
+        if correlator == "pallas" and device == "cuda":
+            assert l1[kernel] == (n_full + 1) * (BLOCK_MS + 1), l1
+        out["launches"][label] = {n: r[2] for n, r in runs.items()}
+        for n in MESH_SHARDS:
+            what = f"unsharded and {n}-shard runs"
+            if correlator == "fused" and n not in MESH_EXACT_TAIL:
+                # the tail's slice correlator sums [C/n, W] rows with
+                # torch's reduction, whose split (and so its f32 order)
+                # follows the row count
+                out["tail_deviation"] = _same_run_but_tail(
+                    f"mesh receiver [{label}]", runs[1][:2], runs[n][:2],
+                    n_full * block - 2046, what)
+            else:
+                _same_run(f"mesh receiver [{label}]", runs[1][:2],
+                          runs[n][:2], what)
+    if device == "cuda" and torch.cuda.device_count() == 1:
+        try:
+            Receiver(ReceiverConfig(
+                rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=FS),
+                track=TrackConfig(n_channels=N_CHANNELS),
+                parallel=ParallelConfig(channel_axis=2), block_ms=BLOCK_MS),
+                ArraySource(sig[:block], FS))
+        except ValueError as e:
+            assert "needs 2 devices, have 1" in str(e), e
+            print(f"ParallelConfig(channel_axis=2) on one card: {e}")
+        else:
+            raise AssertionError("a 2-card mesh built on one card")
+    print("mesh receiver: track s per block by shards " + json.dumps(
+        out["track_s_per_block"]))
+    return out
+
+
+def phase_mesh_acquisition(torch, device="cuda", mesh_devices=None):
+    """The main path's search at full width (32 PRNs x 29 bins at 2.046
+    MHz, the 24-satellite scene) sharded over the one card:
+    time_sharded_pcps_search over 10 ms in 2 shards and 20 ms in 4, and
+    sharded_pcps_search (PRN rows) over 10 ms in 4, each against one
+    pcps_search on the same samples (detections and code phases equal,
+    ratios within rtol 1e-4, the 24 satellites detected), then one
+    search's time beside the unsharded one's in turns (host clock,
+    synchronized, median of ACQ_PASSES; ``device`` "cpu": a rehearsal;
+    ``mesh_devices`` "cards": the shards on the visible cards, one
+    each). Returns the times."""
+    from gnss_sdr_tpu_torch import parallel
+    from gnss_sdr_tpu_torch.config import AcqConfig
+    from gnss_sdr_tpu_torch.models import GPS_L1CA
+    from gnss_sdr_tpu_torch.ops import pcps
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    eng = AcquisitionEngine(AcqConfig(), GPS_L1CA, FS, device=device)
+    codes = eng.code_ffts
+    grid = torch.from_numpy(eng.grid).to(device)
+    assert tuple(codes.shape) == (32, 2046) and grid.shape[0] == 29
+    _, sig = _scene(SCAN_S)
+    out = {}
+    for kind, n_int, n in MESH_SEARCHES:
+        x = torch.from_numpy(sig[:n_int * 2046]).to(device)
+        where = mesh_devices or device
+        if kind == "time":
+            mesh = card_mesh(torch, 1, n_time=n, device=where)
+            fn = parallel.time_sharded_pcps_search
+        else:
+            mesh = card_mesh(torch, n, device=where)
+            fn = parallel.sharded_pcps_search
+        fns = {"sharded": lambda: fn(mesh, x, codes, grid, fs_hz=FS,
+                                     n_int=n_int),
+               "unsharded": lambda: pcps.pcps_search(x, codes, grid,
+                                                     fs_hz=FS, n_int=n_int)}
+        res = {k: [f.cpu().numpy() for f in f_()] for k, f_ in fns.items()}
+        a, b = res["sharded"], res["unsharded"]
+        np.testing.assert_array_equal(a[0], b[0])           # detected
+        np.testing.assert_array_equal(a[3], b[3])           # code phase
+        np.testing.assert_allclose(a[1], b[1], rtol=1e-4)   # ratio
+        assert a[0][:24].all(), a[0]
+        times = {k: [] for k in fns}
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            for _ in range(ACQ_PASSES // 2):
+                sync()
+                t0 = time.perf_counter()
+                fns[k]()
+                sync()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        label = f"{kind}-sharded, {n_int} ms over {n} shards"
+        out[label] = {k: statistics.median(v) for k, v in times.items()}
+        print(f"mesh acquisition [{label}]: detections and code phases "
+              f"equal to one pcps_search ({int(a[0].sum())} PRNs), ratios "
+              f"within rtol 1e-4 (max rel {float(np.max(np.abs(a[1] - b[1]) / np.abs(b[1]))):.2e}); "
+              f"one search (ms, median of {len(times['sharded'])}, in "
+              f"turns): sharded {out[label]['sharded']:.3f}, unsharded "
+              f"{out[label]['unsharded']:.3f}")
+    return out
+
+
+def dist_run_workers(out_dir, device="cpu", timeout=DIST_TIMEOUT_S,
+                     n_procs=2, shards=2):
+    """tests/_torch_dist_worker.py in ``n_procs`` processes (the ranks of
+    one group at a free localhost port, each with ``shards`` shards of
+    ``device``; ``device`` "cards": each on its own cards, with
+    torchrun's LOCAL_RANK and LOCAL_WORLD_SIZE set, the backend its
+    default); each worker's exit code checked. Returns their JSON
+    results."""
+    import os
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(root, "tests", "_torch_dist_worker.py")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        addr = f"localhost:{sock.getsockname()[1]}"
+    outs = [os.path.join(out_dir, f"rank{i}.json") for i in range(n_procs)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                "LOCAL_WORLD_SIZE", "LOCAL_RANK"):
+        env.pop(var, None)
+    if device == "cards":
+        env["LOCAL_WORLD_SIZE"] = str(n_procs)
+    procs = [subprocess.Popen(
+        [sys.executable, worker, addr, str(n_procs), str(i), outs[i],
+         device, str(shards)],
+        env=dict(env, **({"LOCAL_RANK": str(i)} if device == "cards"
+                         else {})),
+        cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(n_procs)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{log[-4000:]}"
+    results = []
+    for o in outs:
+        with open(o) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dist_check(results, backend="gloo"):
+    """Every rank saw the group of len(results) processes on ``backend``
+    and the 4-entry mesh, matched its unsharded search, and their merged
+    shard events
+    (merge_shard_results) keep each PRN once per authoritative region,
+    with the unsharded search's global code phase. Returns the merged
+    events."""
+    from gnss_sdr_tpu_torch import parallel
+
+    for r in results:
+        assert r["world_size"] == len(results), r
+        assert r["mesh_devices"] == 4, r
+        assert r["backend"] == backend, r
+        assert r["timeshard_matches_reference"] is True
+        assert sorted(r["ref_detected_prns"]) == [5, 17], r
+    assert all(r["ref_code_phase"] == results[0]["ref_code_phase"]
+               for r in results)
+    shards = [parallel.TimeShard(host_id=i, **r["shard"])
+              for i, r in enumerate(results)]
+    merged = parallel.merge_shard_results(
+        shards, [r["events"] for r in results])
+    ref_phase = results[0]["ref_code_phase"]
+    # each host detects both PRNs in its own core; a halo never reports
+    # twice
+    for sh in shards:
+        core = range(sh.core_start, sh.core_start + sh.core_count)
+        assert sorted(e["prn"] for e in merged
+                      if e["global_sample"] in core) == [5, 17], merged
+    assert len(merged) == 2 * len(shards), merged
+    for ev in merged:
+        assert ev["code_phase"] == ref_phase[str(ev["prn"])], ev
+    return merged
+
+
+def phase_mesh_processes(torch):
+    """Two processes on the one card (tests/_torch_dist_worker.py):
+    initialize_from_env picks gloo (two ranks on one GPU), each rank
+    holds 2 shards of cuda:0 in a 4-entry global_mesh, and
+    time_sharded_pcps_search sums the partial cubes of CUDA tensors with
+    torch.distributed.all_reduce across the process boundary; each
+    rank's result equals its unsharded search; the parent merges the
+    ranks' events (partition_stream, merge_shard_results)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, ".chip_scratch", "dist")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    results = dist_run_workers(out_dir, device="cuda:0")
+    merged = dist_check(results)
+    print(f"mesh processes: 2 ranks ({results[0]['backend']}) x 2 shards of "
+          f"{results[0]['device']}: the all-reduced time-sharded search "
+          f"equals each rank's unsharded search; merged events "
+          f"{[(e['prn'], e['global_sample']) for e in merged]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def phase_mesh_dryrun(torch):
+    from gnss_sdr_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(4)
+
+
 def _wide_row(res):
     """A wide shape's numbers for the kernels line."""
     keep = ("wp", "rows", "k_epochs", "channels", "t_epochs", "l_seg", "ms",
@@ -4049,7 +4595,21 @@ def main() -> int:
     b2w_launches = phase_b2_wide_path(torch)
     phase_conv_engine(torch)
     phase_inscan(torch)
+    t_mesh = time.perf_counter()
+    mesh = phase_mesh_fused(torch)
+    mesh_timing = mesh_step_timing(torch)
+    mesh_rx = phase_mesh_receiver(torch)
+    phase_mesh_acquisition(torch)
+    phase_mesh_processes(torch)
+    phase_mesh_dryrun(torch)
+    print(f"chip_smoke: mesh phases in {time.perf_counter() - t_mesh:.1f} s")
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
+    mesh_l = mesh["launches"]
+
+    def on_mesh(runs, name):
+        """A kernel's launches on phase 33's runs, by run and shards."""
+        return {run: {n: mesh_l[run][n][name] for n in MESH_SHARDS}
+                for run in runs}
     src = "gnss_sdr_tpu_torch/csrc/"
     replaces = "gnss_sdr_tpu/ops/pallas/track_block_fused.py:"
     print(json.dumps({"kernels": [{
@@ -4068,6 +4628,10 @@ def main() -> int:
             "ladder4_20ms": {k: v["track_block_fused_mxu"]
                              for k, v in mixed["ladder4"].items()
                              if v["track_block_fused_mxu"]}},
+        "launches_mesh": on_mesh(("mxu, single-block",
+                                  "mxu, spans, slim2"),
+                                 "track_block_fused_mxu"),
+        "mesh_step_ms": mesh_timing["step_ms"],
         "lean_mode_checked": True,
         "registers_stack": timing["ptxas"],
         "wide_shapes": {k[4:]: _wide_row(v) for k, v in wtiming.items()
@@ -4087,6 +4651,10 @@ def main() -> int:
         "launches": shared_launches,
         "launches_by_path": {"spans_2046k": shared_launches,
                              "ladder4_gps_spans": b2w_launches},
+        # the shared fetch is off under a mesh (B2's [C + 1] starts)
+        "launches_mesh": on_mesh(("mxu, single-block",
+                                  "mxu, spans, slim2"),
+                                 "_mxu_kernel_shared"),
         "wide_shapes": {k: dict(_wide_row(v), b1_ms_in_turns=v[
             "b1_ms_in_turns"], chunk=v["chunk"], chunks=v["chunks"],
             layout=v["layout"]) for k, v in b2w_timing.items()},
@@ -4104,6 +4672,8 @@ def main() -> int:
         "source": src + "track_block_direct.cu",
         "replaces": replaces + "848",
         "launches": steady["c"]["track_block_fused_direct"],
+        "launches_mesh": on_mesh(("direct, spans, slim",),
+                                 "track_block_fused_direct"),
         "wide_shape": _wide_row(wtiming["direct"]),
         "max_abs_err": max(direct_abs, wide_abs["direct"]),
         "ms": dtiming["ms"],
@@ -4120,6 +4690,9 @@ def main() -> int:
         # on its CUDA graph (launches counted from the replays)
         "launches": scan["pallas"][True][2]["epl_correlate_pallas"],
         "launches_eager": scan["pallas"][False][2]["epl_correlate_pallas"],
+        "launches_mesh": {"scanned, pallas": {
+            n: mesh_rx["launches"]["scanned, pallas"][n][
+                "epl_correlate_pallas"] for n in MESH_SHARDS}},
         "max_abs_err": b5_abs,
         "ms": b5_timing["ms"],
         "ms_per_launch": b5_timing["ms_per_launch"],
@@ -4142,6 +4715,7 @@ def main() -> int:
         "bound_ms": etiming[feed]["bound_ms"],
         "bound_by": etiming[feed]["bound_by"],
         "library_ms": etiming[feed]["library_ms"],
+        "launches_mesh": on_mesh(("seg, 125 ms", "windows, 500 ms"), name),
         **({"wide_shape": _wide_row(wtiming[feed]),
             "launches_ladder4_galileo_20ms":
                 mixed["ladder4"]["galileo_e1b"][name]}

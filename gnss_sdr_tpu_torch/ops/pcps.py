@@ -67,11 +67,22 @@ def code_replica_ffts(spec: SignalSpec, fs_hz: float, n_prn: int,
         np.fft.fft(reps, axis=-1).astype(np.complex64)).to(device)
 
 
-def _lo(carrier_freqs: torch.Tensor, fs_hz: float, n: int) -> torch.Tensor:
+def _ramp_start(step: torch.Tensor, sample_offset: int) -> torch.Tensor:
+    """The u32 NCO phase at global sample ``sample_offset`` of a ramp
+    that starts at phase 0 at sample 0: ``step * sample_offset`` mod
+    2**32 (the offset taken mod 2**32 first, as the JAX package's uint32
+    cast; int64 masked, the product's low 32 bits exact)."""
+    return (step * (int(sample_offset) & nco.MASK32)) & nco.MASK32
+
+
+def _lo(carrier_freqs: torch.Tensor, fs_hz: float, n: int,
+        sample_offset: int = 0) -> torch.Tensor:
     """[D, n] complex64 local oscillator e^{-j theta} from the exact
-    uint32 NCO ramp (starting at phase 0)."""
+    uint32 NCO ramp, its first sample the global sample
+    ``sample_offset``: time shards of one chunk keep its exact phase."""
     step = nco.freq_to_step(carrier_freqs, fs_hz)              # [D]
-    c, s = nco.cis(nco.phase_ramp(torch.zeros_like(step), step, n))
+    c, s = nco.cis(nco.phase_ramp(_ramp_start(step, sample_offset), step,
+                                  n))
     return torch.complex(c, -s)
 
 
@@ -84,6 +95,7 @@ def pcps_power(
     n_int: int,
     coherent: int = 1,
     bit_edge_hypotheses: int = 1,
+    sample_offset: int = 0,
 ) -> torch.Tensor:
     """Integrated correlation power cube [P, D, N].
 
@@ -91,11 +103,14 @@ def pcps_power(
     and squaring (FFT linearity); ``bit_edge_hypotheses=H > 1``
     re-anchors the k-period grouping at H offsets over one coherent
     length and max-combines the cubes (see the JAX package's docstring
-    for the detection trade-offs)."""
+    for the detection trade-offs). ``sample_offset``: the global index of
+    ``samples[0]``, where the Doppler mix's phase ramp starts, so a time
+    shard of a longer chunk mixes exactly as the whole chunk would
+    (parallel.time_sharded_pcps_search)."""
     n_fft = code_ffts.shape[-1]
     if n_int % coherent:
         raise ValueError(f"n_int={n_int} not divisible by coherent={coherent}")
-    lo = _lo(carrier_freqs, fs_hz, n_int * n_fft)
+    lo = _lo(carrier_freqs, fs_hz, n_int * n_fft, sample_offset)
     shifted = (samples[None, :] * lo).reshape(-1, n_int, n_fft)
     spectra = torch.fft.fft(shifted, dim=-1)                 # [D, n_int, N]
     conj_codes = torch.conj(code_ffts)
@@ -146,18 +161,21 @@ def pcps_power_padded(
     n_int: int,
     n_fft: int,
     coherent: int = 1,
+    sample_offset: int = 0,
 ) -> torch.Tensor:
     """Power cube [P, D, N] via power-of-two FFTs: each integration
     correlates a two-period block against the zero-padded code with
     M-point transforms, so lags 0..N-1 are exact linear correlations
     (noise does not wrap; peak locations equal the circular path's).
     Needs one extra code period of trailing samples. ``coherent`` groups
-    sum their spectra, as in pcps_power."""
+    sum their spectra, and ``sample_offset`` starts the mix's phase ramp,
+    as in pcps_power."""
     if n_int % coherent:
         raise ValueError(f"n_int={n_int} not divisible by coherent={coherent}")
     m = code_fft_padded.shape[-1]
     shifted = samples[None, :] * _lo(carrier_freqs, fs_hz,
-                                     samples.shape[-1])     # [D, L + N]
+                                     samples.shape[-1],
+                                     sample_offset)         # [D, L + N]
     conj_codes = torch.conj(code_fft_padded)
     power = torch.zeros((code_fft_padded.shape[0], shifted.shape[0], n_fft),
                         dtype=torch.float32, device=samples.device)
@@ -476,8 +494,8 @@ def pcps_power_conv(
     d = carrier_freqs.shape[0]
     length = (n_int + 1) * n_fft
     step = nco.freq_to_step(carrier_freqs, fs_hz)               # [D]
-    acc0 = (step * int(sample_offset)) & nco.MASK32
-    c, s = nco.cis(nco.phase_ramp(acc0, step, length))         # [D, L + N]
+    c, s = nco.cis(nco.phase_ramp(_ramp_start(step, sample_offset), step,
+                                  length))         # [D, L + N]
     xre = samples_re[None, :length] * c + samples_im[None, :length] * s
     xim = samples_im[None, :length] * c - samples_re[None, :length] * s
     n_seg = -(-n_fft // seg_width)

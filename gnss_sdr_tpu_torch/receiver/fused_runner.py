@@ -46,13 +46,19 @@ thread-block cluster, anchored at base = max(0, max(eligible starts) -
 spread_cap); a channel whose start lies below the base defers one block,
 as one past ``max_offset`` does. Its results equal B1's bit for bit.
 
+``mesh`` (parallel.make_mesh) shards the channels over the mesh's
+channel axis: each shard's kernel runs on its device on its own rows
+(parallel.shard_fused_step), in run_block and in the spans alike, and
+the shared fetch is off, as in the JAX package (B2's [C + 1] starts do
+not shard).
+
 ``span_extra`` (the JAX package's hook, which the receiver's in-scan
 search sets to the conv engine's search): a function of a span's stream
 queued on the card after the span's kernels, its outputs downloaded
 with the span's telemetry (``last_span_extra`` after run_blocks;
 ``collect_span(handle, with_extra=True)`` on the span API).
 
-Not ported yet, and raising: a mesh (A14). The per-epoch
+The per-epoch
 layouts (direct, seg, windows) take windows up to 49,152 lanes and
 reject wider ones (ROADMAP C6; Galileo E1B at 8.184 MHz is 33,152 on
 seg, which the JAX _epoch_core cannot run); B1 and B2 (mxu) run every
@@ -171,9 +177,6 @@ class FusedTracker:
             raise ValueError(f"unknown fused layout {layout!r}")
         if wire not in ("f32", "slim", "slim2"):
             raise ValueError(f"unknown telemetry wire {wire!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP A14)")
         # superstep cap: 8 epochs for the power detector; 2 for Costas,
         # whose phase-sensitive EMA can fall below threshold during the
         # held-rate latency before the first correction lands
@@ -272,9 +275,16 @@ class FusedTracker:
         # steady state never meets (its windows start within
         # [el_pad, el_pad + n0) of the block)
         self.spread_cap = 0
-        if shared_fetch and layout == "mxu":
+        if shared_fetch and layout == "mxu" and mesh is None:
             self.spread_cap = ((self.n0 + 512 + 127) // 128) * 128
             self._kernel_kw.update(spread_cap=self.spread_cap)
+        if mesh is not None:
+            # each shard's kernel on its own channel rows (no exchange)
+            from ..parallel import sharding
+
+            sharding.shard_rows(cfg.n_channels, mesh)
+            self._kernel = sharding.shard_fused_step(mesh, self._kernel)
+        self.mesh = mesh
         # optional work queued after a span's kernels:
         # span_extra(stream_re, stream_im, *extra_args) -> a tuple (or
         # NamedTuple) of tensors on the card, which come down with the

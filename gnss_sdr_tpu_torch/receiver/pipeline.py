@@ -47,8 +47,13 @@ and attempted once per block, inside spans too.
 
 Every signal of models/constellation.py runs (GPS L1 C/A, Galileo E1B/C,
 BeiDou B1I, GLONASS L1OF), each with its nav chain (receiver/navproc.py);
-receiver/multi.py runs several over one stream. Not ported yet, and
-raising NotImplementedError: a device mesh (ROADMAP A14).
+receiver/multi.py runs several over one stream.
+
+A device mesh (``cfg.parallel``, parallel/) shards the tracking
+channels: the fused kernel per shard, and the scanned tracker (a fused
+receiver's partial tail block too) through
+``parallel.sharded_track_block``; on the card over the visible cards, on
+the CPU as logical shards of the one CPU device.
 """
 from __future__ import annotations
 
@@ -126,11 +131,17 @@ class Receiver:
         self._fe_bias_re = np.float32(0.0)
         self._fe_bias_im = np.float32(0.0)
         self._fe_agc_gain = np.float32(1.0)
+        # optional device mesh: tracking channels shard as a data-
+        # parallel axis (parallel/); on the card over the visible cards,
+        # on the CPU as logical shards of the one CPU device
+        mesh = None
         par = cfg.parallel
         if par.channel_axis > 1 or par.time_axis > 1:
-            raise NotImplementedError(
-                "a device mesh (parallel.channel_axis / time_axis > 1) is "
-                "not ported yet (ROADMAP A14)")
+            from .. import parallel
+
+            mesh = parallel.make_mesh(
+                n_time=par.time_axis, n_channel=par.channel_axis,
+                devices=self.device if self.device.type == "cpu" else None)
         if cfg.track.correlator not in trk.CORRELATORS:
             raise ValueError(
                 f"unknown correlator {cfg.track.correlator!r}; expected "
@@ -180,47 +191,11 @@ class Receiver:
         else:
             self.window = DeviceStreamWindow(self.history, self.block,
                                              self.device)
-        self.fused = None
-        if cfg.track.correlator == "fused":
-            # "auto" as the JAX package resolves it: the mxu layout and
-            # the slim wires on an accelerator, the exact direct layout
-            # and the bit-exact f32 wire on the CPU
-            layout = cfg.track.fused_layout
-            if layout == "auto":
-                layout = "direct" if self.device.type == "cpu" else "mxu"
-            wire = cfg.track.telemetry_wire
-            if wire == "auto":
-                if self.device.type == "cpu":
-                    wire = "f32"
-                else:
-                    wire = "slim2" if layout == "mxu" else "slim"
-            self.fused = FusedTracker(
-                self.params, cfg.track, self.spec, self.fs, self.codes_full,
-                self.epochs_per_block, self.history + self.block,
-                layout=layout, wire=wire, device=self.device)
         self.scheduler = SearchScheduler(cfg.acq)
-        # the in-scan search (the JAX package's conditions): the conv
-        # engine's search queued inside each span; FDMA (a search per
-        # frequency channel) and the two_peak / cfar detectors keep the
-        # boundary search
-        self._span_acq = False
         self._span_rowmap = None
         self._pipeline_handoffs: list = []
         self._pipeline_active_mask = None
-        if (self.fused is not None and self.engine.engine == "conv"
-                and self.fused.layout in ("direct", "mxu")
-                and not cfg.acq.fdma_spacing_hz
-                and cfg.acq.detector == "peak_avg"):
-            eng, n_acq = self.engine, self.acq_len
-
-            def _span_search(sre, sim, sel):
-                # the chunk the boundary search would take: the span
-                # stream's last acq_len samples
-                return eng.conv_search_device(sre[-n_acq:], sim[-n_acq:],
-                                              sel)
-
-            self.fused.span_extra = _span_search
-            self._span_acq = True
+        self._use_mesh(mesh)
         self.telemetry = TelemetryLog(cfg.track.n_channels)
         self.nav = NavProcessor(
             self.fs, self.spec.code_period_s, self.spec.code_length_chips,
@@ -238,6 +213,57 @@ class Receiver:
         self._obs_last_update_ms = None
         self._obs_week = 0
         self.nav_filter = None
+
+    def _use_mesh(self, mesh) -> None:
+        """Give the receiver ``mesh`` (None: no mesh) and build its fused
+        tracker with it: the scanned tracker and a fused receiver's
+        partial tail block then run channel-sharded
+        (parallel.sharded_track_block), the fused kernel per shard
+        (parallel.shard_fused_step). The constructor calls it with the
+        mesh of ``cfg.parallel``."""
+        cfg = self.cfg
+        if mesh is not None:
+            from ..parallel import sharding
+
+            sharding.shard_rows(cfg.track.n_channels, mesh)
+        self.mesh = mesh
+        self.fused = None
+        if cfg.track.correlator == "fused":
+            # "auto" as the JAX package resolves it: the mxu layout and
+            # the slim wires on an accelerator, the exact direct layout
+            # and the bit-exact f32 wire on the CPU
+            layout = cfg.track.fused_layout
+            if layout == "auto":
+                layout = "direct" if self.device.type == "cpu" else "mxu"
+            wire = cfg.track.telemetry_wire
+            if wire == "auto":
+                if self.device.type == "cpu":
+                    wire = "f32"
+                else:
+                    wire = "slim2" if layout == "mxu" else "slim"
+            self.fused = FusedTracker(
+                self.params, cfg.track, self.spec, self.fs, self.codes_full,
+                self.epochs_per_block, self.history + self.block,
+                layout=layout, wire=wire, mesh=mesh, device=self.device)
+        # the in-scan search (the JAX package's conditions): the conv
+        # engine's search queued inside each span; FDMA (a search per
+        # frequency channel) and the two_peak / cfar detectors keep the
+        # boundary search
+        self._span_acq = False
+        if (self.fused is not None and self.engine.engine == "conv"
+                and self.fused.layout in ("direct", "mxu")
+                and not cfg.acq.fdma_spacing_hz
+                and cfg.acq.detector == "peak_avg"):
+            eng, n_acq = self.engine, self.acq_len
+
+            def _span_search(sre, sim, sel):
+                # the chunk the boundary search would take: the span
+                # stream's last acq_len samples
+                return eng.conv_search_device(sre[-n_acq:], sim[-n_acq:],
+                                              sel)
+
+            self.fused.span_extra = _span_search
+            self._span_acq = True
 
     # ------------------------------------------------------------------
     def _run_acquisition(self) -> None:
@@ -351,6 +377,15 @@ class Receiver:
                 # the fused kernel: one launch for the block's T epochs
                 self.state, telem = self.fused.run_block(
                     self.state, self.window.re, self.window.im, codes)
+            elif self.mesh is not None:
+                # the scanned tracker channel-sharded over the mesh
+                from .. import parallel
+
+                self.state, telem = parallel.sharded_track_block(
+                    self.mesh, self.params, codes, self.state,
+                    self.window.re, self.window.im,
+                    self.epochs_per_block + 1,
+                    valid_len=self.history + n_valid, graph=self.scan_graph)
             else:
                 # the scanned tracker (+1 catch-up epoch); a fused
                 # receiver's partial last block lands here too, where

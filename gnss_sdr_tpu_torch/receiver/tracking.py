@@ -515,9 +515,11 @@ def graph_key(params: TrackParams, codes, state: ChannelState, block_re,
             int(block_re.shape[0]), int(codes.shape[1]), dev)
 
 
-# the graphs by graph_key, the least recently used first: a receiver
-# replays one key (its tail block too), and the second place keeps the
-# previous receiver's graph where two take turns in a process. Per key,
+# the graphs by graph_key, the least recently used first, up to
+# _GRAPH_CACHE_SIZE per card: a receiver replays one key (its tail block
+# too), the second place keeps the previous receiver's graph where two
+# take turns in a process, and the shards of a mesh over several cards
+# keep theirs on each card (the key holds the card). Per key,
 # GRAPH_LOG holds the warm-up's and the capture's seconds (trace_s: the
 # epochs' ops recorded; the rest of capture_s instantiates the graph) and
 # the device memory the capture reserved for the graph's pool.
@@ -564,10 +566,13 @@ class _BlockGraph:
                            self.im, self.n_epochs)
 
     def run(self, ins, block_re, block_im, codes) -> torch.Tensor:
+        """With the graph's card current (track_block_device makes it
+        so): the warm-up, the capture and the replays all run there."""
         self.load(ins, block_re, block_im, codes)
+        dev = self.re.device
         if not self.warm:
-            cur = torch.cuda.current_stream()
-            side = torch.cuda.Stream(device=self.re.device)
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(device=dev)
             side.wait_stream(cur)
             t0 = time.perf_counter()
             with torch.cuda.stream(side):
@@ -579,7 +584,6 @@ class _BlockGraph:
             return out
         if self.graph is None:
             graph = launches.Graph()
-            dev = self.re.device
             t0 = time.perf_counter()
             # what torch.cuda.graph does on entry, done first so that the
             # reserved memory's growth is the graph's pool alone
@@ -588,8 +592,12 @@ class _BlockGraph:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             # thread-local: another thread's CUDA calls (a span collector)
-            # cannot break this capture
-            with graph.capture(capture_error_mode="thread_local"):
+            # cannot break this capture. The capture stream is on the
+            # graph's card: torch.cuda.graph's default one lives on the
+            # card current at the process's first capture, and a shard's
+            # epochs on another card would leave its graph empty
+            with graph.capture(stream=torch.cuda.Stream(device=dev),
+                               capture_error_mode="thread_local"):
                 static_out = self.eager()
                 t1 = time.perf_counter()
             self.graph, self.out = graph, static_out
@@ -614,7 +622,8 @@ def track_block_device(params: TrackParams, codes, state: ChannelState,
     the limit go up in one copy from pinned memory, and nothing here
     waits for the card.
 
-    On CUDA the epochs run as one CUDA graph per graph_key (the
+    On CUDA the epochs run on the block's card, made current here, as
+    one CUDA graph per graph_key (the
     counterpart of the JAX package's jitted scan): a key's first call is
     the eager warm-up, its second captures, and every call from the
     second on replays; each call copies its inputs into the graph's
@@ -637,15 +646,17 @@ def track_block_device(params: TrackParams, codes, state: ChannelState,
     if dev.type != "cuda":
         return _run_epochs(params, codes, ins, block_re, block_im, n_epochs)
     ins = ins.pin_memory()
-    if not graph:
-        return _run_epochs(params, codes, ins.to(dev, non_blocking=True),
-                           block_re, block_im, n_epochs)
-    key = graph_key(params, codes, state, block_re, n_epochs)
-    g = _GRAPHS.pop(key, None) or _BlockGraph(key)
-    out = g.run(ins, block_re, block_im, codes)
+    with torch.cuda.device(dev):
+        if not graph:
+            return _run_epochs(params, codes, ins.to(dev, non_blocking=True),
+                               block_re, block_im, n_epochs)
+        key = graph_key(params, codes, state, block_re, n_epochs)
+        g = _GRAPHS.pop(key, None) or _BlockGraph(key)
+        out = g.run(ins, block_re, block_im, codes)
     _GRAPHS[key] = g                    # the newest last
-    while len(_GRAPHS) > _GRAPH_CACHE_SIZE:
-        _GRAPHS.popitem(last=False)
+    on_card = [k for k in _GRAPHS if k[-1] == dev]
+    for k in on_card[:-_GRAPH_CACHE_SIZE]:
+        del _GRAPHS[k]
     return out
 
 

@@ -644,3 +644,107 @@ def test_pull_block_makes_no_host_copy_on_card(card):
     copies, tries = chip_smoke.pull_copies_fresh()
     assert copies == {"device_f32": 0, "device_int8": 0,
                       "streaming_int8": 0}, (copies, tries)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["mxu", "direct"])
+def test_mesh_fused_step_equals_unsharded_on_card(card, layout):
+    """The fused step on 2 and 4 channel shards of the card
+    (parallel.shard_fused_step; 32 channels, 20 ms blocks): telemetry and
+    state equal to the unsharded kernel's bit for bit, the kernel
+    launched once per shard."""
+    from gnss_sdr_tpu_torch import parallel
+
+    ft, args, kw = chip_smoke.full_width_inputs(torch, card, {},
+                                                block_ms=20, layout=layout)
+    count = "launch_count" if layout == "mxu" else "direct_launch_count"
+    ref = ft._kernel(*args, **kw)
+    for n in (2, 4):
+        before = getattr(fused, count)
+        tl, st = parallel.shard_fused_step(chip_smoke.card_mesh(torch, n),
+                                           ft._kernel)(*args, **kw)
+        assert getattr(fused, count) == before + n
+        assert torch.equal(tl, ref[0]) and torch.equal(st, ref[1])
+
+
+@pytest.mark.cuda
+def test_mesh_searches_on_card(card):
+    """chip_smoke.py phase 35: the time- and PRN-sharded searches at full
+    width equal one pcps_search."""
+    out = chip_smoke.phase_mesh_acquisition(torch)
+    assert len(out) == len(chip_smoke.MESH_SEARCHES)
+
+
+@pytest.mark.cuda
+def test_mesh_processes_on_card(card, tmp_path):
+    """Two gloo processes, each with 2 shards of the card: the
+    all-reduced time-sharded search equals each rank's own search."""
+    results = chip_smoke.dist_run_workers(str(tmp_path), device="cuda:0")
+    assert [r["device"] for r in results] == ["cuda:0", "cuda:0"]
+    chip_smoke.dist_check(results)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(card):
+    from gnss_sdr_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert dryrun_multichip(4)["device"] == "cuda"
+
+
+@pytest.fixture
+def cards():
+    """A host of 4 cards or more (a mesh of one shard per card)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    return torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+def test_mesh_fused_over_cards(cards):
+    """chip_smoke.py phase 33 with one shard on each of 2 and 4 cards:
+    every layout's downloads and ledger equal to the unsharded tracker
+    on cuda:0 bit for bit, each kernel launched blocks x shards times."""
+    out = chip_smoke.phase_mesh_fused(torch, mesh_devices="cards")
+    assert set(out["launches"]["mxu, single-block"]) == {1, 2, 4}
+
+
+@pytest.mark.cuda
+def test_mesh_receiver_over_cards(cards):
+    """chip_smoke.py phase 34 with one shard on each of 2 and 4 cards:
+    the scanned receiver's blocks replay each card's own CUDA graph (B5
+    counted from the replays, shards x the unsharded count), and the
+    telemetry equals the unsharded receiver's; a ParallelConfig mesh
+    takes the visible cards."""
+    from gnss_sdr_tpu_torch import ParallelConfig, ReceiverConfig, \
+        RfConfig, TrackConfig
+    from gnss_sdr_tpu_torch.receiver import ArraySource, Receiver
+
+    out = chip_smoke.phase_mesh_receiver(torch, mesh_devices="cards")
+    assert set(out["launches"]["scanned, pallas"]) == {1, 2, 4}
+    rx = Receiver(ReceiverConfig(
+        rf=RfConfig(freq_if_hz=0.0, output_sample_rate_hz=chip_smoke.FS),
+        track=TrackConfig(n_channels=chip_smoke.N_CHANNELS),
+        parallel=ParallelConfig(channel_axis=4),
+        block_ms=chip_smoke.BLOCK_MS),
+        ArraySource(np.zeros(2046, np.complex64), chip_smoke.FS))
+    assert rx.mesh.devices.reshape(-1).tolist() == \
+        [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.cuda
+def test_mesh_searches_over_cards(cards):
+    """chip_smoke.py phase 35 with one shard on each card."""
+    out = chip_smoke.phase_mesh_acquisition(torch, mesh_devices="cards")
+    assert len(out) == len(chip_smoke.MESH_SEARCHES)
+
+
+@pytest.mark.cuda
+def test_mesh_processes_nccl_over_cards(cards, tmp_path):
+    """Four ranks as torchrun starts them (LOCAL_RANK, LOCAL_WORLD_SIZE),
+    one card each: initialize_from_env picks NCCL and makes the rank's
+    card current, global_mesh gives each rank its own card, and the
+    time-sharded search's cube is all-reduced over NCCL."""
+    results = chip_smoke.dist_run_workers(str(tmp_path), device="cards",
+                                          n_procs=4, shards=1)
+    assert [r["device"] for r in results] == [f"cuda:{i}" for i in range(4)]
+    chip_smoke.dist_check(results, backend="nccl")

@@ -184,7 +184,9 @@ def test_import_boundary():
             importlib.import_module(name)
         want = {"cli", "__main__", "presets", "io.native", "io.devices",
                 "utils.view", "utils.live", "utils.host", "nav.filter",
-                "nav.rinex", "nav.rinex_obs", "nav.download"}
+                "nav.rinex", "nav.rinex_obs", "nav.download",
+                "parallel.sharding", "parallel.distributed",
+                "parallel.dryrun"}
         missing = {w for w in want if pkg.__name__ + "." + w not in names}
         assert not missing, missing
         bad = sorted(n for n in sys.modules
@@ -192,6 +194,8 @@ def test_import_boundary():
                      or n == "gnss_sdr_tpu" or n.startswith("gnss_sdr_tpu.")
                      or n == "matplotlib" or n.startswith("matplotlib."))
         assert not bad, bad
+        import torch
+        assert not torch.distributed.is_initialized()
         print("ok", len([n for n in sys.modules
                          if n.startswith("gnss_sdr_tpu_torch")]))
     """)
@@ -224,11 +228,12 @@ def test_receiver_defaults_to_cuda():
     (dict(acq_kw=dict(signal="galileo_e1b")), "A16"),
 ], ids=["kw0-A11", "kw1-A14", "kw2-A16"])
 def test_unported_receiver_options_raise(kw, item):
-    """A14 still raises naming its item. A16 (the non-GPS signals) is
-    ported, so its case builds the receiver: Galileo E1B with the JAX
-    package's surrogate-code warning and ``code_status``. A11 (the conv
-    engine) is ported: with the fused tracker on mxu it arms the in-scan
-    search, as tests/test_span_acq.py checks the JAX receiver."""
+    """Each item is ported, so each case builds the receiver. A16 (the
+    non-GPS signals): Galileo E1B with the JAX package's surrogate-code
+    warning and ``code_status``. A11 (the conv engine): with the fused
+    tracker on mxu it arms the in-scan search, as tests/test_span_acq.py
+    checks the JAX receiver. A14 (the mesh): on the CPU the receiver
+    builds with ``rx.mesh`` set, two logical shards of the CPU device."""
     src = SyntheticSource([SatelliteScenario(prn=1)], FS,
                           total_samples=int(0.1 * FS))
     cfg = ReceiverConfig(
@@ -249,5 +254,7 @@ def test_unported_receiver_options_raise(kw, item):
             "the in-scan search"
         assert rx.fused.span_extra is not None
         return
-    with pytest.raises(NotImplementedError, match=item):
-        Receiver(cfg, src, device="cpu")
+    rx = Receiver(cfg, src, device="cpu")
+    assert rx.mesh.shape == {"time": 1, "channel": 2}
+    assert rx.mesh.devices.tolist() == [[torch.device("cpu")] * 2]
+    assert rx.fused is None                 # the scanned tracker, sharded

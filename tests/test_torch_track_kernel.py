@@ -297,11 +297,18 @@ class TestConstruction:
             fused.build_replicas(short, 1, N0, ft.wp, 8,
                                  np.zeros(2, np.int32))
 
-    @pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "A14")])
+    @pytest.mark.parametrize("kw,item", [(dict(mesh_channels=3), "A14")],
+                             ids=["kw0-A14"])
     def test_unported_options_raise(self, kw, item):
+        """A14 (the mesh) is ported: a mesh whose channel axis does not
+        divide the channels raises ValueError, as in the JAX package."""
+        from gnss_sdr_tpu_torch import parallel
+
         cfg = TrackConfig(n_channels=2, correlator="fused")
         params = trk.TrackParams.create(cfg, GPS_L1CA, FS)
         codes = trk.make_sampled_code_table(GPS_L1CA, FS, 4)
-        with pytest.raises(NotImplementedError, match=item):
+        n = kw["mesh_channels"]
+        mesh = parallel.make_mesh(1, n, devices=["cpu"] * n)
+        with pytest.raises(ValueError, match="divisible"):
             fr.FusedTracker(params, cfg, GPS_L1CA, FS, codes, T,
-                            HISTORY + T * N0, device="cpu", **kw)
+                            HISTORY + T * N0, device="cpu", mesh=mesh)
