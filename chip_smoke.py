@@ -3,7 +3,8 @@
 GPU:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: every CUDA source under gnss_sdr_tpu_torch/csrc/, one nvcc
+  2. build: every CUDA source under gnss_sdr_tpu_torch/csrc/, and B1's
+     earlier lane-chunk source under tools/ (timed in 25), one nvcc
      each, in parallel (sm_90a);
   3. each kernel against its plain PyTorch version on the card, at the
      full width the receiver gives it (32 channels, 500 ms blocks at
@@ -122,13 +123,18 @@ GPU:
      CPU run's; one search's time beside the circular engine's;
  24. slice 10's kernel shapes (the other GNSS systems at ladder 4's 8.184
      MHz): B1 at the four ladder-4 shapes (GPS wp 8704 R 13, BeiDou R 9,
-     GLONASS R 21, all K 8; Galileo E1B wp 33,280 R 9 K 6; 96 ms blocks,
-     the lane-chunked layout) against its plain version open loop, power
-     and Costas, full and lean (lean equal to full bit for bit); B4c (bit
-     for bit) and B4b at Galileo's seg width (wp 33,152, 20 ms blocks)
-     and B3 at its direct width (wp 33,280), open loop, power and Costas;
+     GLONASS R 21, all K 8; Galileo E1B wp 33,280 R 9 K 6; 96 ms blocks),
+     at ladder 4's 20 ms shapes (K 5) and at R 21 on GLONASS's 1.023 MHz
+     window, in lane clusters at every cluster size the plan offers
+     (and 8 warps at its first), against its plain version open loop,
+     power and Costas, full and lean (lean equal to full bit for bit);
+     B4c (bit for bit) and B4b at Galileo's seg width (wp 33,152, 20 ms
+     blocks) and B3 at its direct width (wp 33,280), open loop, power and
+     Costas;
  25. the times per block of those shapes, their plain versions' and
-     their bounds, as 4 and 16;
+     their bounds, as 4 and 16; B1 at the 96 ms and 20 ms shapes in
+     turns against its earlier lane-chunk kernel (tools/b1_chunked.py),
+     at each cluster size the plan offers and at 8 warps;
  26. ladder 4 at full width as bench.py's mixed row runs it: 14
      satellites of four systems in one 8.184 MHz stream (seed 7), 32
      channels (GPS 8, Galileo 4, GLONASS 4, BeiDou 16), 96 ms blocks,
@@ -141,12 +147,12 @@ GPU:
  27. the three live-decode scenes of tests/test_nav_live_multi.py
      (Galileo I/NAV, BeiDou D1, GLONASS strings; one satellite each, cold
      start): each ephemeris decoded on the card and equal to its truth;
- 28. slice 11: kernel B2 (the shared fetch) in lane chunks at the four
-     ladder-4 shapes (there the wrapper launches B1's chunked kernel
-     on starts[:C]) against its plain version open loop, power and Costas, full and
-     lean, and against B1 kernel to kernel bit for bit at the same chunk
-     width, on the tracker's starts (base 0) and on random starts across
-     the cap above a raised base;
+ 28. slice 11: kernel B2 (the shared fetch) in lane clusters at the four
+     ladder-4 shapes (there the wrapper launches B1's lane kernel on
+     starts[:C]) against its plain version open loop, power and Costas,
+     full and lean, and against B1 kernel to kernel bit for bit at the
+     same cluster size, on the tracker's starts (base 0) and on random
+     starts across the cap above a raised base;
  29. B2's times per 96 ms block at those shapes beside B1's in turns, its
      plain version's and its bounds;
  30. B2's path at ladder 4's GPS shape (8 channels, 96 ms blocks):
@@ -197,11 +203,13 @@ result. Any failed check raises.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -299,7 +307,8 @@ def phase_build():
     from gnss_sdr_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(extra={"track_block_mxu_chunked": Path(
+        __file__).resolve().parent / "tools" / "track_block_mxu_chunked.cu"})
     print(f"build: {len(logs)} source(s) in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
@@ -565,13 +574,14 @@ def prefetch_span(start, j, k_epochs, n0, wp, spread_cap=0):
 
 
 def b2_chunk_reads(base, dc, j, e, lanes, *, k_epochs, n0, wp):
-    """The stream samples B2 in lane chunks (B1's chunked kernel,
-    csrc/track_block_mxu.cu kChunk, on starts[:C]) reads for epoch ``e``
-    of superstep ``j`` over tile lanes ``lanes`` (one chunk's [l0, l0 +
-    width)), for a channel ``dc`` above the shared ``base``: lane l
-    reads m = l + shift, less wp past the window's end (shift = rem_e +
-    rem_j < 256 < wp, the roll), of the epoch's window at starts[c] +
-    off_j + a_e, starts[c] = base + dc. Returns an int64 array."""
+    """The stream samples B2 in lane clusters (B1's lane kernel,
+    csrc/track_block_mxu.cu track_block_mxu_lanes, on starts[:C]) mixes
+    for epoch ``e`` of superstep ``j`` over tile lanes ``lanes`` (one
+    block's part [l0, l0 + width)), for a channel ``dc`` above the
+    shared ``base``: lane l reads m = l + shift, less wp past the
+    window's end (shift = rem_e + rem_j < 256 < wp, the roll), of the
+    epoch's window at starts[c] + off_j + a_e, starts[c] = base + dc.
+    Returns an int64 array."""
     kk = j * k_epochs * n0
     off_j = (kk // 128) * 128
     a_e = (e * n0 // 128) * 128
@@ -579,6 +589,28 @@ def b2_chunk_reads(base, dc, j, e, lanes, *, k_epochs, n0, wp):
     m = np.asarray(lanes, np.int64) + shift
     m = np.where(m >= wp, m - wp, m)
     return base + dc + off_j + a_e + m
+
+
+def lane_row_samples(start, j, e, l0, w, *, k_epochs, n0, wp,
+                     reach=256):
+    """The stream samples B1's lane clusters stage into row ``e`` of a
+    block's window rows for superstep ``j`` (csrc/track_block_mxu.cu
+    stage_rows_windows), the block's part [l0, l0 + w) of a window that
+    starts at ``start``: position b holds the epoch window's sample
+    l0 - o + b (o the window's offset from its 16-byte floor), from
+    b1 = o + wp - l0 on its sample b - b1 (the roll's wrap), for b in
+    [0, o + w + reach). Returns (int64 samples, o, b1, the positions the
+    bulk copies fill: a boolean array; the rest are plain loads)."""
+    g0 = start + (j * k_epochs * n0 // 128) * 128
+    o = g0 % 4
+    ws = g0 + (e * n0 // 128) * 128
+    nb = o + w + reach
+    b1 = min(nb, o + wp - l0)
+    b = np.arange(nb, dtype=np.int64)
+    samples = np.where(b < b1, ws + l0 - o + b, ws + (b - b1))
+    t1, h2, t2 = b1 // 4 * 4, min(nb, -(-b1 // 4) * 4), nb // 4 * 4
+    bulk = (b < t1) | ((b >= h2) & (b < t2))
+    return samples, o, b1, bulk
 
 
 def edge_case(torch, args, kw, r):
@@ -2788,7 +2820,6 @@ def phase_cli(torch):
     """The CLI journey on the card: ``cli.main`` in process on the nav
     capture (native file ingest, B1, observables to RINEX, the EKF, the
     fix), then ``python -m gnss_sdr_tpu_torch`` as a user runs it."""
-    import contextlib
     import io
     import os
 
@@ -3099,8 +3130,8 @@ LADDER4_S = 1.0                     # its run: 50 blocks per branch
 # ... at ladder 4's own 20 ms blocks (the second path), power lock
 LADDER4_MXU_SHAPES = {"gps_l1ca": (8704, 13, 5), "beidou_b1i": (8704, 9, 5),
                       "glonass_l1of": (8704, 21, 5)}
-# R above the whole-width layout's 16 on a window one lane chunk covers:
-# GLONASS at 1.023 MHz with 4-chip early-late spacing (wp 1536, R 21)
+# R above the whole-width layout's 16 on a narrow window: GLONASS at
+# 1.023 MHz with 4-chip early-late spacing (wp 1536, R 21)
 ONE_CHUNK_FS, ONE_CHUNK_EL = 1_023_000.0, 4.0
 WIDE_SEG_WP = 33152                 # E1B on seg at 8.184 MHz (5 epochs)
 WIDE_DIRECT_WP = 33280              # ... on direct (96 ms: 24 epochs)
@@ -3225,13 +3256,77 @@ def _check_active(sk, n_sats, label):
         label, active)
 
 
+@contextlib.contextmanager
+def lane_layout(fused, cs, warps=None):
+    """B1's lane clusters at size ``cs`` only (and ``warps`` warps a
+    block) while the context is open: the plan offers that size alone."""
+    saved = fused.MXU_LANE_CLUSTERS, fused.MXU_LANE_WARPS
+    fused.MXU_LANE_CLUSTERS = (cs,)
+    fused.MXU_LANE_WARPS = warps or saved[1]
+    try:
+        yield
+    finally:
+        fused.MXU_LANE_CLUSTERS, fused.MXU_LANE_WARPS = saved
+
+
+def streamed_case(torch, device, wp=98_304, rows=16, c=2, seed=3):
+    """B1's inputs on a window far wider than any receiver path's (K 5,
+    T 10, random stream and sign replicas, 8.184 MHz' n0): wide enough
+    that a block's bank rows do not stay resident in lane clusters but
+    are streamed in sub-chunks. Returns (args, kw)."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    n0 = 8184
+    n = fused.direct_span(5, n0, wp) + (5 * n0 // 128) * 128
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sre, sim = (torch.randn(n, generator=gen, device=device)
+                for _ in range(2))
+    reps = torch.sign(torch.randn((c, rows, wp), generator=gen,
+                                  device=device)).to(torch.bfloat16)
+    st = torch.zeros((c, fused.N_FIELDS), device=device)
+    st[:, 0], st[:, 3], st[:, 7], st[:, 11] = 800.0, 1.023e6, 1.0, 1.0
+    st[:, 9] = 3.0
+    starts = torch.zeros(c, dtype=torch.int32, device=device)
+    kw = dict(t_epochs=10, k_epochs=5, n0=n0, wp=wp, fs=WIDE_FS,
+              starts_host=np.zeros(c, np.int32))
+    return (sre, sim, starts, reps, st), kw
+
+
+def launched_lane(args, kw):
+    """The lane option the wrapper launches on ``args``/``kw`` (the
+    plan's, in lane_launch_order) with the clusters the card holds at
+    once ("active")."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    wp, k, reps, st = kw["wp"], kw["k_epochs"], args[3], args[4]
+    lean = kw.get("telem_mode") == "lean"
+    plan = fused.mxu_smem_plan(wp, reps.shape[1], k,
+                               c_channels=st.shape[0])
+    opt = fused.lane_launch_order(plan, st.shape[0], k, wp, reps.shape[1],
+                                  lean, st.device)[0]
+    return dict(opt, active=fused.lane_active_clusters(
+        st.device, k, wp, reps.shape[1], lean, opt))
+
+
+def _lane_label(plan):
+    """A lane-cluster option in a few words."""
+    bank = "resident" if plan["resident"] else f"streamed by {plan['sub']}"
+    rows = "staged" if plan["staged"] else "from global memory"
+    active = (f", {plan['active']} clusters at once" if "active" in plan
+              else "")
+    return (f"cluster {plan['cs']} x {plan['warps']} warps, parts of <= "
+            f"{max(w for _, w in plan['parts'])} lanes, bank {bank}, "
+            f"windows {rows}, {plan['bytes']} B{active}")
+
+
 def phase_wide_check(torch):
     """Slice 10's kernel shapes against the plain versions, open loop,
-    power and Costas lock: B1 in lane chunks at the four ladder-4 shapes
-    (8.184 MHz, 96 ms blocks), at the three 1 ms systems' shapes of
-    ladder 4's own 20 ms blocks (K 5, the second path), and at R 21 on a
-    window one chunk covers (GLONASS at 1.023 MHz, 4-chip early-late
-    spacing), full and lean (lean equal to full bit for bit); B4c (bit
+    power and Costas lock: B1 in lane clusters at the four ladder-4
+    shapes (8.184 MHz, 96 ms blocks), at the three 1 ms systems' shapes
+    of ladder 4's own 20 ms blocks (K 5, the second path), and at R 21 on
+    GLONASS's 1.023 MHz window (4-chip early-late spacing), at every
+    cluster size the plan offers and at 8 warps at its first, full and
+    lean (lean equal to full bit for bit); B4c (bit
     for bit) and B4b at Galileo E1B's seg width (wp 33,152, 20 ms
     blocks: 5 epochs, pieces of one); B3 at its direct width (wp 33,280,
     96 ms). Returns the largest |error| of the
@@ -3256,23 +3351,39 @@ def phase_wide_check(torch):
                 system, ft.layout, ft.wp, ft.n_rows)
             k_run = kw["k_epochs"]
             assert k_run == (k if name == "power" else 2), (system, k_run)
-            plan = fused.mxu_smem_plan(wp, rows, k_run)
-            assert plan["layout"] == "chunked", plan
-            assert ("fs" in in_kw) == (plan["chunks"] == [(0, wp)]), plan
-            before = fused.launch_count
-            tk, sk, err = open_loop_compare(torch, args, kw)
-            assert fused.launch_count == before + kw["t_epochs"] // (2 * k_run)
-            tl, sl = fused.track_block_fused_mxu(
-                *args, **dict(kw, telem_mode="lean"))
-            lean_equals_full(torch, tk, sk, tl, sl, k_run, name == "costas")
-            _check_active(sk, inp["n_sats"], (system, name))
-            max_abs["mxu"] = max(max_abs["mxu"], err["corr_max_abs"])
-            print(f"B1 vs plain, open loop [{system} {name}: "
-                  f"{in_kw.get('fs', WIDE_FS) / 1e6:g} MHz, wp {wp}, R "
-                  f"{rows}, K {k_run}, T {kw['t_epochs']}, chunks "
-                  f"{len(plan['chunks'])} x {plan['chunk']} lanes, "
-                  f"{plan['bytes']} B]: {_margins(err)}; lean equal to "
-                  "full")
+            c = args[4].shape[0]
+            plan = fused.mxu_smem_plan(wp, rows, k_run, c_channels=c)
+            assert plan["layout"] == "cluster", plan
+            variants = [(o["cs"], None) for o in plan["options"]]
+            variants.append((plan["cs"], 24 - plan["warps"]))
+            for cs, warps in variants:
+                with lane_layout(fused, cs, warps):
+                    opt = launched_lane(args, kw)
+                    before = fused.launch_count
+                    tk, sk, err = open_loop_compare(torch, args, kw)
+                    assert fused.launch_count == before + kw[
+                        "t_epochs"] // (2 * k_run)
+                    tl, sl = fused.track_block_fused_mxu(
+                        *args, **dict(kw, telem_mode="lean"))
+                lean_equals_full(torch, tk, sk, tl, sl, k_run,
+                                 name == "costas")
+                _check_active(sk, inp["n_sats"], (system, name, cs))
+                max_abs["mxu"] = max(max_abs["mxu"], err["corr_max_abs"])
+                print(f"B1 vs plain, open loop [{system} {name}: "
+                      f"{in_kw.get('fs', WIDE_FS) / 1e6:g} MHz, wp {wp}, "
+                      f"R {rows}, K {k_run}, T {kw['t_epochs']}, {c} ch, "
+                      f"{_lane_label(opt)}]: {_margins(err)}; lean equal "
+                      "to full")
+    # far wider than any path: the bank rows streamed in sub-chunks
+    args, kw = streamed_case(torch, "cuda")
+    plan = fused.mxu_smem_plan(kw["wp"], args[3].shape[1], kw["k_epochs"],
+                               c_channels=args[4].shape[0])
+    assert plan["layout"] == "cluster" and not plan["resident"], plan
+    _, _, err = open_loop_compare(torch, args, kw)
+    max_abs["mxu"] = max(max_abs["mxu"], err["corr_max_abs"])
+    print(f"B1 vs plain, open loop [random, wp {kw['wp']}, R "
+          f"{args[3].shape[1]}, K 5, T 10, "
+          f"{_lane_label(launched_lane(args, kw))}]: {_margins(err)}")
     for name, cfg_kw in WIDE_VARIANTS.items():
         inp = wide_inputs(torch, "cuda", "galileo_e1b", cfg_kw, layout="seg",
                           block_ms=LADDER4_BLOCK_MS)
@@ -3309,12 +3420,75 @@ def phase_wide_check(torch):
     return max_abs
 
 
+def old_chunks():
+    """tools/b1_chunked.py: B1's earlier lane-chunk kernel, for timing."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "b1_chunked.py"
+    spec = importlib.util.spec_from_file_location("b1_chunked", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lane_turns(torch, args, kw, old_fn, passes=KERNEL_PASSES):
+    """B1 in lane clusters on ``args``/``kw`` in turns against its
+    earlier lane-chunk kernel (``old_fn``, tools/b1_chunked.py): the old
+    kernel, then each cluster size the plan offers at 8 and at 16 warps,
+    then the same backwards, each turn
+    ``passes`` queued launches behind a head start with the L2 flushed
+    (_time_queued). Returns {"turns": {variant: median ms}, "old_ms",
+    "old_chunk", "cs", "warps", "staged", "resident" (what the wrapper
+    launches: launched_lane), "active_clusters" (per size, the clusters
+    the card holds at once)}."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    wp, k = kw["wp"], kw["k_epochs"]
+    rows, c = args[3].shape[1], args[4].shape[0]
+    plan = fused.mxu_smem_plan(wp, rows, k, c_channels=c)
+    layouts = [(o["cs"], w) for o in plan["options"] for w in (8, 16)]
+    tools = old_chunks()
+
+    def variant(layout):
+        if layout is None:
+            def run():
+                with tools.using(old_fn):
+                    return fused.track_block_fused_mxu(*args, **kw)
+            return run
+
+        def run():
+            with lane_layout(fused, *layout):
+                return fused.track_block_fused_mxu(*args, **kw)
+        return run
+
+    names = {None: "old"} | {v: f"cs{v[0]}_w{v[1]}" for v in layouts}
+    runs = {v: variant(v) for v in names}
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    times = {v: [] for v in names}
+    order = list(names)
+    for v in order + order[::-1]:
+        times[v] += _time_queued(torch, runs[v], passes, flush)
+    turns = {names[v]: statistics.median(t) for v, t in times.items()}
+    opt = launched_lane(args, kw)
+    active = {f"cs{o['cs']}": fused.lane_active_clusters(
+        args[4].device, k, wp, rows, False, o) for o in plan["options"]}
+    return dict(turns=turns, old_ms=turns["old"],
+                old_chunk=tools.chunk_plan(wp, rows, k)["chunk"],
+                cs=opt["cs"], warps=opt["warps"], staged=opt["staged"],
+                resident=opt["resident"], active_clusters=active)
+
+
 def phase_wide_timing(torch):
     """The wide shapes' times per block (as phases 4 and 16: the L2
     flushed, queued launches behind a head start, median of the passes),
     their plain versions' (two passes) and their bounds: B1 at the four
-    ladder-4 shapes per 96 ms block, B4b and B4c per 20 ms Galileo block
-    at wp 33,152, B3 per 96 ms Galileo block at wp 33,280."""
+    ladder-4 shapes per 96 ms block and at the three 20 ms shapes, each
+    also in turns against its earlier lane-chunk kernel at each cluster
+    size (lane_turns), B4b and B4c per 20 ms Galileo block at wp 33,152,
+    B3 per 96 ms Galileo block at wp 33,280."""
     out = {}
 
     def show(key, res, what):
@@ -3323,13 +3497,20 @@ def phase_wide_timing(torch):
             {k: (round(v, 6) if isinstance(v, float) else v)
              for k, v in res.items()}))
 
-    for system, (wp, rows, _) in WIDE_MXU_SHAPES.items():
-        inp = wide_inputs(torch, "cuda", system, {})
+    old_fn = old_chunks().launcher(old_chunks().load())
+    for key, system, (wp, rows, _), block_ms in (
+            [("mxu_" + k, k, v, MIXED_BLOCK_MS)
+             for k, v in WIDE_MXU_SHAPES.items()]
+            + [("mxu20_" + k, k, v, LADDER4_BLOCK_MS)
+               for k, v in LADDER4_MXU_SHAPES.items()]):
+        inp = wide_inputs(torch, "cuda", system, {}, block_ms=block_ms)
         res = kernel_timing(torch, "mxu", inp["args"], inp["kw"],
                             plain_passes=2)
         res.update(wp=wp, rows=rows, k_epochs=inp["kw"]["k_epochs"],
+                   t_epochs=inp["kw"]["t_epochs"],
                    channels=MIXED_CHANNELS[system])
-        show("mxu_" + system, res, f"96 ms block, {res['channels']} ch")
+        res.update(lane_turns(torch, inp["args"], inp["kw"], old_fn))
+        show(key, res, f"{block_ms} ms block, {res['channels']} ch")
     inp = wide_inputs(torch, "cuda", "galileo_e1b", {}, layout="seg",
                       block_ms=LADDER4_BLOCK_MS)
     show("seg", epoch_timing(torch, "seg", inp["args"], inp["kw"]),
@@ -3432,7 +3613,16 @@ def _check_multi(mrx, truth, label):
     return worst
 
 
-def phase_mixed(torch):
+# the mixed row's `track` s per branch and B1's ms per 96 ms block in its
+# run on the lane-chunk kernel (PERF.md section 5): B1's share of `track`
+# then, 70 blocks x ms / track
+CHUNKED_MIXED_TRACK_S = {"gps_l1ca": 0.136, "galileo_e1b": 0.093,
+                         "glonass_l1of": 0.117, "beidou_b1i": 0.110}
+CHUNKED_B1_MS = {"gps_l1ca": 0.464, "galileo_e1b": 0.382,
+                 "glonass_l1of": 0.723, "beidou_b1i": 0.460}
+
+
+def phase_mixed(torch, b1_ms=None):
     """Ladder 4 at full width, as bench.py's mixed row runs it: one 8.184
     MHz stream of the 14 satellites (seed 7), 32 channels over four
     branches, 96 ms blocks, correlator "fused" (every branch on B1's mxu
@@ -3504,6 +3694,21 @@ def phase_mixed(torch):
           f"{[round(r, 3) for r in rtf]} (pass agreement "
           f"{min(rtf) / max(rtf):.3f})")
     print("  stage totals (s) per branch: " + json.dumps(shares))
+    if b1_ms:
+        # B1's share of each branch's `track`: its launches x its time per
+        # block (phase 25), beside the lane-chunk kernel's run
+        share = {name: {
+            "track_s": shares[name]["track"], "b1_launches": launches[name],
+            "b1_ms": b1_ms[name],
+            "b1_share": launches[name] * b1_ms[name] / 1e3
+            / shares[name]["track"],
+            "chunked_track_s": CHUNKED_MIXED_TRACK_S[name],
+            "chunked_b1_share": 70 * CHUNKED_B1_MS[name] / 1e3
+            / CHUNKED_MIXED_TRACK_S[name]} for name in shares}
+        print("  B1's share of track per branch (beside the lane-chunk "
+              "kernel's run, PERF.md section 5): " + json.dumps(
+                  {k: {n: round(x, 4) if isinstance(x, float) else x
+                       for n, x in v.items()} for k, v in share.items()}))
 
     # ladder 4 as its preset stands, correlator "fused", 20 ms blocks
     cfgs = {name: dataclasses.replace(c, track=dataclasses.replace(
@@ -3533,7 +3738,7 @@ def phase_mixed(torch):
           f"per branch {json.dumps({k: {n: c for n, c in v[1].items() if c} for k, v in per4.items()})}"
           f"; max |doppler error| {json.dumps(worst4)} Hz; "
           f"{LADDER4_S / wall4:.3f}x real time")
-    return {"launches": launches,
+    return {"launches": launches, "stage_totals": shares,
             "ladder4": {k: v[1] for k, v in per4.items()}}
 
 
@@ -3732,8 +3937,10 @@ def phase_b2_wide_check(torch):
             assert (ft.wp, ft.n_rows, ft.spread_cap) == (wp, rows, cap), (
                 system, ft.wp, ft.n_rows, ft.spread_cap)
             k_run = kw["k_epochs"]
-            plan = fused.mxu_smem_plan(wp, rows, k_run)
-            assert plan["layout"] == "chunked", plan
+            plan = fused.mxu_smem_plan(wp, rows, k_run,
+                                       c_channels=args[4].shape[0])
+            assert plan["layout"] == "cluster", plan
+            plan = launched_lane(args, kw)
             host = np.asarray(kw["starts_host"])
             assert host[-1] == 0 and (host[:-1] <= cap).all(), host
             for mode in ("full", "lean"):
@@ -3745,8 +3952,8 @@ def phase_b2_wide_check(torch):
                 max_abs = max(max_abs, err["corr_max_abs"])
                 print(f"B2 vs plain, open loop [{system} {name} {mode}: "
                       f"wp {wp}, R {rows}, K {k_run}, spread_cap {cap}, "
-                      f"chunks {len(plan['chunks'])} x {plan['chunk']} "
-                      f"lanes, B1's chunked kernel]: {_margins(err)}")
+                      f"B1's lane kernel, {_lane_label(plan)}]: "
+                      f"{_margins(err)}")
                 cases = {"clamped": (args, m_kw),
                          "offcode": offcode_case(args, m_kw,
                                                  seed=len(system) + k_run,
@@ -3755,7 +3962,7 @@ def phase_b2_wide_check(torch):
                     n2, n1 = b2_equals_b1(torch, c_args, c_kw)
                     assert (n2, n1) == (1, 1), (n2, n1)
             print(f"B2 vs B1, kernel to kernel [{system} {name}]: telemetry "
-                  "and state equal bit for bit at the same chunk width "
+                  "and state equal bit for bit at the same cluster size "
                   "(clamped and offcode bases, full and lean)")
     return max_abs
 
@@ -3776,7 +3983,7 @@ def phase_b2_wide_timing(torch):
         inp = wide_inputs(torch, "cuda", system, {}, shared_fetch=True)
         args, kw = inp["args"], inp["kw"]
         b1_args, b1_kw = b1_of(args, kw)
-        plan = fused.mxu_smem_plan(wp, rows, kw["k_epochs"])
+        plan = launched_lane(args, kw)
 
         def b1():
             return fused.track_block_fused_mxu(*b1_args, **b1_kw)
@@ -3815,8 +4022,9 @@ def phase_b2_wide_timing(torch):
                    bound_ms=bound, bound_by=bound_by, bytes=n_bytes,
                    mixed_lanes=lanes, wp=wp, rows=rows,
                    k_epochs=kw["k_epochs"], channels=MIXED_CHANNELS[system],
-                   spread_cap=kw["spread_cap"], chunk=plan["chunk"],
-                   chunks=len(plan["chunks"]), layout=plan["layout"],
+                   spread_cap=kw["spread_cap"], cs=plan["cs"],
+                   warps=plan["warps"], staged=plan["staged"],
+                   active_clusters=plan["active"], layout="cluster",
                    library_ms=None)
         out[system] = res
         print(f"timing [B2 {system}] (ms per 96 ms block, "
@@ -4548,7 +4756,8 @@ def _wide_row(res):
     """A wide shape's numbers for the kernels line."""
     keep = ("wp", "rows", "k_epochs", "channels", "t_epochs", "l_seg", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_per_block")
+            "launches_per_block", "cs", "warps", "staged", "resident",
+            "active_clusters", "old_ms", "old_chunk", "turns")
     return {k: res[k] for k in keep if k in res}
 
 
@@ -4588,7 +4797,8 @@ def main() -> int:
     phase_pad_fft(torch)
     wide_abs = phase_wide_check(torch)
     wtiming = phase_wide_timing(torch)
-    mixed = phase_mixed(torch)
+    mixed = phase_mixed(torch, b1_ms={
+        k[4:]: v["ms"] for k, v in wtiming.items() if k.startswith("mxu_")})
     phase_live_nav(torch)
     b2w_abs = phase_b2_wide_check(torch)
     b2w_timing = phase_b2_wide_timing(torch)
@@ -4636,6 +4846,9 @@ def main() -> int:
         "registers_stack": timing["ptxas"],
         "wide_shapes": {k[4:]: _wide_row(v) for k, v in wtiming.items()
                         if k.startswith("mxu_")},
+        "wide_shapes_20ms": {k[6:]: _wide_row(v)
+                             for k, v in wtiming.items()
+                             if k.startswith("mxu20_")},
         "max_abs_err": max(max_abs, wide_abs["mxu"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4656,8 +4869,8 @@ def main() -> int:
                                   "mxu, spans, slim2"),
                                  "_mxu_kernel_shared"),
         "wide_shapes": {k: dict(_wide_row(v), b1_ms_in_turns=v[
-            "b1_ms_in_turns"], chunk=v["chunk"], chunks=v["chunks"],
-            layout=v["layout"]) for k, v in b2w_timing.items()},
+            "b1_ms_in_turns"], layout=v["layout"])
+            for k, v in b2w_timing.items()},
         "max_abs_err": max(shared_abs, b2w_abs),
         "equals_b1_bit_for_bit": True,
         "ms": stiming["ms"],

@@ -44,8 +44,8 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC_DIR / f"{name}.cu"
+def _target(name: str, src: Path | None = None) -> tuple[Path, Path]:
+    src = src or CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"CUDA source {src} missing")
     # the shared headers are part of every source's key
@@ -55,12 +55,12 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built now if
-    it is not cached)."""
+def load_library(name: str, src: Path | None = None) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, or from the
+    source ``src`` (built now if it is not cached)."""
     if name in _LIBS:
         return _LIBS[name]
-    src, out = _target(name)
+    src, out = _target(name, src)
     t0 = time.perf_counter()
     # nvcc's output (ptxas' registers and stack) is kept beside the
     # library, so a cached build still reports it
@@ -87,10 +87,12 @@ def load_library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def build_all() -> dict[str, dict]:
-    """Build every ``csrc/*.cu`` (one nvcc each, all started together)
-    and load them; returns the build log per source."""
-    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        list(pool.map(load_library, names))
-    return {n: BUILD_LOG[n] for n in names}
+def build_all(extra: dict[str, Path] | None = None) -> dict[str, dict]:
+    """Build every ``csrc/*.cu`` and the sources of ``extra`` ({name:
+    path}), one nvcc each, all started together, and load them; returns
+    the build log per source."""
+    jobs = {p.stem: None for p in sorted(CSRC_DIR.glob("*.cu"))}
+    jobs.update(extra or {})
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        list(pool.map(lambda kv: load_library(*kv), jobs.items()))
+    return {n: BUILD_LOG[n] for n in jobs}

@@ -72,11 +72,15 @@ end, so its read bound is the plain version's. Where the windows do not
 fit in shared memory beside the bank and the tile (4.092 MHz; a wide
 bank beside B2's slice), the mix reads them from global memory instead.
 Where the bank and the tile themselves do not fit (every system at
-8.184 MHz, ROADMAP C15), B1 contracts in lane chunks (``mxu_smem_plan``
-picks the layout): each chunk's bank rows are staged by TMA two chunks
-ahead, each warp mixes its lanes of the chunk from global memory into a
-[2K, chunk] tile and the tensor cores accumulate into the same f32
-fragments across the chunks. Only the order of the f32 sums changes.
+8.184 MHz, ROADMAP C15), one channel runs on a thread-block cluster of
+cs blocks (``mxu_smem_plan`` picks the layout, ``lane_launch_order`` the
+size the card holds at once): block r keeps lane part r's bank rows in
+its shared memory for the whole launch (staged once by TMA), stages its
+lanes of each superstep's windows one superstep ahead where they fit,
+mixes and contracts its part, and writes its [2K, R] partial sums into
+rank 0's shared memory (DSMEM); rank 0 adds them in rank order and runs
+the chain, and its new state goes back to every block. Only the order
+of the f32 sums changes.
 
 The shared fetch (B2): on the TPU one DMA of [span + spread_cap]
 samples per superstep replaces C overlapping per-channel window DMAs.
@@ -86,12 +90,12 @@ the superstep's slice as a TMA multicast into every block of the
 cluster, each block holds the whole slice and reads its channel's
 window at dc = starts[c] - base, and a cluster barrier per superstep
 lets the next slice be multicast. Only where a sample is read from
-changes, so B2 equals B1 bit for bit. Where the plan takes lane chunks
-(every system at 8.184 MHz) the slice fits in no block's shared memory
-beside the chunk's bank buffers and tile: B2 then launches B1's chunked
-kernel on starts[:C] (base + dc), with no cluster, so it is B1 there
-and has no shared fetch (a sub-slice multicast is not built; ROADMAP
-queue B). The
+changes, so B2 equals B1 bit for bit. Where the plan takes the lane
+clusters (every system at 8.184 MHz) the slice fits in no block's
+shared memory beside a part's bank and tile: B2 then launches B1's lane
+kernel on starts[:C] (base + dc), so it is B1 there and has no shared
+fetch (one across channels would need a second cluster axis; ROADMAP
+B.1). The
 slice's read bound is checked on the host (``_check_shared``, ROADMAP
 C3): with the base clamped at 0 it reaches past every channel's own
 window.
@@ -280,10 +284,14 @@ def _superstep_reference(st, j, win_re, win_im, bank, *,
                          k_epochs, wp, n0, fs, code_len,
                          lock_threshold, max_lost, pll_c1, pll_c2,
                          dll_c1, dll_c2, el_shift, aiding_scale, if_freq,
-                         lock_mode, costas_thr, interp):
+                         lock_mode, costas_thr, interp, lane_parts=None):
     """One K-epoch superstep for all channels from their [C, span]
     windows (_superstep_windows): returns (new state [C, 128], telemetry
-    [K, C, 21]). Follows _mxu_run_k's arithmetic step by step."""
+    [K, C, 21]). Follows _mxu_run_k's arithmetic step by step.
+    ``lane_parts`` [(l0, width), ...]: the contraction summed per lane
+    part, the parts' [2K, R] partials then added in part order, as the
+    lane clusters add their blocks' (the order within a part is still
+    this version's)."""
     dev = st.device
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     c_channels = st.shape[0]
@@ -360,8 +368,12 @@ def _superstep_reference(st, j, win_re, win_im, bank, *,
     # ---- stage 2: per-channel [2K, wp] x [wp, R] contraction ----------
     # bf16 in, f32 accumulation (the f32 products of bf16 are exact)
     tile = torch.stack(tiles[0::2] + tiles[1::2], dim=1)        # [C, 2K, wp]
-    corr = torch.bmm(tile.to(torch.float32),
-                     bank.to(torch.float32).transpose(1, 2))    # [C, 2K, R]
+    corr = None
+    for l0, w in lane_parts or [(0, wp)]:
+        part = torch.bmm(tile[:, :, l0:l0 + w].to(torch.float32),
+                         bank[:, :, l0:l0 + w].to(torch.float32)
+                         .transpose(1, 2))                      # [C, 2K, R]
+        corr = part if corr is None else corr + part
     corr_re, corr_im = corr[:, :k_epochs], corr[:, k_epochs:]
 
     # ---- stage 3: picks + discriminators over the K epochs ------------
@@ -709,11 +721,13 @@ def track_block_fused_mxu_reference(
     max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0, dll_c2=0.0,
     el_shift=1, aiding_scale=0.0, if_freq=0.0, lock_mode="power",
     costas_thr=0.4, interp=False, telem_mode="full", starts_host=None,
-    starts_bound=None, first_superstep=0, spread_cap=0,
+    starts_bound=None, first_superstep=0, spread_cap=0, lane_parts=None,
 ):
     """The plain PyTorch version of the mxu kernel, on any device: the
     same arithmetic, step by step, one Python iteration per superstep.
     Returns (telemetry [T, C, 21] f32, state [C, 128] f32).
+    ``lane_parts`` sums the correlations per lane part, then in part
+    order (_superstep_reference), as the lane clusters do.
 
     ``spread_cap > 0`` is B2's (``_mxu_kernel_shared``): ``starts`` is
     [C + 1], the last the shared base; each superstep slices
@@ -745,7 +759,8 @@ def track_block_fused_mxu_reference(
             max_lost=max_lost, pll_c1=pll_c1, pll_c2=pll_c2,
             dll_c1=dll_c1, dll_c2=dll_c2, el_shift=el_shift,
             aiding_scale=aiding_scale, if_freq=if_freq,
-            lock_mode=lock_mode, costas_thr=costas_thr, interp=interp)
+            lock_mode=lock_mode, costas_thr=costas_thr, interp=interp,
+            lane_parts=lane_parts)
         telems.append(tl)
     telem = torch.cat(telems, dim=0)
     if telem_mode == "lean":
@@ -764,71 +779,166 @@ _F = ctypes.c_float
 
 
 # track_block_mxu_launch's parameters (csrc/track_block_mxu.cu; the lane
-# chunk last, after the stream)
+# clusters' sub-chunk width, window staging and warps last, after the
+# stream)
 MXU_ARGTYPES = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                 _I, _I, _I, _I, _I, _I,
                 _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                _F, _F, _I, _F, _I, _I, _I, _I, _VP, _I]
+                _F, _F, _I, _F, _I, _I, _I, _I, _VP, _I, _I, _I]
 
 # shared memory on the H100: what one block may have (227 KB), and an
-# upper bound of the mxu kernel's static arrays, which the plan keeps free
-# beside the dynamic part: in lane chunks the warps' partial sums
-# [16, 2 * 8 * 24] f32, the correlations [2 * 8 * 24], the mix's factors
-# [2, 128], the chain's [16] and [8, 5], three mbarriers and a zero row
-# come to 27,400 B, here rounded up to 28 KB (the whole-width layout's,
-# at 16 rows, are smaller). The plan is the only decision: the launcher
-# runs the layout and chunk it is given and returns -2 where they do not
-# fit. Bank rows: up to 16 whole-width, 24 in lane chunks.
+# upper bound of the mxu kernels' static arrays, which the plan keeps free
+# beside the dynamic part. The whole-width kernel's: the warps' partial
+# sums [16, 2 * 8 * 16] f32, the correlations, the mix's factors [2, 128],
+# the chain's [16] and [8, 5], an mbarrier and a zero row, rounded up to
+# 28 KB. The lane clusters' (their partials are dynamic): the
+# correlations [2 * 8 * 24] f32, the mix's factors, the chain's arrays,
+# three mbarriers and a zero row, 2,824 B, rounded up to 4 KB. The plan
+# is the only decision: the launcher runs the layout it is given and
+# returns -2 where it does not fit. Bank rows: up to 16 whole-width, 24
+# in lane clusters.
 SMEM_BLOCK = 232_448
 MXU_STATIC_SMEM = 28_672
+MXU_LANES_STATIC_SMEM = 4_096
 MXU_MAX_K, MXU_MAX_R, MXU_WHOLE_MAX_R = 8, 24, 16
 _MXU_PAD = 8            # bf16 pad per tile and bank row
+# lane clusters: a staged window row holds the part and this many more
+# samples (the roll's reach) behind the 0-3 of its 16-byte floor
+MXU_LANE_REACH = 256
+# the cluster sizes the plan offers, largest first (16 only where the
+# card allows a non-portable size): on the H100 a larger cluster is
+# faster while the channels' clusters all run at once (PERF.md section
+# 6), so the plan puts first the sizes whose C x cs blocks fit on the
+# card's SMs and the wrapper those the card holds at once
+# (lane_launch_order). The warps of a block: None for 8 where the window
+# rows are staged and 16 where the mix reads global memory (the faster of
+# the two in each case, section 6); 8 or 16 to force them.
+MXU_LANE_CLUSTERS = (16, 8, 4, 2)
+MXU_LANE_WARPS = None
+H100_SMS = 132
+
+
+def lane_parts(wp: int, cs: int) -> list[tuple[int, int]]:
+    """The lane parts [(l0, width), ...] of a cluster of ``cs`` blocks:
+    whole 128-lane groups covering [0, wp) once, the first
+    (wp / 128) % cs parts one group wider (csrc/track_block_mxu.cu
+    lane_part)."""
+    g = wp // 128
+    base, extra = divmod(g, cs)
+    parts, l0 = [], 0
+    for r in range(cs):
+        w = 128 * (base + (r < extra))
+        parts.append((l0, w))
+        l0 += w
+    return parts
+
+
+def lane_cluster_bytes(wp: int, r_rows: int, k_epochs: int, cs: int,
+                       warps: int, sub: int, staged: bool) -> int:
+    """The lane clusters' dynamic shared memory per block, as the
+    launcher lays it out: the staged window rows [2, K, widest + reach +
+    4] f32 (``staged``), the bank [R, sub] bf16 (two buffers where the
+    sub-chunk ``sub`` is narrower than the widest part: streamed), the
+    tile [2K, sub] bf16 (rows padded by 8), the A factors [2, K, widest /
+    128 + 2] f32, and the warps' and ranks' partial sums [warps + cs, 2K,
+    R] f32."""
+    widest = max(w for _, w in lane_parts(wp, cs))
+    bufs = 1 if sub >= widest else 2
+    ts = min(sub, widest) + _MXU_PAD
+    n = ((bufs * r_rows + 2 * k_epochs) * ts * 2
+         + 2 * k_epochs * (widest // 128 + 2) * 4
+         + (warps + cs) * 2 * k_epochs * r_rows * 4)
+    if staged:
+        n += 2 * k_epochs * (widest + MXU_LANE_REACH + 4) * 4
+    return n
+
+
+def _lane_option(wp, r_rows, k_epochs, cs, warps, room):
+    """The lane clusters at size ``cs``: the bank resident (the windows
+    staged where they fit too), else streamed in the widest sub-chunks
+    that fit, evened out; None where not even 128 lanes fit. ``warps``
+    None: 8 where the windows are staged, else 16."""
+    widest = max(w for _, w in lane_parts(wp, cs))
+    opt = dict(cs=cs, parts=lane_parts(wp, cs), sub=widest, resident=True)
+    for staged in (True, False)[wp < MXU_LANE_REACH:]:
+        w_opt = warps or (8 if staged else 16)
+        n = lane_cluster_bytes(wp, r_rows, k_epochs, cs, w_opt, widest,
+                               staged)
+        if n <= room:
+            return dict(opt, warps=w_opt, staged=staged, bytes=n)
+    warps = warps or 16
+    opt["warps"] = warps
+    sub = 0
+    while (sub + 128 < widest and lane_cluster_bytes(
+            wp, r_rows, k_epochs, cs, warps, sub + 128, False) <= room):
+        sub += 128
+    if sub == 0:
+        return None
+    n = -(-widest // sub)
+    sub = -(-(widest // 128) // n) * 128
+    return dict(opt, sub=sub, resident=False, staged=False,
+                bytes=lane_cluster_bytes(wp, r_rows, k_epochs, cs, warps,
+                                         sub, False))
+
+
+def _lane_max_wp(r_rows, k_epochs, cs, warps, room):
+    """The widest wp the lane clusters take at size ``cs``: 128-lane
+    sub-chunks streamed, the A factors of the widest part filling what
+    the bank's buffers, the tile and the partial sums leave."""
+    fixed = ((2 * r_rows + 2 * k_epochs) * (128 + _MXU_PAD) * 2
+             + ((warps or 16) + cs) * 2 * k_epochs * r_rows * 4)
+    groups = (room - fixed) // (8 * k_epochs) - 2
+    return max(0, groups) * cs * 128
 
 
 def mxu_smem_plan(wp: int, r_rows: int, k_epochs: int,
-                  smem: int = SMEM_BLOCK) -> dict:
+                  smem: int = SMEM_BLOCK, c_channels: int | None = None,
+                  n_sm: int = H100_SMS) -> dict:
     """B1's shared-memory layout for [R, wp] banks at K-epoch supersteps,
-    which the launcher (csrc/track_block_mxu.cu) runs as given, one chunk
-    included where it covers wp: ``"whole"`` while the bank
-    [R, wp] and the tile [2K, wp] (bf16, rows padded by 8) fit beside
-    the trig factors [2, K, wp/128] f32 and R <= 16 (the window staged
-    beside them when it fits too, which the launcher decides); else
-    ``"chunked"``:
-    two bank buffers [R, chunk] and a tile [2K, chunk], chunk the
-    widest multiple of 128 that fits, evened out over
-    ceil(wp / widest) chunks. B2 takes the same plan (in lane chunks it
-    launches B1's chunked kernel). Returns {"layout", "chunk" (0 for
-    whole), "chunks" [(lane0, width), ...] covering [0, wp) once,
-    "bytes" (the dynamic part), "max_wp" (the widest wp this R and K
-    take)}; raises ValueError naming ROADMAP C15 above that width."""
+    which the launcher (csrc/track_block_mxu.cu) runs as given:
+    ``"whole"`` while the bank [R, wp] and the tile [2K, wp] (bf16, rows
+    padded by 8) fit beside the trig factors [2, K, wp/128] f32 and R <=
+    16 (the window staged beside them when it fits too, which the
+    launcher decides); else ``"cluster"``: one channel over a
+    thread-block cluster of cs blocks, block r holding lane part r's
+    bank rows (``lane_cluster_bytes``). ``"options"`` lists the cluster
+    sizes of ``MXU_LANE_CLUSTERS`` that fit, each {"cs", "warps",
+    "parts" [(l0, width), ...] covering [0, wp) once, "sub" (the bank's
+    sub-chunk: the widest part where "resident"), "resident", "staged"
+    (the window rows in shared memory), "bytes" (the dynamic part)}, in
+    the order the wrapper tries them: with ``c_channels``, the sizes
+    whose C x cs blocks fit on ``n_sm`` SMs first. The plan's own keys
+    are the first option's. B2 takes the same plan (in lane clusters it
+    launches B1's kernel). Also "max_wp", the widest wp this R and K
+    take; raises ValueError naming ROADMAP C15 above it."""
     w128 = wp // 128
-    trig = 2 * k_epochs * w128 * 4
     room = smem - MXU_STATIC_SMEM
-
-    def chunk_bytes(width):
-        return (2 * r_rows + 2 * k_epochs) * (width + _MXU_PAD) * 2 + trig
-
-    per_chunk = (2 * r_rows + 2 * k_epochs) * (128 + _MXU_PAD) * 2
-    max_wp = max(0, (room - per_chunk) // (8 * k_epochs)) * 128
+    warps = MXU_LANE_WARPS
+    lane_room = smem - MXU_LANES_STATIC_SMEM
+    max_wp = max(_lane_max_wp(r_rows, k_epochs, cs, warps, lane_room)
+                 for cs in MXU_LANE_CLUSTERS)
+    trig = 2 * k_epochs * w128 * 4
     whole = (r_rows + 2 * k_epochs) * (wp + _MXU_PAD) * 2 + trig
     if whole <= room and r_rows <= MXU_WHOLE_MAX_R:
-        return {"layout": "whole", "chunk": 0, "chunks": [(0, wp)],
-                "bytes": whole, "max_wp": max_wp}
-    widest = 0
-    while (widest + 128 <= wp
-           and chunk_bytes(widest + 128) <= room):
-        widest += 128
-    if widest == 0:
+        return {"layout": "whole", "cs": 0, "parts": [(0, wp)],
+                "bytes": whole, "max_wp": max_wp, "options": []}
+    # (one block per channel only where wp has a single lane group)
+    sizes = [cs for cs in MXU_LANE_CLUSTERS if cs <= w128] or [1]
+    if c_channels:
+        sizes.sort(key=lambda cs: c_channels * cs > n_sm)
+    options = [o for o in (
+        _lane_option(wp, r_rows, k_epochs, cs, warps, lane_room)
+        for cs in sizes if wp <= _lane_max_wp(
+            r_rows, k_epochs, cs, warps, lane_room)) if o]
+    if wp > max_wp or not options:
         raise ValueError(
             f"track_block_mxu (B1): wp={wp} at R={r_rows}, K={k_epochs} "
-            f"is wider than the kernel takes (wp <= {max_wp}: its trig "
-            f"factors and one 128-lane chunk fill the {smem} bytes of "
-            "shared memory a block may have; ROADMAP C15)")
-    n = -(-w128 // (widest // 128))
-    chunk = -(-w128 // n) * 128
-    chunks = [(l0, min(chunk, wp - l0)) for l0 in range(0, wp, chunk)]
-    return {"layout": "chunked", "chunk": chunk, "chunks": chunks,
-            "bytes": chunk_bytes(chunk), "max_wp": max_wp}
+            f"is wider than the kernel takes (wp <= {max_wp}: the A "
+            "factors of a cluster's widest part and one 128-lane "
+            f"sub-chunk fill the {smem} bytes of shared memory a block "
+            "may have; ROADMAP C15)")
+    return dict(options[0], layout="cluster", max_wp=max_wp,
+                options=options)
 
 
 def _lib():
@@ -836,6 +946,41 @@ def _lib():
     fn = lib.track_block_mxu_launch
     fn.argtypes, fn.restype = MXU_ARGTYPES, _I
     return fn
+
+
+_LANE_ACTIVE: dict = {}
+
+
+def lane_active_clusters(device, k_epochs: int, wp: int, r_rows: int,
+                         lean: bool, opt: dict) -> int:
+    """How many clusters of the lane option ``opt`` the card ``device``
+    holds at once with every block on an SM of its own
+    (cudaOccupancyMaxActiveClusters for a whole SM's shared memory a
+    block, through the launcher's own set-up; csrc/track_block_mxu.cu
+    track_block_mxu_lane_clusters), or the launcher's -1 / -2 where it
+    cannot run; cached per card and layout. On the H100 (132 SMs): 7
+    clusters of 16, 15 of 8, 30 of 4, 66 of 2 (PERF.md section 6)."""
+    key = (device.index, k_epochs, wp, r_rows, bool(lean), opt["cs"],
+           opt["sub"], bool(opt["staged"]), opt["warps"])
+    if key not in _LANE_ACTIVE:
+        lib = _build.load_library("track_block_mxu")
+        fn = lib.track_block_mxu_lane_clusters
+        fn.argtypes, fn.restype = [_I] * 8, _I
+        with torch.cuda.device(device):
+            _LANE_ACTIVE[key] = fn(k_epochs, wp, r_rows, int(bool(lean)),
+                                   opt["cs"], opt["sub"],
+                                   int(opt["staged"]), opt["warps"])
+    return _LANE_ACTIVE[key]
+
+
+def lane_launch_order(plan: dict, c_channels: int, k_epochs: int, wp: int,
+                      r_rows: int, lean: bool, device) -> list[dict]:
+    """The plan's lane options in the order the wrapper launches them:
+    those whose C clusters the card holds at once, each block on an SM of
+    its own, first (the rest would share SMs or run in waves, each wave
+    as long as the whole launch), each group in the plan's order."""
+    return sorted(plan["options"], key=lambda o: lane_active_clusters(
+        device, k_epochs, wp, r_rows, lean, o) < c_channels)
 
 
 # track_block_mxu_launch's own error codes (CUDA's are >= 0)
@@ -905,10 +1050,10 @@ def track_block_fused_mxu(
     base, every starts[c] - base a 128-multiple in [0, spread_cap]; each
     superstep's [span + spread_cap] slice at base + off_j is read once
     per thread-block cluster (a TMA multicast into each of its blocks)
-    and every channel cuts its window out of it (in lane chunks, the
-    8.184 MHz widths, B1's chunked kernel runs on ``starts[:C]``). The
-    result equals B1's on ``starts[:C]`` at the same chunk width bit for
-    bit.
+    and every channel cuts its window out of it (in lane clusters, the
+    8.184 MHz widths, B1's lane kernel runs on ``starts[:C]``). The
+    result equals B1's on ``starts[:C]`` at the same cluster size bit
+    for bit.
 
     CPU tensors run the plain version; CUDA tensors launch the CUDA
     kernel or raise (failed build, refused launch, bad argument). There
@@ -943,7 +1088,7 @@ def track_block_fused_mxu(
     if k_epochs > MXU_MAX_K or r_rows > MXU_MAX_R:
         raise ValueError(f"the CUDA kernel takes K <= {MXU_MAX_K} and R <= "
                          f"{MXU_MAX_R}, got K={k_epochs}, R={r_rows}")
-    plan = mxu_smem_plan(wp, r_rows, k_epochs)
+    plan = mxu_smem_plan(wp, r_rows, k_epochs, c_channels=c)
     _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
                    ("replicas", replicas))
     fn = _lib()
@@ -956,11 +1101,16 @@ def track_block_fused_mxu(
         stream = torch.cuda.current_stream().cuda_stream
         # the launcher refuses a cluster size that cannot run, or shared
         # memory that does not fit, before it launches anything; the next
-        # size then has a try (B2 in lane chunks runs B1's kernel, with no
-        # cluster)
-        for cluster in (shared_cluster_sizes(c)
-                        if spread_cap and plan["layout"] == "whole"
-                        else (1,)):
+        # size then has a try (B2 in lane clusters runs B1's kernel)
+        if plan["layout"] == "whole":
+            tries = [(cluster, 0, 0, 0) for cluster in (
+                shared_cluster_sizes(c) if spread_cap else (1,))]
+        else:
+            tries = [(o["cs"], o["sub"], int(o["staged"]), o["warps"])
+                     for o in lane_launch_order(plan, c, k_epochs, wp,
+                                                r_rows, lean,
+                                                state_in.device)]
+        for cluster, lanes, staged, warps in tries:
             err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
                      stream_re.shape[0], starts.data_ptr(),
                      replicas.data_ptr(), state_in.data_ptr(),
@@ -970,7 +1120,8 @@ def track_block_fused_mxu(
                      pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
                      aiding_scale, if_freq, int(lock_mode == "costas"),
                      costas_thr, int(bool(interp)), int(lean),
-                     int(spread_cap), cluster, stream, plan["chunk"])
+                     int(spread_cap), cluster, stream, lanes, staged,
+                     warps)
             if err not in (_ERR_NO_CLUSTER, _ERR_SMEM):
                 break
     name = "track_block_mxu (B2, shared fetch)" if spread_cap else \
@@ -978,12 +1129,13 @@ def track_block_fused_mxu(
     if err == _ERR_NO_CLUSTER:
         raise RuntimeError(
             f"{name}: no cluster of {cluster} blocks can run on the card "
-            "(above the portable 8, or cudaOccupancyMaxActiveClusters = 0)")
+            "(above the portable 8, or 16 for the lane clusters, or "
+            "cudaOccupancyMaxActiveClusters = 0)")
     if err == _ERR_SMEM:
         raise RuntimeError(f"{name}: the launch needs more shared memory "
                            "than a block can have (wp, K, R or spread_cap "
                            f"too large; the plan was {plan['layout']}, "
-                           f"chunk {plan['chunk']}, {plan['bytes']} bytes; "
+                           f"cluster {plan['cs']}, {plan['bytes']} bytes; "
                            "ROADMAP C15)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -62,8 +62,9 @@ The per-epoch
 layouts (direct, seg, windows) take windows up to 49,152 lanes and
 reject wider ones (ROADMAP C6; Galileo E1B at 8.184 MHz is 33,152 on
 seg, which the JAX _epoch_core cannot run); B1 and B2 (mxu) run every
-width up to their plan's (``mxu_smem_plan``), in lane chunks where the
-whole bank does not fit in shared memory (ROADMAP C15).
+width up to their plan's (``mxu_smem_plan``), one channel over a
+thread-block cluster where the whole bank does not fit in one block's
+shared memory (ROADMAP C15).
 """
 from __future__ import annotations
 

@@ -1,14 +1,14 @@
-"""Kernel B2 (the shared fetch) in lane chunks, on the CPU. There the
-wrapper launches B1's chunked kernel (csrc/track_block_mxu.cu kChunk)
-on starts[:C]. The samples it reads for B2's starts
-(``chip_smoke.b2_chunk_reads``) are exactly the plain version's window
-reads, per epoch and chunk, and lie inside the shared read bound the
-wrapper checks (``_check_shared``, ROADMAP C3), at ladder 4's shapes
-and at a narrow width where a small shared-memory budget makes
-``mxu_smem_plan`` pick chunks. B2's plain version is held to the JAX B2
-(Pallas ``spread_cap > 0``, interpret mode) at that narrow width. The
-CUDA launch is held to B1 at the same chunk width bit for bit on the
-card (tests/test_torch_cuda.py, chip_smoke.py phases 28-30).
+"""Kernel B2 (the shared fetch) in lane clusters, on the CPU. There the
+wrapper launches B1's lane kernel (csrc/track_block_mxu.cu
+track_block_mxu_lanes) on starts[:C]. The samples it mixes for B2's
+starts (``chip_smoke.b2_chunk_reads``) are exactly the plain version's
+window reads, per epoch and lane part, and lie inside the shared read
+bound the wrapper checks (``_check_shared``, ROADMAP C3), at ladder 4's
+shapes and at a narrow width where a small shared-memory budget makes
+``mxu_smem_plan`` pick the lane clusters. B2's plain version is held to
+the JAX B2 (Pallas ``spread_cap > 0``, interpret mode) at that narrow
+width. The CUDA launch is held to B1 at the same cluster size bit for
+bit on the card (tests/test_torch_cuda.py, chip_smoke.py phases 28-30).
 """
 import numpy as np
 import pytest
@@ -49,19 +49,22 @@ def _plan(shape):
 
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_b2_takes_b1s_plan_and_mixes_chunks_from_global_memory(shape):
-    """B2 takes B1's plan, which puts these shapes in lane chunks, where
-    B2 runs B1's chunked kernel (its mix reads global memory): chunks of
-    128-multiples, evened out, covering [0, wp) once, each chunk's two
-    bank buffers and tile within the budget; 2.046 MHz at the card's
+    """B2 takes B1's plan, which puts these shapes in lane clusters,
+    where B2 runs B1's lane kernel (a block's mix reads its staged window
+    rows, or global memory where they do not fit): lane parts of whole
+    128-lane groups, one per block of the cluster, evened out (widths
+    differ by at most 128), covering [0, wp) once, each option's bank,
+    tile and partial sums within the budget; 2.046 MHz at the card's
     budget stays whole-width, where B2 multicasts its slice."""
     n0, wp, rows, k, _, cap, smem = SHAPES[shape]
     plan = _plan(shape)
-    assert plan["layout"] == "chunked" and plan["chunk"] % 128 == 0
-    l0s, widths = zip(*plan["chunks"])
-    assert l0s == tuple(range(0, wp, plan["chunk"])) and sum(widths) == wp
-    assert set(widths[:-1]) <= {plan["chunk"]}
-    assert 0 < widths[-1] <= plan["chunk"]
-    assert plan["bytes"] <= smem - fused.MXU_STATIC_SMEM
+    assert plan["layout"] == "cluster"
+    for opt in plan["options"]:
+        l0s, widths = zip(*opt["parts"])
+        assert all(w % 128 == 0 and w > 0 for w in widths)
+        assert l0s == tuple(np.cumsum((0,) + widths[:-1]))
+        assert sum(widths) == wp and max(widths) - min(widths) <= 128
+        assert opt["bytes"] <= smem - fused.MXU_LANES_STATIC_SMEM
     assert fused.mxu_smem_plan(2560, 9, 5)["layout"] == "whole"
 
 
@@ -95,7 +98,7 @@ def test_chunk_reads_are_the_plain_windows_within_the_shared_bound(shape):
                 want = win[c, a_e:a_e + wp]
                 got = [chip_smoke.b2_chunk_reads(
                     base, dc, j, e, np.arange(l0, l0 + w), k_epochs=k,
-                    n0=n0, wp=wp) for l0, w in plan["chunks"]]
+                    n0=n0, wp=wp) for l0, w in plan["parts"]]
                 for g in got:
                     assert g.min() >= want[0] and g.max() <= want[-1]
                 allg = np.sort(np.concatenate(got))
@@ -134,7 +137,7 @@ def test_plain_b2_matches_jax_b2_at_a_chunked_width():
     integer columns equal, and chip_smoke.compare's tolerances (state
     rtol 1e-4)."""
     n0, wp, rows, k, t, cap, smem = SHAPES["narrow_2046k"]
-    assert _plan("narrow_2046k")["layout"] == "chunked"
+    assert _plan("narrow_2046k")["layout"] == "cluster"
     from tests.test_torch_shared_fetch import _kernel_inputs
 
     args, kw = _kernel_inputs({})

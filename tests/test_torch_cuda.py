@@ -360,33 +360,84 @@ def test_epoch_kernel_widest_window_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("system", ["glonass_l1of", "galileo_e1b"])
-def test_b1_lane_chunks_match_plain_at_8184k_on_card(card, system):
-    """B1 in lane chunks (ROADMAP C15) at a ladder-4 shape, 96 ms blocks
-    at 8.184 MHz (GLONASS wp 8704 at R 21 and K 8; Galileo E1B wp 33,280
-    at R 9 and K 6): against its plain version open loop, lean equal to
-    full bit for bit, every satellite's channel still tracking."""
-    inp = chip_smoke.wide_inputs(torch, card, system, {})
+@pytest.mark.parametrize("lock", sorted(chip_smoke.WIDE_VARIANTS))
+@pytest.mark.parametrize("system", ["glonass_l1of", "galileo_e1b",
+                                    "gps_l1ca", "beidou_b1i"])
+def test_b1_lane_chunks_match_plain_at_8184k_on_card(card, system, lock):
+    """B1 in lane clusters (ROADMAP C15) at a ladder-4 shape, 96 ms
+    blocks at 8.184 MHz (GPS wp 8704 at R 13, BeiDou R 9, GLONASS R 21,
+    K 8; Galileo E1B wp 33,280 at R 9 and K 6; Costas K 2), at every
+    cluster size the plan can choose: against its plain version open
+    loop, lean equal to full bit for bit, every satellite's channel
+    still tracking."""
+    inp = chip_smoke.wide_inputs(torch, card, system,
+                                 chip_smoke.WIDE_VARIANTS[lock])
     args, kw = inp["args"], inp["kw"]
     wp, rows, k = chip_smoke.WIDE_MXU_SHAPES[system]
+    k = k if lock == "power" else 2
     assert (inp["ft"].wp, inp["ft"].n_rows, kw["k_epochs"]) == (wp, rows, k)
-    assert fused.mxu_smem_plan(wp, rows, k)["layout"] == "chunked"
-    before = fused.launch_count
-    tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
-    assert fused.launch_count == before + kw["t_epochs"] // (2 * k)
-    tl, sl = fused.track_block_fused_mxu(*args, **dict(kw, telem_mode="lean"))
-    chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k, costas=False)
-    active = sk[:, 7].cpu().numpy()
-    assert active[:inp["n_sats"]].all() and not active[inp["n_sats"]:].any()
+    plan = fused.mxu_smem_plan(wp, rows, k, c_channels=args[4].shape[0])
+    assert plan["layout"] == "cluster" and plan["resident"]
+    for opt in plan["options"]:
+        with chip_smoke.lane_layout(fused, opt["cs"]):
+            before = fused.launch_count
+            tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
+            assert fused.launch_count == before + kw["t_epochs"] // (2 * k)
+            tl, sl = fused.track_block_fused_mxu(
+                *args, **dict(kw, telem_mode="lean"))
+        chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k,
+                                    costas=lock == "costas")
+        active = sk[:, 7].cpu().numpy()
+        assert active[:inp["n_sats"]].all()
+        assert not active[inp["n_sats"]:].any()
+
+
+@pytest.mark.cuda
+def test_b1_lane_clusters_in_waves_on_card(card):
+    """More clusters than the card holds at once (32 BeiDou channels in
+    clusters of 8: 256 blocks on 132 SMs, so they run in waves) equal,
+    channel for channel and bit for bit, two launches of 16 channels
+    that fit (128 blocks): a cluster's sums do not depend on the others."""
+    inp = chip_smoke.wide_inputs(torch, card, "beidou_b1i", {},
+                                 n_channels=32)
+    (sre, sim, starts, reps, st), kw = inp["args"], inp["kw"]
+    host = np.asarray(kw["starts_host"])
+    with chip_smoke.lane_layout(fused, 8):
+        plan = fused.mxu_smem_plan(kw["wp"], reps.shape[1],
+                                   kw["k_epochs"], c_channels=32)
+        assert plan["cs"] * 32 > fused.H100_SMS
+        t_all, s_all = fused.track_block_fused_mxu(sre, sim, starts, reps,
+                                                   st, **kw)
+        halves = [fused.track_block_fused_mxu(
+            sre, sim, starts[h].contiguous(), reps[h].contiguous(),
+            st[h].contiguous(), **dict(kw, starts_host=host[h]))
+            for h in (slice(0, 16), slice(16, 32))]
+    torch.cuda.synchronize()
+    assert torch.equal(t_all, torch.cat([t for t, _ in halves], dim=1))
+    assert torch.equal(s_all, torch.cat([s for _, s in halves], dim=0))
+    assert (s_all[:inp["n_sats"], 7] > 0.5).all()
+
+
+@pytest.mark.cuda
+def test_b1_streamed_lane_clusters_on_card(card):
+    """A window far wider than any receiver path's (wp 98,304 at R 16,
+    K 5, random inputs): each block's part too wide for its bank rows to
+    stay resident, so they are streamed in sub-chunks every superstep;
+    against the plain version open loop."""
+    args, kw = chip_smoke.streamed_case(torch, card)
+    plan = fused.mxu_smem_plan(kw["wp"], args[3].shape[1], kw["k_epochs"],
+                               c_channels=args[4].shape[0])
+    assert plan["layout"] == "cluster" and not plan["resident"]
+    chip_smoke.open_loop_compare(torch, args, kw)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lock", sorted(chip_smoke.WIDE_VARIANTS))
 def test_b1_one_lane_chunk_above_16_rows_on_card(card, lock):
-    """More than 16 bank rows on a window one lane chunk covers (GLONASS
-    at 1.023 MHz with 4-chip early-late spacing: wp 1536, R 21): the
-    launcher runs the plan's single chunk, against the plain version open
-    loop, lean equal to full."""
+    """More than 16 bank rows on a narrow window (GLONASS at 1.023 MHz
+    with 4-chip early-late spacing: wp 1536, R 21): the lane clusters at
+    every size the plan offers, against the plain version open loop,
+    lean equal to full."""
     cfg_kw = dict(chip_smoke.WIDE_VARIANTS[lock],
                   early_late_chips=chip_smoke.ONE_CHUNK_EL)
     inp = chip_smoke.wide_inputs(torch, card, "glonass_l1of", cfg_kw,
@@ -395,29 +446,36 @@ def test_b1_one_lane_chunk_above_16_rows_on_card(card, lock):
     args, kw = inp["args"], inp["kw"]
     k = kw["k_epochs"]
     assert (inp["ft"].wp, inp["ft"].n_rows) == (1536, 21)
-    assert fused.mxu_smem_plan(1536, 21, k)["chunks"] == [(0, 1536)]
-    tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
-    tl, sl = fused.track_block_fused_mxu(*args, **dict(kw, telem_mode="lean"))
-    chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k,
-                                costas=lock == "costas")
+    plan = fused.mxu_smem_plan(1536, 21, k, c_channels=2)
+    assert plan["layout"] == "cluster"
+    for opt in plan["options"]:
+        with chip_smoke.lane_layout(fused, opt["cs"]):
+            tk, sk, _ = chip_smoke.open_loop_compare(torch, args, kw)
+            tl, sl = fused.track_block_fused_mxu(
+                *args, **dict(kw, telem_mode="lean"))
+        chip_smoke.lean_equals_full(torch, tk, sk, tl, sl, k,
+                                    costas=lock == "costas")
 
 
 @pytest.mark.cuda
-def test_b2_refuses_the_chunked_widths_on_card(card):
-    """B2 (the shared fetch) at a ladder-4 width, where it raised naming
-    C15 until it ran in lane chunks: there the wrapper launches B1's
-    chunked kernel on starts[:C] (the same chunk width), so it equals B1
-    bit for bit, full and lean, one launch each."""
-    inp = chip_smoke.wide_inputs(torch, card, "gps_l1ca", {},
+@pytest.mark.parametrize("system", ["gps_l1ca", "galileo_e1b"])
+def test_b2_equals_b1_in_lane_clusters_on_card(card, system):
+    """B2 (the shared fetch) at a ladder-4 width: there the wrapper
+    launches B1's lane kernel on starts[:C], so at every cluster size the
+    plan offers it equals B1 bit for bit, full and lean, one launch
+    each."""
+    inp = chip_smoke.wide_inputs(torch, card, system, {},
                                  shared_fetch=True)
     args, kw = inp["args"], inp["kw"]
-    assert kw["spread_cap"] == 8704
+    assert kw["spread_cap"] == chip_smoke.WIDE_SPREAD_CAP[system]
     reps = args[3]
     plan = fused.mxu_smem_plan(kw["wp"], reps.shape[1], kw["k_epochs"])
-    assert plan["layout"] == "chunked"
-    for mode in ("full", "lean"):
-        assert chip_smoke.b2_equals_b1(
-            torch, args, dict(kw, telem_mode=mode)) == (1, 1)
+    assert plan["layout"] == "cluster"
+    for opt in plan["options"]:
+        with chip_smoke.lane_layout(fused, opt["cs"]):
+            for mode in ("full", "lean"):
+                assert chip_smoke.b2_equals_b1(
+                    torch, args, dict(kw, telem_mode=mode)) == (1, 1)
 
 
 @pytest.mark.cuda
@@ -522,9 +580,9 @@ def test_shared_cluster_size_falls_back_on_card(card, monkeypatch):
     block beside the bank and the tile (spread_cap 8192: 18,816 samples,
     147 KB) runs with the windows read from global memory, equal to B1.
     A bank and tile that no block can hold whole (R = 16, wp = 8192) run
-    B1 in lane chunks since ROADMAP C15 (one launch); a window wider than
-    the lane chunks take (``mxu_smem_plan``'s widest) raises naming C15
-    before any launch."""
+    B1 in lane clusters since ROADMAP C15 (one launch); a window wider
+    than the lane clusters take (``mxu_smem_plan``'s widest) raises
+    naming C15 before any launch."""
     _, args, kw = chip_smoke.full_width_inputs(torch, card, {}, block_ms=20,
                                                shared_fetch=True)
     b1_args, b1_kw = chip_smoke.b1_of(args, kw)

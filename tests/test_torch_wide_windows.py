@@ -147,16 +147,19 @@ LADDER4_MXU = sorted({
 
 @pytest.mark.parametrize("wp,rows,k", LADDER4_MXU)
 def test_mxu_plan_fits_and_chunks_cover_the_window(wp, rows, k):
+    # the lane clusters: every size the plan offers fits, its lane parts
+    # (whole 128-lane groups, one per block) cover [0, wp) once
     plan = fused.mxu_smem_plan(wp, rows, k)
-    assert plan["layout"] == "chunked"
-    assert plan["bytes"] + fused.MXU_STATIC_SMEM <= 232_448
-    assert plan["chunk"] % 128 == 0
-    lanes = np.zeros(wp, np.int64)
-    for l0, width in plan["chunks"]:
-        assert l0 % 128 == 0 and width % 128 == 0 and 0 < width <= plan[
-            "chunk"]
-        lanes[l0:l0 + width] += 1
-    assert (lanes == 1).all()          # [0, wp) once
+    assert plan["layout"] == "cluster"
+    for opt in plan["options"]:
+        assert opt["bytes"] + fused.MXU_LANES_STATIC_SMEM <= 232_448
+        assert len(opt["parts"]) == opt["cs"]
+        lanes = np.zeros(wp, np.int64)
+        for l0, width in opt["parts"]:
+            assert l0 % 128 == 0 and width % 128 == 0 and width > 0
+            assert width <= opt["sub"] or not opt["resident"]
+            lanes[l0:l0 + width] += 1
+        assert (lanes == 1).all()          # [0, wp) once
     assert wp <= plan["max_wp"]
 
 
@@ -166,7 +169,7 @@ def test_mxu_plan_keeps_the_main_path_whole_and_raises_past_its_width():
     for wp, rows, k in ((2560, 8, 5), (4608, 9, 5), (2560, 8, 2)):
         assert fused.mxu_smem_plan(wp, rows, k)["layout"] == "whole"
     widest = fused.mxu_smem_plan(33280, 9, 6)["max_wp"]
-    assert fused.mxu_smem_plan(widest, 9, 6)["layout"] == "chunked"
+    assert fused.mxu_smem_plan(widest, 9, 6)["layout"] == "cluster"
     with pytest.raises(ValueError, match="C15"):
         fused.mxu_smem_plan(widest + 128, 9, 6)
 
@@ -176,13 +179,15 @@ def test_mxu_plan_keeps_the_main_path_whole_and_raises_past_its_width():
 def test_mxu_plan_chunks_rows_above_16_even_where_one_chunk_covers(
         wp, rows, k):
     # the whole-width kernel holds 16 bank rows: above that the plan is
-    # lane chunks, one chunk where it covers wp (GLONASS at 1.023 MHz
-    # with 4-chip early-late spacing: wp 1536, R 21), which the launcher
-    # runs as given
+    # the lane clusters even where the whole window would fit (GLONASS
+    # at 1.023 MHz with 4-chip early-late spacing: wp 1536, R 21), which
+    # the launcher runs as given: each part's bank resident, its window
+    # rows staged
     plan = fused.mxu_smem_plan(wp, rows, k)
-    assert plan["layout"] == "chunked"
-    assert plan["chunk"] == wp and plan["chunks"] == [(0, wp)]
-    assert plan["bytes"] + fused.MXU_STATIC_SMEM <= 232_448
+    assert plan["layout"] == "cluster"
+    assert plan["resident"] and plan["staged"]
+    assert sum(w for _, w in plan["parts"]) == wp
+    assert plan["bytes"] + fused.MXU_LANES_STATIC_SMEM <= 232_448
 
 
 @pytest.mark.parametrize("wp", [16768, 16896, 33152, 33280, ep.MAX_WP])

@@ -54,13 +54,26 @@ _STAGE = re.compile(r"^\s*// ---- (stages? [\w-]+)")
 _LOOP = re.compile(r"for \(int j = 0; j < n_super; \+\+j\) \{")
 
 
-def instrument(text: str) -> tuple[str, list[str]]:
+def instrument(text: str, kernel: str = "track_block_mxu_kernel"
+               ) -> tuple[str, list[str]]:
     """A copy of the mxu source with thread 0's clock64 stamps in the
-    superstep loop (module docstring), the stamps' stretches summed per
-    block into ``g_probe`` and read by ``probe_read``. Returns (source,
-    the label of each stretch)."""
+    superstep loop of ``kernel`` (the whole-width kernel, or
+    ``track_block_mxu_lanes``; module docstring), the stamps' stretches
+    summed per block (blockIdx.y * gridDim.x + blockIdx.x) into
+    ``g_probe`` and read by ``probe_read``. Returns (source, the label of
+    each stretch)."""
     lines = text.splitlines()
-    i_loop = next(i for i, ln in enumerate(lines) if _LOOP.search(ln))
+    i_k = next(i for i, ln in enumerate(lines)
+               if re.search(rf"\b{kernel}\(Params p\)", ln))
+    # the stamps' state at the kernel's top
+    i_sm = next(i for i in range(i_k, len(lines))
+                if re.search(r"extern __shared__[^;]*smem\[\];", lines[i]))
+    lines[i_sm + 1:i_sm + 1] = [
+        "  __shared__ long long _pacc[kProbeN];",
+        "  if (threadIdx.x == 0) for (int _i = 0; _i < kProbeN; ++_i)"
+        " _pacc[_i] = 0;",
+        "  long long _pt = clock64();"]
+    i_loop = next(i for i in range(i_k, len(lines)) if _LOOP.search(lines[i]))
     depth, i_end = 0, None
     for i in range(i_loop, len(lines)):
         depth += lines[i].count("{") - lines[i].count("}")
@@ -95,16 +108,11 @@ def instrument(text: str) -> tuple[str, list[str]]:
     out.append(stamp(current))
     out.append(lines[i_end])
     out.append("  if (threadIdx.x == 0) for (int _i = 0; _i < kProbeN; ++_i)"
-               " g_probe[blockIdx.x * kProbeN + _i] = _pacc[_i];")
+               " g_probe[(blockIdx.y * gridDim.x + blockIdx.x) * kProbeN"
+               " + _i] = _pacc[_i];")
     out += lines[i_end + 1:]
     src = "\n".join(out) + "\n"
-    # the stamps' state at the kernel's top, the sums' home after the
-    # includes, and the reader at the end
-    src = re.sub(r"(extern __shared__[^;]*smem\[\];)",
-                 r"\1\n  __shared__ long long _pacc[kProbeN];\n"
-                 r"  if (threadIdx.x == 0) for (int _i = 0; _i < kProbeN; ++_i)"
-                 r" _pacc[_i] = 0;\n  long long _pt = clock64();", src,
-                 count=1)
+    # the sums' home after the includes, and the reader at the end
     n = len(labels)
     src = src.replace(
         "namespace {",
@@ -128,13 +136,20 @@ def build(src: Path, so: Path):
         res.stdout + res.stderr)
 
 
-def _typed(lib):
-    """The library's track_block_mxu_launch, typed as the wrapper's."""
+def _typed(lib, text=None):
+    """The library's track_block_mxu_launch, typed as the wrapper's. A
+    source ``text`` from before the lane clusters ends its parameters
+    with the lane chunk (no window staging or warps): its entry point is
+    typed so and called without the wrapper's last two arguments (the
+    whole-width layout, where the chunk is 0)."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     fn = lib.track_block_mxu_launch
-    fn.argtypes, fn.restype = fused.MXU_ARGTYPES, ctypes.c_int
-    return fn
+    if text is None or "int warps)" in text:
+        fn.argtypes, fn.restype = fused.MXU_ARGTYPES, ctypes.c_int
+        return fn
+    fn.argtypes, fn.restype = fused.MXU_ARGTYPES[:-2], ctypes.c_int
+    return lambda *args: fn(*args[:-2])
 
 
 @contextlib.contextmanager
@@ -183,7 +198,8 @@ def main() -> int:
             jobs[name] = pool.submit(build, tmp / f"{name}.cu",
                                      tmp / f"{name}.so")
         built = {k: v.result() for k, v in jobs.items()}
-    fns = {k: _typed(lib) for k, (lib, _) in built.items()}
+    fns = {k: _typed(lib, sources[k.split("_")[0]])
+           for k, (lib, _) in built.items()}
 
     _, b1_args, b1_kw = chip_smoke.full_width_inputs(torch, "cuda", {})
     _, b2_args, b2_kw = chip_smoke.full_width_inputs(torch, "cuda", {},

@@ -90,7 +90,8 @@ def main() -> int:
     smi = chip_smoke.phase_device(torch)
     tmp = Path(tempfile.mkdtemp(prefix="steady_probe_"))
     old_lib, _ = port_b1_probe.build(args.old_src, tmp / "old.so")
-    fns = {"current": fused._lib(), "old": port_b1_probe._typed(old_lib)}
+    fns = {"current": fused._lib(),
+           "old": port_b1_probe._typed(old_lib, args.old_src.read_text())}
     sats, sig = chip_smoke._scene(chip_smoke.STEADY_S)
     res = {}
     for turn, name in enumerate(("current", "old", "current", "old")):
