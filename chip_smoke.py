@@ -128,13 +128,20 @@ GPU:
      window, in lane clusters at every cluster size the plan offers
      (and 8 warps at its first), against its plain version open loop,
      power and Costas, full and lean (lean equal to full bit for bit);
-     B4c (bit for bit) and B4b at Galileo's seg width (wp 33,152, 20 ms
-     blocks) and B3 at its direct width (wp 33,280), open loop, power and
-     Costas;
+     the per-epoch core in lane clusters (one channel over a
+     thread-block cluster, wide_epoch_check): B4c (bit for bit) and B4b
+     at Galileo's seg width (wp 33,152, 20 ms blocks) and B3 at its
+     direct width (wp 33,280), power and Costas, at 4 and 8 channels, at
+     every cluster size the plan offers; B4a (wp 8,320) and B6 (wp
+     16,640) once each on GPS at 8.184 MHz; each open loop against its
+     plain version, every launch counted and every rank's final state
+     equal to rank 0's;
  25. the times per block of those shapes, their plain versions' and
      their bounds, as 4 and 16; B1 at the 96 ms and 20 ms shapes in
      turns against its earlier lane-chunk kernel (tools/b1_chunked.py),
-     at each cluster size the plan offers and at 8 warps;
+     at each cluster size the plan offers and at 8 warps; B4b and B3 at
+     4 and 8 channels at each cluster size in turns (epoch_turns), B4a
+     and B6 at their wide shapes;
  26. ladder 4 at full width as bench.py's mixed row runs it: 14
      satellites of four systems in one 8.184 MHz stream (seed 7), 32
      channels (GPS 8, Galileo 4, GLONASS 4, BeiDou 16), 96 ms blocks,
@@ -143,7 +150,9 @@ GPU:
      PRN the acquisition searches tracked within 40 Hz, each branch's B1
      launches equal to its blocks, the real-time factor of two timed
      passes; then presets.ladder4_multi_constellation() with "fused" at
-     20 ms blocks (Galileo on seg: B4c and B4b once per block);
+     20 ms blocks (Galileo on seg: B4c and B4b once per block, B4b in
+     lane clusters), each branch's stage totals and B4b's share of the
+     Galileo branch's `track`;
  27. the three live-decode scenes of tests/test_nav_live_multi.py
      (Galileo I/NAV, BeiDou D1, GLONASS strings; one satellite each, cold
      start): each ephemeris decoded on the card and equal to its truth;
@@ -1734,23 +1743,34 @@ def epoch_inputs(torch, feed, cfg_kw, device="cuda", block_ms=None):
     out = dict(ft=ft, args=(wre, wim, reps, mat), kw=kw)
     if feed == "windows":
         return out
-    # B6: one double-length window per epoch (+256: the alignment residue)
-    n0, c = ft.n0, mat.shape[0]
+    return dict(resident_inputs(torch, ft, (sre, sim), host, rows, reps,
+                                mat, kw, FS),
+                windows=(out["args"], out["kw"]))
+
+
+def resident_inputs(torch, ft, stream, host, rows, reps, mat, kw, fs):
+    """B6's inputs on a windows tracker's block (``ft``, the stream, the
+    channels' host offsets, their code rows, replica rows, state and
+    kernel kw at rate ``fs``): one double-length window per epoch (+256:
+    the alignment residue), the offsets in state col 9, the replicas from
+    build_replicas_shared. Returns {"ft", "args", "kw"}."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    n0, c, device = ft.n0, mat.shape[0], mat.device
     wp = ((2 * n0 + 256 + 127) // 128) * 128
     need = 3 * n0 + wp + 2 * ft.el_pad
     codes4x = rows[:, :n0].repeat(1, -(-need // n0))[:, :need].contiguous()
     # every channel starts on a code boundary: chip phase 0, anchor 0 (the
     # windows run's frac0 is 0 too)
-    cps = float(np.float32(1.023e6) * (np.float32(1.0) / np.float32(FS)))
+    cps = float(np.float32(1.023e6) * (np.float32(1.0) / np.float32(fs)))
     reps_sh = fused.build_replicas_shared(
         codes4x, torch.zeros(c, device=device),
         torch.full((c,), cps, device=device), host, ft.params.el_shift,
         n0, wp, n_drift=reps.shape[1]).contiguous()
     st = mat.clone()
     st[:, 9] = torch.from_numpy(host.astype(np.float32)).to(device)
-    return dict(ft=ft, args=(sre, sim, reps_sh, st),
-                kw=dict(kw, t_epochs=ft.t_epochs, k_epochs=RESIDENT_K, wp=wp),
-                windows=(out["args"], out["kw"]))
+    return dict(ft=ft, args=(*stream, reps_sh, st),
+                kw=dict(kw, t_epochs=ft.t_epochs, k_epochs=RESIDENT_K, wp=wp))
 
 
 def _epoch_fns(feed):
@@ -1761,7 +1781,9 @@ def _epoch_fns(feed):
             "seg": (fused.track_block_fused_seg,
                     fused.track_block_fused_seg_reference),
             "resident": (fused.track_block_fused_resident,
-                         fused.track_block_fused_resident_reference)}[feed]
+                         fused.track_block_fused_resident_reference),
+            "direct": (fused.track_block_fused_direct,
+                       fused.track_block_fused_direct_reference)}[feed]
 
 
 def epoch_window_origin(feed, t, *, n0, wp, c=0, c_channels=1, l_seg=0,
@@ -1788,7 +1810,7 @@ def epoch_window_origin(feed, t, *, n0, wp, c=0, c_channels=1, l_seg=0,
     raise ValueError(f"unknown feed {feed!r}")
 
 
-def epoch_stage_span(origin, wp):
+def epoch_stage_span(origin, wp, part=None):
     """The samples the per-epoch kernels (csrc/epoch_core.cuh,
     stage_window) copy into shared memory for a window at ``origin`` (an
     int or an integer tensor): (first, length, offset), the span [first,
@@ -1796,9 +1818,42 @@ def epoch_stage_span(origin, wp):
     The first sample is the 4-sample (16-byte) floor of the origin, as a
     bulk copy needs; the kernel copies wp samples from it by TMA and the
     last ``offset`` (0-3) by 4-byte cp.async, so the span ends where the
-    window does."""
+    window does. ``part`` (a, w): a lane-cluster block's lanes [a, a +
+    w) of the window (a a multiple of 128), copied from the 4-sample
+    floor of origin + a, w samples by TMA and the 0-3 past them, so the
+    span ends at origin + a + w; the lane l of the part lies at l - a +
+    offset in it."""
+    a, w = part or (0, wp)
     offset = origin % 4
-    return origin - offset, offset + wp, offset
+    return origin + a - offset, offset + w, offset
+
+
+def epoch_part_rows(a, w, wp, el):
+    """What a lane-cluster block of the per-epoch kernels holds of its
+    channel's replica rows (csrc/epoch_core.cuh, stage_part_rows) for the
+    part [a, a + w): (the row index at each position of its rows, [lr]
+    ints; the bulk copies' runs [(first row index, length), ...], one, or
+    two where the range wraps mod wp). The range is [a - before, a + w +
+    after) mod wp, the halo of track_block_epoch.lane_halo(el)."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    before, after = ep.lane_halo(el)
+    n = before + w + after
+    s0 = (a - before) % wp
+    n1 = min(n, wp - s0)
+    runs = [(s0, n1)] + ([(0, n - n1)] if n > n1 else [])
+    return (a - before + np.arange(n)) % wp, runs
+
+
+def epoch_part_reads(lane, a, rem, el):
+    """(early, prompt, late) positions in a lane-cluster block's prompt
+    row (epoch_part_rows) that the mix reads at window lane ``lane`` of
+    its part at ``a`` (csrc/epoch_core.cuh, mix_part): (lane - a) +
+    before - rem and its +- el, with no wrap."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    ip = np.asarray(lane) - a + ep.lane_halo(el)[0] - rem
+    return ip + el, ip, ip - el
 
 
 def epoch_lane_range(start_lane, n_t, wp):
@@ -3260,13 +3315,15 @@ def _check_active(sk, n_sats, label):
 def lane_layout(fused, cs, warps=None):
     """B1's lane clusters at size ``cs`` only (and ``warps`` warps a
     block) while the context is open: the plan offers that size alone."""
-    saved = fused.MXU_LANE_CLUSTERS, fused.MXU_LANE_WARPS
-    fused.MXU_LANE_CLUSTERS = (cs,)
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    saved = ep.LANE_CLUSTERS, fused.MXU_LANE_WARPS
+    ep.LANE_CLUSTERS = (cs,)
     fused.MXU_LANE_WARPS = warps or saved[1]
     try:
         yield
     finally:
-        fused.MXU_LANE_CLUSTERS, fused.MXU_LANE_WARPS = saved
+        ep.LANE_CLUSTERS, fused.MXU_LANE_WARPS = saved
 
 
 def streamed_case(torch, device, wp=98_304, rows=16, c=2, seed=3):
@@ -3294,16 +3351,18 @@ def streamed_case(torch, device, wp=98_304, rows=16, c=2, seed=3):
 
 def launched_lane(args, kw):
     """The lane option the wrapper launches on ``args``/``kw`` (the
-    plan's, in lane_launch_order) with the clusters the card holds at
-    once ("active")."""
+    plan's, in launch_order) with the clusters the card holds at once
+    ("active")."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     wp, k, reps, st = kw["wp"], kw["k_epochs"], args[3], args[4]
     lean = kw.get("telem_mode") == "lean"
     plan = fused.mxu_smem_plan(wp, reps.shape[1], k,
                                c_channels=st.shape[0])
-    opt = fused.lane_launch_order(plan, st.shape[0], k, wp, reps.shape[1],
-                                  lean, st.device)[0]
+    opt = ep.launch_order(plan["options"], st.shape[0],
+                          lambda o: fused.lane_active_clusters(
+                              st.device, k, wp, reps.shape[1], lean, o))[0]
     return dict(opt, active=fused.lane_active_clusters(
         st.device, k, wp, reps.shape[1], lean, opt))
 
@@ -3326,10 +3385,8 @@ def phase_wide_check(torch):
     of ladder 4's own 20 ms blocks (K 5, the second path), and at R 21 on
     GLONASS's 1.023 MHz window (4-chip early-late spacing), at every
     cluster size the plan offers and at 8 warps at its first, full and
-    lean (lean equal to full bit for bit); B4c (bit
-    for bit) and B4b at Galileo E1B's seg width (wp 33,152, 20 ms
-    blocks: 5 epochs, pieces of one); B3 at its direct width (wp 33,280,
-    96 ms). Returns the largest |error| of the
+    lean (lean equal to full bit for bit); then the per-epoch kernels in
+    lane clusters (wide_epoch_check). Returns the largest |error| of the
     correlations per kernel."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
@@ -3384,39 +3441,184 @@ def phase_wide_check(torch):
     print(f"B1 vs plain, open loop [random, wp {kw['wp']}, R "
           f"{args[3].shape[1]}, K 5, T 10, "
           f"{_lane_label(launched_lane(args, kw))}]: {_margins(err)}")
-    for name, cfg_kw in WIDE_VARIANTS.items():
-        inp = wide_inputs(torch, "cuda", "galileo_e1b", cfg_kw, layout="seg",
-                          block_ms=LADDER4_BLOCK_MS)
-        ft, args, kw = inp["ft"], inp["args"], inp["kw"]
-        assert (ft.wp, ft.t_epochs) == (WIDE_SEG_WP, 5), (ft.wp, ft.t_epochs)
-        g_args, g_kw = inp["gather"]
-        got = fused.gather_segments(*g_args, **g_kw)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], args[0]) and \
-            torch.equal(got[1], args[1]), "B4c differs"
-        before = _launch_counts()
-        tk, sk, err = epoch_open_loop(torch, "seg", args, kw, piece=1)
-        launched = {k: v - before[k] for k, v in _launch_counts().items()}
-        assert launched["track_block_fused_seg"] == 5 and \
-            sum(launched.values()) == 5, launched
-        _check_active(sk, inp["n_sats"], ("seg", name))
-        max_abs["seg"] = max(max_abs["seg"], err["corr_max_abs"])
-        print(f"B4b vs plain, open loop [galileo_e1b {name}: wp "
-              f"{WIDE_SEG_WP}, T 5, l_seg {ft.l_seg}, "
-              f"{fused.epoch_smem_plan(WIDE_SEG_WP, 5)}]: {_margins(err)}; "
-              "B4c equal to its plain version")
-        inp = wide_inputs(torch, "cuda", "galileo_e1b", cfg_kw,
-                          layout="direct")
-        ft, args, kw = inp["ft"], inp["args"], inp["kw"]
-        assert (ft.layout, ft.wp) == ("direct", WIDE_DIRECT_WP), ft.wp
-        before = fused.direct_launch_count
-        tk, sk, err = open_loop_compare(torch, args, kw, layout="direct")
-        assert fused.direct_launch_count > before
-        _check_active(sk, inp["n_sats"], ("direct", name))
-        max_abs["direct"] = max(max_abs["direct"], err["corr_max_abs"])
-        print(f"B3 vs plain, open loop [galileo_e1b {name}: wp "
-              f"{WIDE_DIRECT_WP}, T {kw['t_epochs']}, K {kw['k_epochs']}]: "
-              f"{_margins(err)}")
+    max_abs.update(wide_epoch_check(torch))
+    return max_abs
+
+
+EPOCH_WIDE_CHANNELS = (4, 8)        # E1B: the mixed row's 4, the preset's 8
+EPOCH_WIDE_PIECE = {"seg": 1, "windows": 5, "resident": 5}
+
+
+@contextlib.contextmanager
+def epoch_layout(cs):
+    """The per-epoch kernels' lane clusters at size ``cs`` only while the
+    context is open: the plan offers that size alone."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    saved = ep.LANE_CLUSTERS
+    ep.LANE_CLUSTERS = (cs,)
+    try:
+        yield
+    finally:
+        ep.LANE_CLUSTERS = saved
+
+
+def _epoch_shape(kind, args, kw):
+    """(wp, replica rows, el_shift, state) of a per-epoch kernel's
+    args/kw (B3's "direct" args hold the starts before the replicas)."""
+    reps, st = (args[3], args[4]) if kind == "direct" else args[2:4]
+    return reps.shape[2], reps.shape[1], int(kw.get("el_shift", 1)), st
+
+
+def launched_epoch(kind, args, kw):
+    """The layout the per-epoch wrapper launches on ``args``/``kw``: the
+    plan (epoch_smem_plan) where it is one block a channel, else its
+    first option in launch_order with the clusters the card holds at once
+    ("active")."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    wp, rows, el, st = _epoch_shape(kind, args, kw)
+    c = st.shape[0]
+    plan = ep.epoch_smem_plan(wp, rows, el_shift=el)
+    if plan["layout"] == "single":
+        return plan
+    active = {o["cs"]: ep.epoch_active_clusters(st.device, kind, wp, rows,
+                                                el, o["cs"])
+              for o in plan["options"]}
+    opt = ep.launch_order(plan["options"], c, lambda o: active[o["cs"]])[0]
+    return dict(opt, layout="cluster", active=active[opt["cs"]])
+
+
+def _epoch_label(plan):
+    """A per-epoch layout in a few words."""
+    if plan["layout"] == "single":
+        return f"one block a channel, {plan['bytes']} B"
+    active = (f", {plan['active']} clusters at once" if "active" in plan
+              else "")
+    return (f"cluster {plan['cs']}, parts of <= "
+            f"{max(w for _, w in plan['parts'])} lanes, halo "
+            f"{plan['halo']}, {plan['bytes']} B{active}")
+
+
+def check_ranks(torch, ranks, label):
+    """Every rank's final state equals the launch's (rank 0's) in each
+    collected lane-cluster launch (track_block_epoch.rank_states);
+    returns the launches checked."""
+    torch.cuda.synchronize()
+    assert ranks, f"{label}: no lane-cluster launch"
+    for rs, st in ranks:
+        for r in range(rs.shape[1]):
+            assert torch.equal(rs[:, r], st[:, :12]), (label, r)
+    return len(ranks)
+
+
+def epoch_wide_inputs(torch, kind, cfg_kw, n_channels, device="cuda"):
+    """One wide block of a per-epoch kernel through FusedTracker's own
+    re-anchor (wide_inputs): B4b ("seg", with B4c's gather) and B3
+    ("direct") on Galileo E1B at 8.184 MHz (20 and 96 ms blocks), B4a
+    ("windows": slice_windows) and B6 ("resident": the windows run's
+    stream, its offsets in state col 9, build_replicas_shared) on GPS L1
+    C/A at 8.184 MHz, 20 ms blocks. Returns a dict as wide_inputs."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    if kind in ("seg", "direct"):
+        inp = wide_inputs(torch, device, "galileo_e1b", cfg_kw, layout=kind,
+                          block_ms=LADDER4_BLOCK_MS if kind == "seg"
+                          else MIXED_BLOCK_MS, n_channels=n_channels)
+        wp = WIDE_SEG_WP if kind == "seg" else WIDE_DIRECT_WP
+        assert (inp["ft"].layout, inp["ft"].wp) == (kind, wp)
+        return inp
+    ft, st0, rows, sats, history = wide_tracker(
+        torch, device, "gps_l1ca", cfg_kw, layout="windows",
+        block_ms=LADDER4_BLOCK_MS, n_channels=n_channels)
+    from gnss_sdr_tpu_torch import models
+
+    sig = models.synthesize(sats, history + ft.t_epochs * ft.n0, WIDE_FS,
+                            noise_std=1.0, seed=7)
+    (sre, sim, _, reps, mat), kw = ft.kernel_args(
+        ft.anchor_block(st0), np.real(sig).astype(np.float32),
+        np.imag(sig).astype(np.float32), rows)
+    host = kw.pop("starts_host")
+    wre, wim = fused.slice_windows(sre, sim, host, ft.t_epochs, ft.n0,
+                                   ft.wp, ft.el_pad)
+    if kind == "windows":
+        return dict(ft=ft, args=(wre, wim, reps, mat), kw=kw,
+                    n_sats=len(sats))
+    assert host.min() >= 0 and host.max() < ft.n0, host
+    return dict(resident_inputs(torch, ft, (sre, sim), host, rows, reps,
+                                mat, kw, WIDE_FS), n_sats=len(sats))
+
+
+def _epoch_open(torch, kind, args, kw):
+    """One per-epoch kernel against its plain version, open loop (B3 by
+    supersteps, the others by EPOCH_WIDE_PIECE)."""
+    if kind == "direct":
+        return open_loop_compare(torch, args, kw, layout="direct")
+    return epoch_open_loop(torch, kind, args, kw,
+                           piece=EPOCH_WIDE_PIECE[kind])
+
+
+def wide_epoch_check(torch):
+    """The per-epoch kernels in lane clusters against their plain
+    versions, open loop: B4b (with B4c, bit for bit) at Galileo E1B's seg
+    width (wp 33,152, 20 ms blocks: 5 epochs, pieces of one) and B3 at
+    its direct width (wp 33,280, 96 ms blocks), power and Costas, at 4
+    and 8 channels (the mixed row's, the preset's), at every cluster size
+    the plan offers; then B4a (windows) and B6 (resident) once each on
+    GPS at 8.184 MHz. Each run holds the launches (the prefixes of the
+    open loop included) and every rank's final state equal to rank 0's.
+    Returns the largest |error| of the correlations per kernel."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+
+    key = {"seg": "track_block_fused_seg",
+           "direct": "track_block_fused_direct",
+           "windows": "track_block_fused", "resident":
+           "track_block_fused_resident"}
+    max_abs = {k: 0.0 for k in key}
+    cases = ([(kind, name, cfg_kw, c) for name, cfg_kw in
+              WIDE_VARIANTS.items() for c in EPOCH_WIDE_CHANNELS
+              for kind in ("seg", "direct")]
+             + [("windows", "power", {}, 8), ("resident", "power", {}, 8)])
+    for kind, name, cfg_kw, c in cases:
+        inp = epoch_wide_inputs(torch, kind, cfg_kw, c)
+        args, kw = inp["args"], inp["kw"]
+        if kind == "seg":
+            g_args, g_kw = inp["gather"]
+            got = fused.gather_segments(*g_args, **g_kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], args[0]) and \
+                torch.equal(got[1], args[1]), "B4c differs"
+        wp, rows, el, _ = _epoch_shape(kind, args, kw)
+        plan = ep.epoch_smem_plan(wp, rows, el_shift=el)
+        assert plan["layout"] == "cluster", (kind, plan)
+        # the size the wrapper takes: C clusters the card holds at once,
+        # so its C x cs blocks fit on the card's SMs
+        first = launched_epoch(kind, args, kw)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        assert first["active"] >= c and c * first["cs"] <= n_sm, first
+        sizes = [o["cs"] for o in plan["options"]]
+        if kind in ("windows", "resident"):
+            sizes = [first["cs"]]
+        for cs in sizes:
+            with epoch_layout(cs), ep.rank_states() as ranks:
+                opt = launched_epoch(kind, args, kw)
+                assert opt["cs"] == cs, (opt, cs)
+                before = _launch_counts()
+                tk, sk, err = _epoch_open(torch, kind, args, kw)
+                launched = {k: v - before[k]
+                            for k, v in _launch_counts().items()}
+            n = check_ranks(torch, ranks, (kind, name, c, cs))
+            assert launched[key[kind]] == n and \
+                sum(launched.values()) == n, launched
+            _check_active(sk, inp["n_sats"], (kind, name, c, cs))
+            max_abs[kind] = max(max_abs[kind], err["corr_max_abs"])
+            print(f"{key[kind]} vs plain, open loop [{name}, wp {wp}, T "
+                  f"{kw.get('t_epochs', args[0].shape[0])}, {c} ch, "
+                  f"{_epoch_label(opt)}]: {_margins(err)}; {n} launches, "
+                  "every rank's state equal to rank 0's"
+                  + ("; B4c equal to its plain version" if kind == "seg"
+                     else ""))
     return max_abs
 
 
@@ -3487,8 +3689,11 @@ def phase_wide_timing(torch):
     their plain versions' (two passes) and their bounds: B1 at the four
     ladder-4 shapes per 96 ms block and at the three 20 ms shapes, each
     also in turns against its earlier lane-chunk kernel at each cluster
-    size (lane_turns), B4b and B4c per 20 ms Galileo block at wp 33,152,
-    B3 per 96 ms Galileo block at wp 33,280."""
+    size (lane_turns); B4b per 20 ms Galileo block at wp 33,152 and B3
+    per 96 ms Galileo block at wp 33,280, at 4 and 8 channels, each at
+    every cluster size the plan offers in turns (epoch_turns); B4c at 4
+    channels; B4a and B6 per 20 ms GPS block at 8.184 MHz (8 channels)
+    in the size the wrapper launches."""
     out = {}
 
     def show(key, res, what):
@@ -3511,15 +3716,62 @@ def phase_wide_timing(torch):
                    channels=MIXED_CHANNELS[system])
         res.update(lane_turns(torch, inp["args"], inp["kw"], old_fn))
         show(key, res, f"{block_ms} ms block, {res['channels']} ch")
-    inp = wide_inputs(torch, "cuda", "galileo_e1b", {}, layout="seg",
-                      block_ms=LADDER4_BLOCK_MS)
-    show("seg", epoch_timing(torch, "seg", inp["args"], inp["kw"]),
-         "20 ms block, 4 ch")
-    show("gather", gather_timing(torch, *inp["gather"]), "20 ms block, 4 ch")
-    inp = wide_inputs(torch, "cuda", "galileo_e1b", {}, layout="direct")
-    show("direct", kernel_timing(torch, "direct", inp["args"], inp["kw"],
-                                 plain_passes=2), "96 ms block, 4 ch")
+    for c in EPOCH_WIDE_CHANNELS:
+        sfx = "" if c == 4 else f"_{c}ch"
+        inp = epoch_wide_inputs(torch, "seg", {}, c)
+        res = epoch_timing(torch, "seg", inp["args"], inp["kw"])
+        res.update(epoch_turns(torch, "seg", inp["args"], inp["kw"]),
+                   channels=c, l_seg=inp["ft"].l_seg)
+        show("seg" + sfx, res, f"20 ms block, {c} ch")
+        if c == 4:
+            show("gather", gather_timing(torch, *inp["gather"]),
+                 "20 ms block, 4 ch")
+        inp = epoch_wide_inputs(torch, "direct", {}, c)
+        res = kernel_timing(torch, "direct", inp["args"], inp["kw"],
+                            plain_passes=2)
+        res.update(epoch_turns(torch, "direct", inp["args"], inp["kw"]),
+                   channels=c, t_epochs=inp["kw"]["t_epochs"],
+                   k_epochs=inp["kw"]["k_epochs"], wp=WIDE_DIRECT_WP)
+        show("direct" + sfx, res, f"96 ms block, {c} ch")
+    for kind in ("windows", "resident"):
+        inp = epoch_wide_inputs(torch, kind, {}, 8)
+        res = epoch_timing(torch, kind, inp["args"], inp["kw"])
+        res.update(cs=launched_epoch(kind, inp["args"], inp["kw"])["cs"],
+                   channels=8)
+        show(kind + "_wide", res, "20 ms GPS block at 8.184 MHz, 8 ch")
     return out
+
+
+def epoch_turns(torch, kind, args, kw, passes=KERNEL_PASSES):
+    """A per-epoch kernel in lane clusters on ``args``/``kw``, at each
+    cluster size the plan offers in turns (each size once, then the same
+    backwards), each turn ``passes`` queued launches behind a head start
+    with the L2 flushed (_time_queued). Returns {"turns": {"cs<n>":
+    median ms}, "cs" (the size the wrapper launches), "active_clusters"
+    (per size, the clusters the card holds at once)}."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
+
+    kernel = _epoch_fns(kind)[0]
+    wp, rows, el, st = _epoch_shape(kind, args, kw)
+    plan = ep.epoch_smem_plan(wp, rows, el_shift=el)
+    sizes = [o["cs"] for o in plan["options"]]
+
+    def run(cs):
+        with epoch_layout(cs):
+            return kernel(*args, **kw)
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    for cs in sizes:
+        run(cs)
+    torch.cuda.synchronize()
+    times = {cs: [] for cs in sizes}
+    for cs in sizes + sizes[::-1]:
+        times[cs] += _time_queued(torch, lambda: run(cs), passes, flush)
+    return dict(turns={f"cs{cs}": statistics.median(t)
+                       for cs, t in times.items()},
+                cs=launched_epoch(kind, args, kw)["cs"],
+                active_clusters={f"cs{cs}": ep.epoch_active_clusters(
+                    st.device, kind, wp, rows, el, cs) for cs in sizes})
 
 
 def mixed_configs(block_ms=MIXED_BLOCK_MS, correlator="fused"):
@@ -3622,7 +3874,7 @@ CHUNKED_B1_MS = {"gps_l1ca": 0.464, "galileo_e1b": 0.382,
                  "glonass_l1of": 0.723, "beidou_b1i": 0.460}
 
 
-def phase_mixed(torch, b1_ms=None):
+def phase_mixed(torch, b1_ms=None, seg_ms=None):
     """Ladder 4 at full width, as bench.py's mixed row runs it: one 8.184
     MHz stream of the 14 satellites (seed 7), 32 channels over four
     branches, 96 ms blocks, correlator "fused" (every branch on B1's mxu
@@ -3738,8 +3990,21 @@ def phase_mixed(torch, b1_ms=None):
           f"per branch {json.dumps({k: {n: c for n, c in v[1].items() if c} for k, v in per4.items()})}"
           f"; max |doppler error| {json.dumps(worst4)} Hz; "
           f"{LADDER4_S / wall4:.3f}x real time")
+    shares4 = {name: {k: round(v["total_s"], 4)
+                      for k, v in out["stage_timing"].items()}
+               for name, out in mrx4.summary().items()}
+    print("  ladder 4 stage totals (s) per branch: " + json.dumps(shares4))
+    if seg_ms:
+        # B4b's share of the Galileo branch's `track`: its launches x its
+        # time per 20 ms block at the preset's 8 channels (phase 25)
+        b = per4["galileo_e1b"][1]["track_block_fused_seg"]
+        print("  ladder 4 Galileo branch: B4b " + json.dumps({
+            "launches": b, "ms_per_block": seg_ms,
+            "track_s": shares4["galileo_e1b"]["track"],
+            "b4b_share": b * seg_ms / 1e3 / shares4["galileo_e1b"]["track"]}))
     return {"launches": launches, "stage_totals": shares,
-            "ladder4": {k: v[1] for k, v in per4.items()}}
+            "ladder4": {k: v[1] for k, v in per4.items()},
+            "ladder4_stage_totals": shares4}
 
 
 def render_scene(models, sats, n, fs, seed, chunk=1 << 20):
@@ -4798,7 +5063,8 @@ def main() -> int:
     wide_abs = phase_wide_check(torch)
     wtiming = phase_wide_timing(torch)
     mixed = phase_mixed(torch, b1_ms={
-        k[4:]: v["ms"] for k, v in wtiming.items() if k.startswith("mxu_")})
+        k[4:]: v["ms"] for k, v in wtiming.items() if k.startswith("mxu_")},
+        seg_ms=wtiming["seg_8ch"]["ms"])
     phase_live_nav(torch)
     b2w_abs = phase_b2_wide_check(torch)
     b2w_timing = phase_b2_wide_timing(torch)
@@ -4888,6 +5154,7 @@ def main() -> int:
         "launches_mesh": on_mesh(("direct, spans, slim",),
                                  "track_block_fused_direct"),
         "wide_shape": _wide_row(wtiming["direct"]),
+        "wide_shape_8ch": _wide_row(wtiming["direct_8ch"]),
         "max_abs_err": max(direct_abs, wide_abs["direct"]),
         "ms": dtiming["ms"],
         "plain_ms": dtiming["plain_ms"],
@@ -4933,6 +5200,10 @@ def main() -> int:
             "launches_ladder4_galileo_20ms":
                 mixed["ladder4"]["galileo_e1b"][name]}
            if feed in ("seg", "gather") else {}),
+        **({"wide_shape_8ch": _wide_row(wtiming["seg_8ch"])}
+           if feed == "seg" else {}),
+        **({"wide_shape": _wide_row(wtiming[feed + "_wide"])}
+           if feed in ("windows", "resident") else {}),
     } for name, source, line, feed, launches in (
         # the windows receiver (500 ms blocks) and the receiver at an odd
         # epoch count (125 ms blocks, seg); B6 through its entry point

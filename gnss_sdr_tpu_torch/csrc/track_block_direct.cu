@@ -15,9 +15,14 @@
 // 2560 x 4 B = 51 KB) sit in shared memory for the whole block. Epoch e
 // of superstep j reads its window from the shared stream at the
 // channel's start + floor(jKn0/128)*128 + floor(en0/128)*128; the window
-// is staged into shared memory by TMA two epochs ahead (one at windows
-// of 11,648 lanes or more), as the TPU kernel's _direct_kernel issues
-// and drains its copies ahead.
+// is staged into shared memory by TMA two epochs ahead, as the TPU
+// kernel's _direct_kernel issues and drains its copies ahead. Past the
+// widths one block holds (from wp 5,888 at 5 rows; e.g. Galileo E1B at 8.184
+// MHz, wp 33,280) one channel runs over a thread-block cluster
+// (epoch::run_block_lanes; grid (cs, C), the channel blockIdx.y): each
+// block holds its lane part's prompt rows with the roll's halo and stages
+// its part of each window; the cluster's sums go through DSMEM and every
+// block runs the chain.
 //
 // Bound on the H100: the 12 f32 mixing operations per in-mask lane
 // (~2046 lanes per channel-epoch) over the card's f32 rate, a few
@@ -64,6 +69,14 @@ __global__ void __launch_bounds__(epoch::kThreads, 1)
   epoch::run_block(p, f, smem);
 }
 
+// lane clusters: channel blockIdx.y over the cluster's blocks
+__global__ void __launch_bounds__(epoch::kThreads, 1)
+    track_block_direct_lanes(epoch::Params p, DirectFeed f) {
+  extern __shared__ __align__(128) float smem[];
+  f.start = f.starts[blockIdx.y];
+  epoch::run_block_lanes(p, f, smem);
+}
+
 }  // namespace
 
 extern "C" int track_block_direct_launch(
@@ -73,8 +86,13 @@ extern "C" int track_block_direct_launch(
     int n0, int wp, int n_drift, float fs, float code_len,
     float lock_threshold, int max_lost, float pll_c1, float pll_c2,
     float dll_c1, float dll_c2, int el_shift, float aiding_scale,
-    float if_freq, int costas, float costas_thr, int interp, void* stream) {
-  (void)stream_len;  // the wrapper checks the read bound before launch
+    float if_freq, int costas, float costas_thr, int interp, void* stream,
+    int cluster, void* rank_state) {
+  // the wrapper checks the read bound before launch; cluster 0 runs one
+  // block a channel, else lane clusters of that size (rank_state: every
+  // rank's final state, [C, cluster, 12], or null). Returns a CUDA error
+  // code, or epoch::kErrNoCluster / kErrSmem.
+  (void)stream_len;
   if (k_epochs < 1 || t_epochs % k_epochs) return (int)cudaErrorInvalidValue;
   epoch::Params p;
   int err = epoch::make_params(
@@ -83,6 +101,7 @@ extern "C" int track_block_direct_launch(
       dll_c1, dll_c2, el_shift, aiding_scale, if_freq, costas, costas_thr,
       interp);
   if (err) return err;
+  p.rank_state = static_cast<float*>(rank_state);
   DirectFeed f;
   f.re = static_cast<const float*>(stream_re);
   f.im = static_cast<const float*>(stream_im);
@@ -90,5 +109,26 @@ extern "C" int track_block_direct_launch(
   f.start = 0;
   f.k_epochs = k_epochs;
   f.n0 = n0;
-  return epoch::launch(track_block_direct_kernel, p, f, stream);
+  if (cluster == 0)
+    return epoch::launch(track_block_direct_kernel, p, f, stream);
+  return epoch::launch_lanes(track_block_direct_lanes, p, f, cluster,
+                             stream, nullptr);
+}
+
+// how many lane clusters of `cluster` blocks the card holds at once at
+// this width, every block on an SM of its own (>= 1), or the launcher's
+// negative codes (track_block_epoch_clusters' twin)
+extern "C" int track_block_direct_clusters(int wp, int n_drift, int el_shift,
+                                           int cluster) {
+  epoch::Params p;
+  int err = epoch::make_params(p, nullptr, nullptr, nullptr, nullptr, 1, 1,
+                               1, wp, n_drift, 1.0f, 1.0f, 0.0f, 1, 0.0f,
+                               0.0f, 0.0f, 0.0f, el_shift, 0.0f, 0.0f, 0,
+                               0.0f, 0);
+  if (err) return err;
+  DirectFeed f = {};
+  int n = 0;
+  const int rc = epoch::launch_lanes(track_block_direct_lanes, p, f, cluster,
+                                     nullptr, &n);
+  return rc == 0 ? n : rc;
 }

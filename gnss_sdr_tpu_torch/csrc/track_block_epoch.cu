@@ -19,12 +19,17 @@
 //
 // Design: epoch::run_block (epoch_core.cuh), shared with B3. One thread
 // block per channel walks its T epochs in order; each epoch's window is
-// staged into shared memory by TMA two epochs ahead (one at windows of
-// 11,648 lanes or more, and read from global memory from 19,200, e.g.
-// Galileo E1B's seg windows at 8.184 MHz; the TPU kernel's BlockSpec
-// double-buffers B4a's windows the same way), and the epoch
+// staged into shared memory by TMA two epochs ahead (the TPU kernel's
+// BlockSpec double-buffers B4a's windows the same way), and the epoch
 // mixes it there with the prompt row it built once, over the lanes in
-// its mask only; two block barriers per epoch.
+// its mask only; two block barriers per epoch. Past the widths one
+// block holds (the replica rows and two window slots, to wp 5,760 at 5
+// rows; e.g. Galileo E1B's seg windows at 8.184 MHz, wp 33,152), one
+// channel runs over a thread-block cluster of cs blocks
+// (epoch::run_block_lanes): each block holds its lane part's replica
+// rows and stages its part of each window, every block adds the
+// cluster's warp sums through DSMEM and runs the chain itself; one block
+// barrier and one cluster barrier per epoch.
 //
 // Bound on the H100: the bytes. An epoch of a channel needs its ~2046
 // in-mask lanes of the window once (8 bytes each) and does 24 f32
@@ -82,10 +87,21 @@ __global__ void __launch_bounds__(epoch::kThreads, 1)
   epoch::run_block(p, f, smem);
 }
 
+// lane clusters: channel blockIdx.y over the cluster's blocks
+template <int F>
+__global__ void __launch_bounds__(epoch::kThreads, 1)
+    track_block_epoch_lanes(epoch::Params p, ChannelFeed<F> f) {
+  extern __shared__ __align__(128) float smem[];
+  f.c = blockIdx.y;
+  epoch::run_block_lanes(p, f, smem);
+}
+
+// one block a channel (cluster 0) or lane clusters of `cluster` blocks;
+// with n_active, the clusters the card holds at once (nothing launched)
 template <int F>
 int launch_feed(const epoch::Params& p, const void* win_re,
                 const void* win_im, long long row, int k_chunk,
-                int el_pad, void* stream) {
+                int el_pad, int cluster, void* stream, int* n_active) {
   ChannelFeed<F> f;
   f.re = static_cast<const float*>(win_re);
   f.im = static_cast<const float*>(win_im);
@@ -96,7 +112,32 @@ int launch_feed(const epoch::Params& p, const void* win_re,
   f.n0 = p.n0;
   f.k_chunk = k_chunk;
   f.el_pad = (float)el_pad;
-  return epoch::launch(track_block_epoch_kernel<F>, p, f, stream);
+  if (cluster == 0 && !n_active)
+    return epoch::launch(track_block_epoch_kernel<F>, p, f, stream);
+  return epoch::launch_lanes(track_block_epoch_lanes<F>, p, f, cluster,
+                             stream, n_active);
+}
+
+int launch_any(int feed, const epoch::Params& p, const void* win_re,
+               const void* win_im, long long row, int k_chunk, int cluster,
+               void* stream, int* n_active) {
+  const int el_pad = p.el_shift + (p.n_drift - 1) / 2;
+  switch (feed) {
+    case kWindows:
+      return launch_feed<kWindows>(p, win_re, win_im, row, 1, el_pad,
+                                   cluster, stream, n_active);
+    case kSeg:
+      if (row < p.wp) return (int)cudaErrorInvalidValue;
+      return launch_feed<kSeg>(p, win_re, win_im, row, 1, el_pad, cluster,
+                               stream, n_active);
+    case kResident:
+      if (k_chunk < 1 || p.t_epochs % k_chunk)
+        return (int)cudaErrorInvalidValue;
+      return launch_feed<kResident>(p, win_re, win_im, row, k_chunk, el_pad,
+                                    cluster, stream, n_active);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -108,8 +149,12 @@ extern "C" int track_block_epoch_launch(
     int n_drift, float fs, float code_len, float lock_threshold,
     int max_lost, float pll_c1, float pll_c2, float dll_c1, float dll_c2,
     int el_shift, float aiding_scale, float if_freq, int costas,
-    float costas_thr, int interp, void* stream) {
-  // the wrapper checks shapes, alignment and the read bound before launch
+    float costas_thr, int interp, void* stream, int cluster,
+    void* rank_state) {
+  // the wrapper checks shapes, alignment and the read bound before launch;
+  // cluster 0 runs one block a channel, else lane clusters of that size
+  // (rank_state: every rank's final state, [C, cluster, 12], or null).
+  // Returns a CUDA error code, or epoch::kErrNoCluster / kErrSmem.
   epoch::Params p;
   int err = epoch::make_params(
       p, replicas, state_in, telem, state_out, c_channels, t_epochs, n0, wp,
@@ -117,19 +162,25 @@ extern "C" int track_block_epoch_launch(
       dll_c1, dll_c2, el_shift, aiding_scale, if_freq, costas, costas_thr,
       interp);
   if (err) return err;
-  const int el_pad = el_shift + (n_drift - 1) / 2;
-  switch (feed) {
-    case kWindows:
-      return launch_feed<kWindows>(p, win_re, win_im, row, 1, el_pad,
-                                   stream);
-    case kSeg:
-      if (row < wp) return (int)cudaErrorInvalidValue;
-      return launch_feed<kSeg>(p, win_re, win_im, row, 1, el_pad, stream);
-    case kResident:
-      if (k_chunk < 1 || t_epochs % k_chunk) return (int)cudaErrorInvalidValue;
-      return launch_feed<kResident>(p, win_re, win_im, row, k_chunk, el_pad,
-                                    stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  p.rank_state = static_cast<float*>(rank_state);
+  return launch_any(feed, p, win_re, win_im, row, k_chunk, cluster, stream,
+                    nullptr);
+}
+
+// how many lane clusters of `cluster` blocks the card holds at once on
+// feed `feed` at this width, every block on an SM of its own (>= 1), or
+// the launcher's negative codes where the layout cannot run. The wrapper
+// launches first the sizes whose channels' clusters all run so.
+extern "C" int track_block_epoch_clusters(int feed, int wp, int n_drift,
+                                          int el_shift, int cluster) {
+  epoch::Params p;
+  int err = epoch::make_params(p, nullptr, nullptr, nullptr, nullptr, 1,
+                               1, 1, wp, n_drift,
+                               1.0f, 1.0f, 0.0f, 1, 0.0f, 0.0f, 0.0f, 0.0f,
+                               el_shift, 0.0f, 0.0f, 0, 0.0f, 0);
+  if (err) return err;
+  int n = 0;
+  const int rc = launch_any(feed, p, nullptr, nullptr, (long long)wp, 1,
+                            cluster, nullptr, &n);
+  return rc == 0 ? n : rc;
 }

@@ -61,9 +61,8 @@ resident layout reads one stream for all channels.
 The kernel shares B3's core (``csrc/epoch_core.cuh``): one thread block
 per channel walks its T epochs in order (the TPU's sequential grid
 becomes this loop); each epoch's window is staged into shared memory by
-TMA two epochs ahead, one at the widest windows (a window's address
-depends on t alone, never on the state), the channel's 5 f32 prompt
-rows sit in shared memory (in global memory from wp 5,888) and
+TMA two epochs ahead (a window's address depends on t alone, never on
+the state), the channel's 5 f32 prompt rows sit in shared memory and
 each epoch blends its prompt row once, the 128 + w128 carrier trig
 factors are rebuilt per epoch, only the lanes in the epoch's mask are
 mixed, the prompt roll and the E/L rolls are indexed reads wrapped
@@ -79,16 +78,26 @@ bytes.
 Widths (ROADMAP C6): the JAX ``_epoch_core`` builds its carrier A
 factors from a fixed 128-wide iota, so it breaks above wp = 16,384; the
 port's plain version builds the whole [C, wp/128] table and the CUDA
-core builds its w128 factors in a loop over the threads. Past one ring
-slot (wp >= 19,200, e.g. Galileo E1B's seg windows at 8.184 MHz, wp
-33,152) the core mixes every window from global memory
-(``epoch_smem_plan``). The port takes wp <= ``MAX_WP`` = 49,152, where
-the prompt row and the trig factors still fit in a block's shared
-memory, and raises above it, naming C6. Above 16,384 the plain version,
-not the JAX kernel, is what the card is held to.
+core builds its w128 factors in a loop over the threads. Where one
+block cannot hold the replica rows and two window slots (from wp 5,888
+at 5 rows, e.g. Galileo E1B's seg windows at 8.184 MHz, wp 33,152) one
+channel runs over a thread-block cluster of cs blocks, the lane
+clusters (``epoch_smem_plan`` lays them out, ``launch_order`` picks
+the size the card holds at once): block r keeps lane part r's
+replica rows, with the prompt roll's halo, in shared memory for the
+whole launch, stages its part of each window by TMA two epochs ahead,
+and every block adds the cluster's warp sums in rank order through
+DSMEM and runs the chain itself. Only the order of the f32 sums
+changes (``lane_parts=`` of the plain versions sums per part, then the
+parts in rank order: a per-part order, not the kernel's, which adds
+within each warp, then across the ranks for each warp, then over the
+warps). The port takes wp <= ``MAX_WP`` = 49,152 and raises above
+it, naming C6. Above 16,384 the plain version, not the JAX kernel, is
+what the card is held to.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -114,22 +123,151 @@ def check_max_wp(wp: int) -> None:
             "JAX _epoch_core's 128-wide iota breaks above 16384)")
 
 
-def epoch_smem_plan(wp: int, n_drift: int, smem: int = SMEM_BLOCK) -> dict:
-    """The per-epoch core's shared-memory layout (csrc/epoch_core.cuh
-    ``launch`` decides it; this mirrors it for the tests and the
-    reports): the first that fits of the replica rows and two window
-    slots, the rows in global memory and two slots, one slot, no slot
-    (every window mixed from global memory). Returns {"reps_shared",
-    "slots", "bytes"}; raises ValueError naming ROADMAP C6 for wp >
-    MAX_WP."""
+# the lane clusters' sizes, largest first (16 only where the card allows
+# a non-portable size), for the per-epoch core (epoch_smem_plan) and B1
+# and B2 (track_block_fused.mxu_smem_plan) alike: each plan offers those
+# that fit, and launch_order puts first the ones whose C clusters the card
+# holds at once
+LANE_CLUSTERS = (16, 8, 4, 2)
+LANE_REACH = 255        # the prompt roll's most lanes (rem < 256)
+
+
+def lane_parts(wp: int, cs: int) -> list[tuple[int, int]]:
+    """The lane parts [(l0, width), ...] of a cluster of ``cs`` blocks:
+    whole 128-lane groups covering [0, wp) once, the first
+    (wp / 128) % cs parts one group wider (lane_part in
+    csrc/epoch_core.cuh and csrc/track_block_mxu.cu)."""
+    g = wp // 128
+    base, extra = divmod(g, cs)
+    parts, l0 = [], 0
+    for r in range(cs):
+        w = 128 * (base + (r < extra))
+        parts.append((l0, w))
+        l0 += w
+    return parts
+
+
+def lane_halo(el_shift: int) -> tuple[int, int]:
+    """(before, after): the lanes a part's prompt row reaches past the
+    part (csrc/epoch_core.cuh set_lane_fields): lane l reads row index
+    (l - rem +- el_shift) mod wp with rem < 256, so 255 + el_shift before
+    and el_shift after, each rounded up to 4 lanes (16 bytes)."""
+    return ((LANE_REACH + el_shift + 3) // 4 * 4, (el_shift + 3) // 4 * 4)
+
+
+def single_bytes(wp: int, n_drift: int) -> int:
+    """One block a channel: the mbarriers, the replica rows, two window
+    slots, the prompt row, the trig factors and the warp sums."""
+    return 4 * (4 + n_drift * wp + 4 * (wp + 4) + wp + 256
+                + 2 * (wp // 128) + 6 * 8)
+
+
+def epoch_cluster_bytes(wp: int, n_drift: int, cs: int,
+                        el_shift: int) -> int:
+    """A lane-cluster block's dynamic shared memory (csrc/epoch_core.cuh
+    lanes_smem_floats), laid out from the widest part: the mbarriers, the
+    part's replica rows [n_drift, lr] (lr: the part and its halo), two
+    window slots [2, 2, widest + 4], the prompt row [lr], the cluster's
+    warp sums [2, cs, 8, 8], the B and A factors."""
+    widest = max(w for _, w in lane_parts(wp, cs))
+    lr = sum(lane_halo(el_shift)) + widest
+    return 4 * (8 + n_drift * lr + 4 * (widest + 4) + lr + 128 * cs + 256
+                + 2 * (widest // 128))
+
+
+def epoch_smem_plan(wp: int, n_drift: int, smem: int = SMEM_BLOCK, *,
+                    el_shift: int = 1) -> dict:
+    """The per-epoch core's layout, which the launchers
+    (csrc/epoch_core.cuh ``launch`` and ``launch_lanes``) run as given:
+    ``"single"``, one block a channel, where the replica rows and two
+    window slots fit in a block's shared memory (to wp 5,760 at 5 rows:
+    every main-path shape); else ``"cluster"``, one channel over a
+    thread-block cluster of cs blocks. ``"options"`` lists the sizes of
+    ``LANE_CLUSTERS`` that fit, largest first, each {"cs", "parts" [(l0,
+    width), ...] covering [0, wp) once, "halo" (before, after), "bytes"};
+    the wrapper launches them in ``launch_order``, by what the card holds
+    at once. The plan's own keys are the first option's ("cs" 0 and one
+    part for "single"). Raises ValueError naming ROADMAP C6 for wp >
+    MAX_WP or where no layout fits."""
     check_max_wp(wp)
-    w128 = wp // 128
-    for reps, slots in ((True, 2), (False, 2), (False, 1), (False, 0)):
-        floats = (4 + (n_drift * wp if reps else 0) + 2 * slots * (wp + 4)
-                  + wp + 256 + 2 * w128 + 6 * 8)
-        if 4 * floats <= smem:
-            return {"reps_shared": reps, "slots": slots, "bytes": 4 * floats}
-    raise ValueError(f"wp={wp}: no shared-memory layout fits (ROADMAP C6)")
+    n = single_bytes(wp, n_drift)
+    if n <= smem:
+        return {"layout": "single", "cs": 0, "parts": [(0, wp)],
+                "halo": (0, 0), "bytes": n, "options": []}
+    halo = lane_halo(el_shift)
+    options = []
+    for cs in (cs for cs in LANE_CLUSTERS if cs <= wp // 128):
+        parts = lane_parts(wp, cs)
+        n = epoch_cluster_bytes(wp, n_drift, cs, el_shift)
+        # a part's row must not wrap onto itself
+        if n <= smem and sum(halo) + parts[0][1] <= wp:
+            options.append({"cs": cs, "parts": parts, "halo": halo,
+                            "bytes": n})
+    if not options:
+        raise ValueError(f"wp={wp}, {n_drift} rows: no per-epoch layout "
+                         f"fits in {smem} bytes of shared memory (ROADMAP "
+                         "C6)")
+    return dict(options[0], layout="cluster", options=options)
+
+
+_ACTIVE: dict = {}
+
+
+def epoch_active_clusters(device, kind: str, wp: int, n_drift: int,
+                          el_shift: int, cs: int) -> int:
+    """How many lane clusters of ``cs`` blocks the card ``device`` holds
+    at once for the kernel of ``kind`` (a feed of track_block_epoch.cu or
+    "direct") with every block on an SM of its own
+    (cudaOccupancyMaxActiveClusters through the launcher's own set-up),
+    or the launcher's negative codes where it cannot run; cached per card
+    and layout. On the H100 (132 SMs) B1's lane clusters take 7 of 16,
+    15 of 8 (PERF.md section 6)."""
+    key = (device.index, kind, wp, n_drift, el_shift, cs)
+    if key not in _ACTIVE:
+        with torch.cuda.device(device):
+            if kind == "direct":
+                fn = _build.load_library(
+                    "track_block_direct").track_block_direct_clusters
+                fn.argtypes, fn.restype = [_I] * 4, _I
+                n = fn(wp, n_drift, el_shift, cs)
+            else:
+                fn = _build.load_library(
+                    "track_block_epoch").track_block_epoch_clusters
+                fn.argtypes, fn.restype = [_I] * 5, _I
+                n = fn(FEEDS[kind], wp, n_drift, el_shift, cs)
+        _ACTIVE[key] = n
+    return _ACTIVE[key]
+
+
+def launch_order(options: list[dict], c_channels: int,
+                 active) -> list[dict]:
+    """Lane options in the order a wrapper launches them: those of which
+    the card holds ``c_channels`` clusters at once, each block on an SM of
+    its own (``active(option)``: the kernel's cached occupancy,
+    ``epoch_active_clusters`` or track_block_fused.lane_active_clusters),
+    first (the rest would share SMs or run in waves, each wave as long as
+    the whole launch), each group in the given order."""
+    return sorted(options, key=lambda o: active(o) < c_channels)
+
+
+# every rank's final state of each lane-cluster launch, while
+# rank_states() is open: [(rank states [C, cs, 12], state [C, 128]), ...]
+_RANK_STATES: list | None = None
+
+
+@contextlib.contextmanager
+def rank_states():
+    """While open, each lane-cluster launch of the per-epoch kernels also
+    writes every rank's final state (each block runs the chain on the
+    same sums, so each holds the same state): yields the list of (rank
+    states [C, cs, 12], the launch's state [C, 128]) it collects."""
+    global _RANK_STATES
+    saved, _RANK_STATES = _RANK_STATES, []
+    try:
+        yield _RANK_STATES
+    finally:
+        _RANK_STATES = saved
+
 
 # launches of each CUDA kernel (plain ints, counted by launches.record;
 # the plain versions never count): B4a (windows), B4b (seg), B4c (gather) and B6 (resident)
@@ -294,12 +432,15 @@ def _atan_poly(x: torch.Tensor) -> torch.Tensor:
 def _epoch_core_reference(st, wre, wim, reps, start_lane, rem_i, *, wp, n0,
                           fs, code_len, lock_threshold, max_lost, pll_c1,
                           pll_c2, dll_c1, dll_c2, el_shift, aiding_scale,
-                          if_freq, lock_mode, costas_thr, interp):
+                          if_freq, lock_mode, costas_thr, interp,
+                          lane_parts=None):
     """ONE tracking epoch for all channels (``_epoch_core``): ``wre`` /
     ``wim`` the epoch's [C, wp] or shared [1, wp] window, ``start_lane``
     [C, 1] f32 the epoch's first lane in it, ``rem_i`` the lanes the
-    prompt rolls right. Returns (new state [C, 128], telemetry row
-    [C, 17])."""
+    prompt rolls right. ``lane_parts`` [(l0, width), ...]: each
+    correlation summed per lane part, then the parts added in rank order
+    (a per-part order, not the lane clusters' own). Returns (new state
+    [C, 128], telemetry row [C, 17])."""
     dev = st.device
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     c_channels = st.shape[0]
@@ -365,12 +506,21 @@ def _epoch_core_reference(st, wre, wim, reps, start_lane, rem_i, *, wp, n0,
     prompt = torch.roll(prompt, rem_i, dims=1)
     early = torch.roll(prompt, -el_shift, dims=1)   # early[l] = p[l+el]
     late = torch.roll(prompt, el_shift, dims=1)     # late[l]  = p[l-el]
-    i_e = torch.sum(re_w * early, dim=1, keepdim=True)
-    q_e = torch.sum(im_w * early, dim=1, keepdim=True)
-    i_p = torch.sum(re_w * prompt, dim=1, keepdim=True)
-    q_p = torch.sum(im_w * prompt, dim=1, keepdim=True)
-    i_l = torch.sum(re_w * late, dim=1, keepdim=True)
-    q_l = torch.sum(im_w * late, dim=1, keepdim=True)
+
+    def corr(x, y):
+        xy = x * y
+        if lane_parts is None:
+            return torch.sum(xy, dim=1, keepdim=True)
+        sums = [torch.sum(xy[:, l0:l0 + w], dim=1, keepdim=True)
+                for l0, w in lane_parts]
+        out = sums[0]
+        for v in sums[1:]:
+            out = out + v
+        return out
+
+    i_e, q_e = corr(re_w, early), corr(im_w, early)
+    i_p, q_p = corr(re_w, prompt), corr(im_w, prompt)
+    i_l, q_l = corr(re_w, late), corr(im_w, late)
 
     power = i_p * i_p + q_p * q_p
     if lock_mode == "costas":
@@ -436,7 +586,8 @@ def _core_kw(kw: dict) -> dict:
     """The statics _epoch_core_reference takes, from a wrapper's kw."""
     names = ("wp", "n0", "fs", "code_len", "lock_threshold", "max_lost",
              "pll_c1", "pll_c2", "dll_c1", "dll_c2", "el_shift",
-             "aiding_scale", "if_freq", "lock_mode", "costas_thr", "interp")
+             "aiding_scale", "if_freq", "lock_mode", "costas_thr", "interp",
+             "lane_parts")
     return {k: kw[k] for k in names}
 
 
@@ -516,10 +667,11 @@ def track_block_fused_reference(
     windows_re, windows_im, replicas, state_in, *, n0, fs, code_len=1023.0,
     lock_threshold=15.0, max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0,
     dll_c2=0.0, el_shift=1, aiding_scale=0.0, if_freq=0.0,
-    lock_mode="power", costas_thr=0.4, interp=False,
+    lock_mode="power", costas_thr=0.4, interp=False, lane_parts=None,
 ):
     """The plain PyTorch version of B4a on any device, one Python
-    iteration per epoch. Returns (telemetry [T, C, 17], state [C, 128])."""
+    iteration per epoch (``lane_parts`` as _epoch_core_reference). Returns
+    (telemetry [T, C, 17], state [C, 128])."""
     _check_windows(windows_re, windows_im, replicas, state_in, lock_mode)
     t_epochs, _, wp = windows_re.shape
     kw = _core_kw(dict(locals(), wp=wp))
@@ -538,13 +690,14 @@ def track_block_fused_seg_reference(
     code_len=1023.0, lock_threshold=15.0, max_lost=20, pll_c1=0.0,
     pll_c2=0.0, dll_c1=0.0, dll_c2=0.0, el_shift=1, aiding_scale=0.0,
     if_freq=0.0, lock_mode="power", costas_thr=0.4, interp=False,
-    first_epoch=0,
+    first_epoch=0, lane_parts=None,
 ):
     """The plain PyTorch version of B4b on any device. ``first_epoch`` >
     0 runs epochs ``first_epoch ..`` of a longer block from
     ``state_in`` (their windows in the segment), so a check can hold the
     kernel's block to this version piece by piece, each piece started
-    from the kernel's own state. Returns (telemetry [T, C, 17], state)."""
+    from the kernel's own state; ``lane_parts`` as _epoch_core_reference.
+    Returns (telemetry [T, C, 17], state)."""
     _check_seg(seg_re, seg_im, replicas, state_in, t_epochs=t_epochs, n0=n0,
                wp=wp, lock_mode=lock_mode, first_epoch=first_epoch)
     kw = _core_kw(locals())
@@ -564,10 +717,10 @@ def track_block_fused_resident_reference(
     wp, fs, code_len=1023.0, lock_threshold=15.0, max_lost=20, pll_c1=0.0,
     pll_c2=0.0, dll_c1=0.0, dll_c2=0.0, el_shift=1, aiding_scale=0.0,
     if_freq=0.0, lock_mode="power", costas_thr=0.4, interp=False,
-    first_epoch=0,
+    first_epoch=0, lane_parts=None,
 ):
-    """The plain PyTorch version of B6 on any device. ``first_epoch`` as
-    in track_block_fused_seg_reference; the chunk comes from
+    """The plain PyTorch version of B6 on any device. ``first_epoch`` and
+    ``lane_parts`` as in track_block_fused_seg_reference; the chunk comes from
     ``resident_chunk(t_epochs, k_epochs)``, so a piece of a longer block
     passes that block's chunk as ``k_epochs`` and a multiple of it as
     ``t_epochs``. Returns (telemetry [T, C, 17], state)."""
@@ -641,10 +794,13 @@ _F = ctypes.c_float
 FEEDS = {"windows": 0, "seg": 1, "resident": 2}
 
 
+# the launch entry's arguments: the feed, the window feed's, the kernel's
+# (as epoch::make_params takes them), the stream, the cluster size (0: one
+# block a channel) and every rank's state (or null)
 EPOCH_ARGTYPES = [_I, _VP, _VP, ctypes.c_longlong, _I, _VP, _VP, _VP, _VP,
                   _I, _I, _I, _I, _I,
                   _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                  _F, _F, _I, _F, _I, _VP]
+                  _F, _F, _I, _F, _I, _VP, _I, _VP]
 
 
 def _epoch_lib():
@@ -672,6 +828,45 @@ def _check_aligned(*named):
                              "kernel reads it in 16-byte pieces)")
 
 
+def epoch_launch(kind, fn, args, state_out, wp, n_drift, el_shift):
+    """Call the launch entry ``fn`` of the kernel of ``kind`` with
+    ``args`` (its arguments up to the stream; the launch writes
+    ``state_out``, [C, 128]) in the layout of the wrapper's plan
+    (epoch_smem_plan): one block a channel, or the first lane-cluster
+    size in launch_order; while rank_states() is open every rank's
+    final state is collected too. Raises on a refused launch, naming C6;
+    a cluster that cannot launch is not replaced by another size, one
+    block or the plain version."""
+    c, device = state_out.shape[0], state_out.device
+    plan = epoch_smem_plan(wp, n_drift, el_shift=el_shift)
+    cs = 0
+    if plan["layout"] == "cluster":
+        cs = launch_order(plan["options"], c, lambda o: epoch_active_clusters(
+            device, kind, wp, n_drift, el_shift, o["cs"]))[0]["cs"]
+    ranks = None
+    if cs and _RANK_STATES is not None:
+        ranks = torch.full((c, cs, 12), float("nan"), device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream, cs,
+                 ranks.data_ptr() if ranks is not None else None)
+    name = {"direct": "track_block_direct"}.get(
+        kind, f"track_block_epoch ({kind})")
+    if err == -1:
+        raise RuntimeError(f"{name}: no cluster of {cs} blocks can run on "
+                           "the card (cudaOccupancyMaxActiveClusters = 0 "
+                           "or above the sizes it allows; ROADMAP C6)")
+    if err == -2:
+        raise RuntimeError(f"{name}: the launch needs more shared memory "
+                           f"than a block can have (wp {wp}, {n_drift} "
+                           f"rows; the plan was {plan['layout']}, cs "
+                           f"{cs}, {plan['bytes']} bytes; ROADMAP C6)")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if ranks is not None:
+        _RANK_STATES.append((ranks, state_out))
+
+
 def _launch_epoch(feed, win_re, win_im, row, k_chunk, replicas, state_in, *,
                   t_epochs, n0, wp, fs, code_len, lock_threshold, max_lost,
                   pll_c1, pll_c2, dll_c1, dll_c2, el_shift, aiding_scale,
@@ -687,19 +882,14 @@ def _launch_epoch(feed, win_re, win_im, row, k_chunk, replicas, state_in, *,
     telem = torch.empty((t_epochs, c, N_TELEM), dtype=torch.float32,
                         device=state_in.device)
     state_out = torch.empty_like(state_in)
-    fn = _epoch_lib()
-    with torch.cuda.device(state_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(FEEDS[feed], win_re.data_ptr(), win_im.data_ptr(), row,
-                 k_chunk, replicas.data_ptr(), state_in.data_ptr(),
-                 telem.data_ptr(), state_out.data_ptr(), c, t_epochs, n0,
-                 wp, n_drift, fs, code_len, lock_threshold, int(max_lost),
-                 pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift), aiding_scale,
-                 if_freq, int(lock_mode == "costas"), costas_thr,
-                 int(bool(interp)), stream)
-    if err != 0:
-        raise RuntimeError(f"track_block_epoch launch ({feed}) failed: "
-                           f"CUDA error {err}")
+    args = (FEEDS[feed], win_re.data_ptr(), win_im.data_ptr(), row,
+            k_chunk, replicas.data_ptr(), state_in.data_ptr(),
+            telem.data_ptr(), state_out.data_ptr(), c, t_epochs, n0, wp,
+            n_drift, fs, code_len, lock_threshold, int(max_lost), pll_c1,
+            pll_c2, dll_c1, dll_c2, int(el_shift), aiding_scale, if_freq,
+            int(lock_mode == "costas"), costas_thr, int(bool(interp)))
+    epoch_launch(feed, _epoch_lib(), args, state_out, wp, n_drift,
+                 int(el_shift))
     return telem, state_out
 
 

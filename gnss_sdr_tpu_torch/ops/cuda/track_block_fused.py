@@ -73,11 +73,12 @@ fit in shared memory beside the bank and the tile (4.092 MHz; a wide
 bank beside B2's slice), the mix reads them from global memory instead.
 Where the bank and the tile themselves do not fit (every system at
 8.184 MHz, ROADMAP C15), one channel runs on a thread-block cluster of
-cs blocks (``mxu_smem_plan`` picks the layout, ``lane_launch_order`` the
-size the card holds at once): block r keeps lane part r's bank rows in
-its shared memory for the whole launch (staged once by TMA), stages its
-lanes of each superstep's windows one superstep ahead where they fit,
-mixes and contracts its part, and writes its [2K, R] partial sums into
+cs blocks (``mxu_smem_plan`` picks the layout,
+``track_block_epoch.launch_order`` the size the card holds at once):
+block r keeps lane part r's bank rows in its shared memory for the
+whole launch (staged once by TMA), stages its lanes of each
+superstep's windows one superstep ahead where they fit, mixes and
+contracts its part, and writes its [2K, R] partial sums into
 rank 0's shared memory (DSMEM); rank 0 adds them in rank order and runs
 the chain, and its new state goes back to every block. Only the order
 of the f32 sums changes.
@@ -115,9 +116,10 @@ import torch
 
 from ..correlator import fma as _fma  # noqa: F401  (fused_runner's scan)
 from . import _build, launches
+from . import track_block_epoch as _epoch
 from .track_block_epoch import (  # noqa: F401  (the JAX module's names)
     MAX_WP, _atan_poly, _check_aligned, _epoch_core_reference,
-    check_max_wp, epoch_smem_plan,
+    check_max_wp, epoch_launch, epoch_smem_plan, lane_parts,
     build_replicas_shared, gather_segments, gather_segments_reference,
     resident_chunk, seg_length, slice_windows, track_block_fused,
     track_block_fused_reference, track_block_fused_resident,
@@ -805,32 +807,16 @@ _MXU_PAD = 8            # bf16 pad per tile and bank row
 # lane clusters: a staged window row holds the part and this many more
 # samples (the roll's reach) behind the 0-3 of its 16-byte floor
 MXU_LANE_REACH = 256
-# the cluster sizes the plan offers, largest first (16 only where the
-# card allows a non-portable size): on the H100 a larger cluster is
-# faster while the channels' clusters all run at once (PERF.md section
-# 6), so the plan puts first the sizes whose C x cs blocks fit on the
-# card's SMs and the wrapper those the card holds at once
-# (lane_launch_order). The warps of a block: None for 8 where the window
-# rows are staged and 16 where the mix reads global memory (the faster of
-# the two in each case, section 6); 8 or 16 to force them.
-MXU_LANE_CLUSTERS = (16, 8, 4, 2)
-MXU_LANE_WARPS = None
+# the plan offers the cluster sizes of track_block_epoch.LANE_CLUSTERS
+# that fit: on the H100 a larger cluster is faster while the channels'
+# clusters all run at once (PERF.md section 6), so the plan puts first the
+# sizes whose C x cs blocks fit on the card's SMs and the wrapper those
+# the card holds at once (launch_order). The warps of a block: None for 8
+# where the window rows are staged and 16 where the mix reads global
+# memory (the faster of the two in each case, section 6); 8 or 16 to force
+# them.
 H100_SMS = 132
-
-
-def lane_parts(wp: int, cs: int) -> list[tuple[int, int]]:
-    """The lane parts [(l0, width), ...] of a cluster of ``cs`` blocks:
-    whole 128-lane groups covering [0, wp) once, the first
-    (wp / 128) % cs parts one group wider (csrc/track_block_mxu.cu
-    lane_part)."""
-    g = wp // 128
-    base, extra = divmod(g, cs)
-    parts, l0 = [], 0
-    for r in range(cs):
-        w = 128 * (base + (r < extra))
-        parts.append((l0, w))
-        l0 += w
-    return parts
+MXU_LANE_WARPS = None
 
 
 def lane_cluster_bytes(wp: int, r_rows: int, k_epochs: int, cs: int,
@@ -902,9 +888,9 @@ def mxu_smem_plan(wp: int, r_rows: int, k_epochs: int,
     launcher decides); else ``"cluster"``: one channel over a
     thread-block cluster of cs blocks, block r holding lane part r's
     bank rows (``lane_cluster_bytes``). ``"options"`` lists the cluster
-    sizes of ``MXU_LANE_CLUSTERS`` that fit, each {"cs", "warps",
-    "parts" [(l0, width), ...] covering [0, wp) once, "sub" (the bank's
-    sub-chunk: the widest part where "resident"), "resident", "staged"
+    sizes of ``track_block_epoch.LANE_CLUSTERS`` that fit, each {"cs",
+    "warps", "parts" [(l0, width), ...] covering [0, wp) once, "sub" (the
+    bank's sub-chunk: the widest part where "resident"), "resident", "staged"
     (the window rows in shared memory), "bytes" (the dynamic part)}, in
     the order the wrapper tries them: with ``c_channels``, the sizes
     whose C x cs blocks fit on ``n_sm`` SMs first. The plan's own keys
@@ -916,14 +902,14 @@ def mxu_smem_plan(wp: int, r_rows: int, k_epochs: int,
     warps = MXU_LANE_WARPS
     lane_room = smem - MXU_LANES_STATIC_SMEM
     max_wp = max(_lane_max_wp(r_rows, k_epochs, cs, warps, lane_room)
-                 for cs in MXU_LANE_CLUSTERS)
+                 for cs in _epoch.LANE_CLUSTERS)
     trig = 2 * k_epochs * w128 * 4
     whole = (r_rows + 2 * k_epochs) * (wp + _MXU_PAD) * 2 + trig
     if whole <= room and r_rows <= MXU_WHOLE_MAX_R:
         return {"layout": "whole", "cs": 0, "parts": [(0, wp)],
                 "bytes": whole, "max_wp": max_wp, "options": []}
     # (one block per channel only where wp has a single lane group)
-    sizes = [cs for cs in MXU_LANE_CLUSTERS if cs <= w128] or [1]
+    sizes = [cs for cs in _epoch.LANE_CLUSTERS if cs <= w128] or [1]
     if c_channels:
         sizes.sort(key=lambda cs: c_channels * cs > n_sm)
     options = [o for o in (
@@ -973,16 +959,6 @@ def lane_active_clusters(device, k_epochs: int, wp: int, r_rows: int,
     return _LANE_ACTIVE[key]
 
 
-def lane_launch_order(plan: dict, c_channels: int, k_epochs: int, wp: int,
-                      r_rows: int, lean: bool, device) -> list[dict]:
-    """The plan's lane options in the order the wrapper launches them:
-    those whose C clusters the card holds at once, each block on an SM of
-    its own, first (the rest would share SMs or run in waves, each wave
-    as long as the whole launch), each group in the plan's order."""
-    return sorted(plan["options"], key=lambda o: lane_active_clusters(
-        device, k_epochs, wp, r_rows, lean, o) < c_channels)
-
-
 # track_block_mxu_launch's own error codes (CUDA's are >= 0)
 _ERR_NO_CLUSTER = -1        # above 8 blocks, or no such cluster fits
 _ERR_SMEM = -2              # more shared memory than a block can have
@@ -999,10 +975,12 @@ def shared_cluster_sizes(c_channels: int) -> tuple[int, ...]:
     return tuple(d for d in range(2, 9) if c_channels % d == 0) or (1,)
 
 
+# B3's launch entry: as the epoch kernel's (EPOCH_ARGTYPES), the stream
+# then the cluster size and every rank's state
 DIRECT_ARGTYPES = [_VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP,
                    _I, _I, _I, _I, _I, _I,
                    _F, _F, _F, _I, _F, _F, _F, _F, _I,
-                   _F, _F, _I, _F, _I, _VP]
+                   _F, _F, _I, _F, _I, _VP, _I, _VP]
 
 
 def _direct_lib():
@@ -1107,9 +1085,11 @@ def track_block_fused_mxu(
                 shared_cluster_sizes(c) if spread_cap else (1,))]
         else:
             tries = [(o["cs"], o["sub"], int(o["staged"]), o["warps"])
-                     for o in lane_launch_order(plan, c, k_epochs, wp,
-                                                r_rows, lean,
-                                                state_in.device)]
+                     for o in _epoch.launch_order(
+                         plan["options"], c,
+                         lambda o: lane_active_clusters(
+                             state_in.device, k_epochs, wp, r_rows, lean,
+                             o))]
         for cluster, lanes, staged, warps in tries:
             err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
                      stream_re.shape[0], starts.data_ptr(),
@@ -1196,12 +1176,14 @@ def track_block_fused_direct_reference(
     max_lost=20, pll_c1=0.0, pll_c2=0.0, dll_c1=0.0, dll_c2=0.0,
     el_shift=1, aiding_scale=0.0, if_freq=0.0, lock_mode="power",
     costas_thr=0.4, interp=False, starts_host=None, starts_bound=None,
-    first_superstep=0,
+    first_superstep=0, lane_parts=None,
 ):
     """The plain PyTorch version of the direct kernel, on any device:
     the same arithmetic, one Python iteration per epoch. Returns
     (telemetry [T, C, 17] f32, state [C, 128] f32). ``first_superstep``
-    as in track_block_fused_mxu_reference."""
+    as in track_block_fused_mxu_reference; ``lane_parts`` sums each
+    correlation per lane part, then in rank order (the lane clusters'
+    order, _epoch_core_reference)."""
     _check_args(stream_re, stream_im, starts, replicas, state_in,
                 t_epochs=t_epochs, k_epochs=k_epochs, n0=n0, wp=wp,
                 lock_mode=lock_mode, starts_host=starts_host,
@@ -1212,7 +1194,7 @@ def track_block_fused_direct_reference(
               pll_c1=pll_c1, pll_c2=pll_c2, dll_c1=dll_c1, dll_c2=dll_c2,
               el_shift=el_shift, aiding_scale=aiding_scale,
               if_freq=if_freq, lock_mode=lock_mode, costas_thr=costas_thr,
-              interp=interp)
+              interp=interp, lane_parts=lane_parts)
     st, rows = state_in, []
     for j in range(first_superstep,
                    first_superstep + t_epochs // k_epochs):
@@ -1278,22 +1260,17 @@ def track_block_fused_direct(
     check_max_wp(wp)
     _check_aligned(("stream_re", stream_re), ("stream_im", stream_im),
                    ("replicas", replicas))
-    fn = _direct_lib()
     telem = torch.empty((t_epochs, c, N_TELEM_DIRECT), dtype=torch.float32,
                         device=state_in.device)
     state_out = torch.empty_like(state_in)
-    with torch.cuda.device(state_in.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(stream_re.data_ptr(), stream_im.data_ptr(),
-                 stream_re.shape[0], starts.data_ptr(), replicas.data_ptr(),
-                 state_in.data_ptr(), telem.data_ptr(), state_out.data_ptr(),
-                 c, t_epochs, k_epochs, n0, wp, n_drift,
-                 fs, code_len, lock_threshold, int(max_lost),
-                 pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift),
-                 aiding_scale, if_freq, int(lock_mode == "costas"),
-                 costas_thr, int(bool(interp)), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"track_block_direct launch failed: CUDA error {err}")
+    args = (stream_re.data_ptr(), stream_im.data_ptr(), stream_re.shape[0],
+            starts.data_ptr(), replicas.data_ptr(), state_in.data_ptr(),
+            telem.data_ptr(), state_out.data_ptr(), c, t_epochs, k_epochs,
+            n0, wp, n_drift, fs, code_len, lock_threshold, int(max_lost),
+            pll_c1, pll_c2, dll_c1, dll_c2, int(el_shift), aiding_scale,
+            if_freq, int(lock_mode == "costas"), costas_thr,
+            int(bool(interp)))
+    epoch_launch("direct", _direct_lib(), args, state_out, wp, n_drift,
+                 int(el_shift))
     launches.record(__name__, "direct_launch_count")
     return telem, state_out

@@ -336,9 +336,9 @@ def test_epoch_read_bounds_raise_on_card(card):
 def test_epoch_kernel_widest_window_on_card(card):
     """B4b at the widest window the port takes (wp = MAX_WP = 49,152,
     ROADMAP C6: past the JAX kernel's 128 carrier A factors and past one
-    window slot, so every window is mixed from global memory), against
-    its plain version, epoch by epoch, on random segments and replicas;
-    one lane group wider raises naming C6."""
+    block's shared memory, so the channel runs over a cluster of 16
+    blocks), against its plain version, epoch by epoch, on random
+    segments and replicas; one lane group wider raises naming C6."""
     n0, wp, t_epochs, c = 8184, fused.MAX_WP, 4, 2
     assert wp == 49152
     gen = torch.Generator(device=card).manual_seed(5)
@@ -357,6 +357,32 @@ def test_epoch_kernel_widest_window_on_card(card):
         fused.track_block_fused_seg(
             *seg, torch.zeros((c, 5, wp + 128), device=card), st,
             **dict(kw, wp=wp + 128))
+
+
+@pytest.mark.cuda
+def test_epoch_lane_clusters_match_plain_on_card(card):
+    """The per-epoch core in lane clusters (chip_smoke.wide_epoch_check):
+    B4b and B3 at Galileo E1B's 8.184 MHz widths at every cluster size the
+    plan offers, 4 and 8 channels, power and Costas, B4a and B6 once at
+    GPS's, each against its plain version open loop, every launch
+    counted and every rank's final state equal to rank 0's; the size the
+    wrapper takes is one of which the card holds the C clusters at once,
+    its C x cs blocks within the card's SMs."""
+    worst = chip_smoke.wide_epoch_check(torch)
+    assert set(worst) == {"seg", "direct", "windows", "resident"}
+
+
+@pytest.mark.cuda
+def test_epoch_cluster_refused_raises_on_card(card):
+    """A cluster size the launcher refuses (32 blocks) raises naming C6
+    and launches nothing: no other size, no single block, no plain
+    version takes its place."""
+    inp = chip_smoke.epoch_wide_inputs(torch, "seg", {}, 4, device=card)
+    before = chip_smoke._launch_counts()
+    with chip_smoke.epoch_layout(32), pytest.raises(RuntimeError,
+                                                    match="C6"):
+        fused.track_block_fused_seg(*inp["args"], **inp["kw"])
+    assert chip_smoke._launch_counts() == before
 
 
 @pytest.mark.cuda
@@ -519,12 +545,11 @@ def test_epoch_kernels_at_alignment_edges_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("wp", [6144, 12288])
 def test_epoch_kernel_wide_window_layouts_on_card(card, wp):
-    """B4b and B3 at the launcher's wider shared-memory layouts, where the
-    replica rows no longer fit beside a ring of two window slots (wp 6144
-    at 5 rows: the rows read from global memory, two slots) and where two
-    slots no longer fit either (wp 12288: one slot, each window staged
-    one epoch ahead), against their plain versions epoch by epoch on
-    random inputs, at start residues 0-3."""
+    """B4b and B3 past the widths one block holds (the replica rows and
+    two window slots, to wp 5,760 at 5 rows): at wp 6144 and 12288 each
+    channel runs in lane clusters (the plan's first size), against their
+    plain versions epoch by epoch on random inputs, at start residues 0-3
+    (the window parts' last 0-3 samples by cp.async)."""
     n0, t_epochs, c = 3069, 6, 4
     gen = torch.Generator(device=card).manual_seed(7)
     l_seg = fused.seg_length(t_epochs, n0, wp) + 3

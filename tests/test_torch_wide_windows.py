@@ -13,10 +13,9 @@ of ladder 4 at 8.184 MHz.
     numpy oracle that computes each lane's carrier phase directly: the
     six correlations within 1e-4 of their column max (f32 trig factors
     and sums against float64);
-  * the kernels' shared-memory plans (``mxu_smem_plan``, which B1's
-    launcher runs as given, and ``epoch_smem_plan``, the mirror of the
-    epoch core's): every ladder-4 shape fits in the 232,448 bytes a block
-    may have, B1's lane chunks cover [0, wp) exactly once, more than 16
+  * the kernels' shared-memory plans (``mxu_smem_plan`` and
+    ``epoch_smem_plan``, which the launchers run as given): every
+    ladder-4 shape fits in the 232,448 bytes a block may have, B1's lane chunks cover [0, wp) exactly once, more than 16
     bank rows take lane chunks even where one chunk covers wp, and the
     widths above each plan raise naming C15 / C6.
 """
@@ -194,14 +193,18 @@ def test_mxu_plan_chunks_rows_above_16_even_where_one_chunk_covers(
 def test_epoch_plan_fits_past_one_slot(wp):
     plan = ep.epoch_smem_plan(wp, 5)
     assert plan["bytes"] <= 232_448
-    # past one window slot every window is mixed from global memory
-    assert plan["slots"] == (0 if wp >= 19_200 else 1)
-    assert not plan["reps_shared"]
+    # past one block's replica rows and two window slots: one channel
+    # over a thread-block cluster, each size the plan offers fitting
+    assert plan["layout"] == "cluster" and plan["options"]
+    for opt in plan["options"]:
+        assert opt["bytes"] <= 232_448
+        assert sum(w for _, w in opt["parts"]) == wp
 
 
 def test_epoch_plan_keeps_the_main_path_and_raises_past_max_wp():
     assert ep.epoch_smem_plan(2432, 5) == {
-        "reps_shared": True, "slots": 2,
-        "bytes": 4 * (4 + 5 * 2432 + 4 * 2436 + 2432 + 256 + 38 + 48)}
+        "layout": "single", "cs": 0, "parts": [(0, 2432)], "halo": (0, 0),
+        "bytes": 4 * (4 + 5 * 2432 + 4 * 2436 + 2432 + 256 + 38 + 48),
+        "options": []}
     with pytest.raises(ValueError, match="C6"):
         ep.epoch_smem_plan(ep.MAX_WP + 128, 5)

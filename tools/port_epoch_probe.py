@@ -34,8 +34,18 @@ s: 125 ms blocks on seg, 500 ms blocks on windows and on direct) with
 each version's kernels, after one warm-up run each, N times in the
 order old, new, new, old, and reports each layout's ``track`` stage per
 block (the receiver's StageTimer, host clock). ``--only old`` or
-``--only new`` probes one version alone. Prints one JSON line. Needs
-one CUDA device and nvcc.
+``--only new`` probes one version alone. At the main path's shapes each
+version's telemetry and state are also held to the other's bit for bit
+(``bit_for_bit``), where the current core keeps one block a channel.
+
+``--wide`` takes the wide shapes instead (``chip_smoke.epoch_wide_inputs``
+at 8.184 MHz): B4b at wp 33,152 (Galileo E1B, 20 ms blocks) and B3 at wp
+33,280 (96 ms), each at 4 and 8 channels, and B4a (wp 8,320) and B6 (wp
+16,640) on GPS at 8 channels; the current core runs them in lane
+clusters (the size the wrapper launches), an earlier one as it did. The
+split then stamps ``run_epoch_lanes`` of the current header (its cluster
+barrier's wait a stretch of its own) and reports it per rank as well
+(the blocks' flat index is rank + cs x channel).
 """
 from __future__ import annotations
 
@@ -59,8 +69,7 @@ import chip_smoke  # noqa: E402
 
 HEADER = "epoch_core.cuh"
 SOURCES = ("track_block_epoch", "track_block_direct")
-FEEDS = ("windows", "seg", "resident", "direct")
-_BARRIER = re.compile(r"__syncthreads\(\);|mbar_wait\(")
+_BARRIER = re.compile(r"__syncthreads\(\);|mbar_wait\(|cluster_wait\(\);")
 _STAGE = re.compile(r"^\s*// ---- (stage .*?)\s*-*$")
 
 
@@ -78,11 +87,13 @@ def _body(lines, pattern):
     raise ValueError(f"no body for {pattern}")
 
 
-def instrument(text: str) -> tuple[str, list[str]]:
-    """A copy of the header with thread 0's clock64 stamps in run_epoch
+def instrument(text: str, fn: str = "run_epoch",
+               load: str = "load_channel",
+               store: str = "store_channel") -> tuple[str, list[str]]:
+    """A copy of the header with thread 0's clock64 stamps in ``fn``
     (module docstring), the stretches summed per block in shared memory
-    from load_channel on and written to ``g_probe`` by store_channel.
-    Returns (header, the label of each stretch)."""
+    from ``load`` on and written to ``g_probe`` by ``store`` at the
+    block's flat index. Returns (header, the label of each stretch)."""
     lines = text.splitlines()
     labels: list[str] = []
 
@@ -94,7 +105,7 @@ def instrument(text: str) -> tuple[str, list[str]]:
         return ("{ if (threadIdx.x == 0) { long long _t = clock64(); "
                 f"_pacc[{k}] += _t - _pt; _pt = _t; }} __syncwarp(); }}")
 
-    i0, i1 = _body(lines, r"__device__.*\brun_epoch\(")
+    i0, i1 = _body(lines, rf"__device__.*\b{fn}\(")
     out = lines[:i0 + 1]
     out.append(stamp("between epochs: the feed's loop (the first epoch: "
                      "the prologue)"))
@@ -114,14 +125,15 @@ def instrument(text: str) -> tuple[str, list[str]]:
     out.append(stamp(current))
     out += lines[i1:]
     n = len(labels)
-    # the sums start in load_channel and leave in store_channel
+    # the sums start in `load` and leave in `store`
+    flat = "(blockIdx.x + blockIdx.y * gridDim.x)"
     for pattern, code in (
-            (r"__device__.*\bload_channel\(",
+            (rf"__device__.*\b{load}\(",
              "  if (threadIdx.x == 0) { for (int _i = 0; _i < kProbeN; ++_i)"
              " _pacc[_i] = 0; _pt = clock64(); }"),
-            (r"__device__.*\bstore_channel\(",
+            (rf"__device__.*\b{store}\(",
              "  if (threadIdx.x == 0) for (int _i = 0; _i < kProbeN; ++_i) "
-             "g_probe[blockIdx.x * kProbeN + _i] = _pacc[_i];")):
+             f"g_probe[{flat} * kProbeN + _i] = _pacc[_i];")):
         j0, _ = _body(out, pattern)
         out.insert(j0 + 1, code)
     src = "\n".join(out) + "\n"
@@ -151,15 +163,27 @@ def build(src: Path, so: Path):
 
 
 def _typed(libs):
-    """The two libraries' launch entries, typed as the wrappers'."""
+    """The two libraries' launch entries, typed as the wrappers'; an
+    earlier source's entries, which end at the stream (no cluster size,
+    no rank states), drop the two arguments the wrappers add."""
     from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
-    fe = libs["track_block_epoch"].track_block_epoch_launch
-    fe.argtypes, fe.restype = ep.EPOCH_ARGTYPES, ctypes.c_int
-    fd = libs["track_block_direct"].track_block_direct_launch
-    fd.argtypes, fd.restype = fused.DIRECT_ARGTYPES, ctypes.c_int
-    return fe, fd
+    fns = []
+    for lib, name, types in (
+            (libs["track_block_epoch"], "track_block_epoch_launch",
+             ep.EPOCH_ARGTYPES),
+            (libs["track_block_direct"], "track_block_direct_launch",
+             fused.DIRECT_ARGTYPES)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        if hasattr(lib, name.replace("_launch", "_clusters")):
+            fn.argtypes = types
+            fns.append(fn)
+        else:
+            fn.argtypes = types[:-2]
+            fns.append(lambda *a, _fn=fn: _fn(*a[:-2]))
+    return tuple(fns)
 
 
 @contextlib.contextmanager
@@ -177,20 +201,55 @@ def using(fns):
         ep._epoch_lib, fused._direct_lib = saved
 
 
+def _cases(torch, wide):
+    """{name: (kernel kind, args, kw, epochs a block)}: chip_smoke's
+    full-width inputs at the main path's shapes, or its wide ones."""
+    out = {}
+    if wide:
+        for kind, chans in (("seg", (4, 8)), ("direct", (4, 8)),
+                            ("windows", (8,)), ("resident", (8,))):
+            for c in chans:
+                inp = chip_smoke.epoch_wide_inputs(torch, kind, {}, c)
+                kw = inp["kw"]
+                out[f"{kind}_{c}ch"] = (kind, inp["args"], kw, kw.get(
+                    "t_epochs", inp["args"][0].shape[0]))
+        return out
+    for feed in ("windows", "seg", "resident"):
+        inp = chip_smoke.epoch_inputs(torch, feed, {})
+        out[feed] = (feed, inp["args"], inp["kw"], inp["ft"].t_epochs)
+    _, d_args, d_kw = chip_smoke.full_width_inputs(torch, "cuda", {},
+                                                   layout="direct")
+    out["direct"] = ("direct", d_args, d_kw, d_kw["t_epochs"])
+    return out
+
+
+def _open_loop(torch, kind, args, kw, wide):
+    """One case against its plain version, open loop."""
+    if kind == "direct":
+        return chip_smoke.open_loop_compare(torch, args, kw,
+                                            layout="direct")[2]
+    piece = (chip_smoke.EPOCH_WIDE_PIECE[kind] if wide else
+             25 if kind == "seg" else chip_smoke.EPOCH_PIECE)
+    return chip_smoke.epoch_open_loop(torch, kind, args, kw,
+                                      piece=piece)[2]
+
+
 def main() -> int:
     import torch
 
     from gnss_sdr_tpu_torch.ops.cuda import _build
-    from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-src", type=Path, required=True)
     ap.add_argument("--only", choices=("old", "new"),
                     help="probe one version alone")
+    ap.add_argument("--wide", action="store_true",
+                    help="the 8.184 MHz shapes (lane clusters)")
     ap.add_argument("--receivers", type=int, default=0, metavar="N",
                     help="also time the phase 17 receivers, N turns")
     args_cli = ap.parse_args()
     versions = (args_cli.only,) if args_cli.only else ("old", "new")
+    wide = args_cli.wide
     if not torch.cuda.is_available():
         print("port_epoch_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -204,7 +263,10 @@ def main() -> int:
             d.mkdir()
             header = (dirs[ver] / HEADER).read_text()
             if kind:
-                header, labels[ver] = instrument(header)
+                lanes = wide and "run_epoch_lanes" in header
+                header, labels[ver] = instrument(
+                    header, *(("run_epoch_lanes", "load_channel_lanes",
+                               "store_channel_lanes") if lanes else ()))
             (d / HEADER).write_text(header)
             for name in SOURCES:
                 text = (dirs[ver] / f"{name}.cu").read_text()
@@ -226,82 +288,84 @@ def main() -> int:
             ptxas[ver + kind] = {n: built[(ver + kind, n)][1]
                                  for n in SOURCES}
 
-    inputs = {}
-    for feed in ("windows", "seg", "resident"):
-        inp = chip_smoke.epoch_inputs(torch, feed, {})
-        inputs[feed] = (inp["args"], inp["kw"], inp["ft"].t_epochs)
-    _, d_args, d_kw = chip_smoke.full_width_inputs(torch, "cuda", {},
-                                                   layout="direct")
-    inputs["direct"] = (d_args, d_kw, d_kw["t_epochs"])
-    kernels = {feed: chip_smoke._epoch_fns(feed)[0]
-               for feed in ("windows", "seg", "resident")}
-    kernels["direct"] = fused.track_block_fused_direct
-    c = chip_smoke.N_CHANNELS
+    cases = _cases(torch, wide)
 
-    # ---- each version against the plain version, open loop ------------
-    checks = {}
+    def call(name):
+        kind, f_args, f_kw, _ = cases[name]
+        return chip_smoke._epoch_fns(kind)[0](*f_args, **f_kw)
+
+    # ---- each version against the plain version, open loop; and against
+    # each other bit for bit --------------------------------------------
+    checks, outs = {}, {}
     for ver in versions:
         with using(fns[ver]):
-            for feed in FEEDS:
-                f_args, f_kw, _ = inputs[feed]
-                if feed == "direct":
-                    _, _, err = chip_smoke.open_loop_compare(
-                        torch, f_args, f_kw, layout="direct")
-                else:
-                    _, _, err = chip_smoke.epoch_open_loop(
-                        torch, feed, f_args, f_kw,
-                        piece=25 if feed == "seg" else
-                        chip_smoke.EPOCH_PIECE)
-                checks[f"{ver}_{feed}"] = err
+            for name, (kind, f_args, f_kw, _) in cases.items():
+                checks[f"{ver}_{name}"] = _open_loop(torch, kind, f_args,
+                                                     f_kw, wide)
+                outs[(ver, name)] = call(name)
     torch.cuda.synchronize()
+    bit_for_bit = {}
+    if len(versions) == 2:
+        bit_for_bit = {name: all(torch.equal(a, b) for a, b in zip(
+            outs[("old", name)], outs[("new", name)])) for name in cases}
 
     # ---- the split -----------------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     split = {}
     for ver in versions:
         n_lab = len(labels[ver])
-        buf = (ctypes.c_longlong * (c * n_lab))()
-        for feed in FEEDS:
-            f_args, f_kw, t_epochs = inputs[feed]
-            lib = libs[f"{ver}_split"]["track_block_direct" if feed ==
+        for name, (kind, f_args, f_kw, t_epochs) in cases.items():
+            c = f_args[4 if kind == "direct" else 3].shape[0]
+            launched = chip_smoke.launched_epoch(kind, f_args, f_kw)
+            cs = launched["cs"] if ver == "new" and launched["cs"] else 1
+            buf = (ctypes.c_longlong * (c * cs * n_lab))()
+            lib = libs[f"{ver}_split"]["track_block_direct" if kind ==
                                        "direct" else "track_block_epoch"]
             with using(fns[f"{ver}_split"]):
                 ms = statistics.median(chip_smoke._time_queued(
-                    torch, lambda: kernels[feed](*f_args, **f_kw), 5, flush))
+                    torch, lambda: call(name), 5, flush))
                 torch.cuda.synchronize()
-            assert lib.probe_read(buf, c) == 0
+            assert lib.probe_read(buf, c * cs) == 0
             cyc = [[buf[b * n_lab + k] for k in range(n_lab)]
-                   for b in range(c)]
+                   for b in range(c * cs)]
             total = statistics.mean(sum(row) for row in cyc)
-            split[f"{ver}_{feed}"] = {
+
+            def stretches(rows, total=total):
+                return [{
+                    "label": f"{k}: {labels[ver][k]}",
+                    "cycles_per_epoch":
+                        statistics.mean(row[k] for row in rows) / t_epochs,
+                    "share": statistics.mean(row[k] for row in rows) / total,
+                } for k in range(n_lab) if any(row[k] for row in rows)]
+
+            split[f"{ver}_{name}"] = {
+                "cs": cs,
                 "stamped_kernel_ms": ms,
                 "cycles_per_block": total,
                 "cycles_per_epoch": total / t_epochs,
                 "clock_ghz": total / (ms * 1e6),
-                "stretches": [{
-                    "label": f"{k}: {labels[ver][k]}",
-                    "cycles_per_epoch":
-                        statistics.mean(row[k] for row in cyc) / t_epochs,
-                    "share": statistics.mean(row[k] for row in cyc) / total,
-                } for k in range(n_lab) if any(row[k] for row in cyc)],
+                "stretches": stretches(cyc),
             }
+            if cs > 1:
+                # blocks at flat index rank + cs x channel
+                split[f"{ver}_{name}"]["by_rank"] = {
+                    r: stretches(cyc[r::cs]) for r in range(cs)}
 
     # ---- the times, in turns ---------------------------------------------
-    variants = [f"{ver}_{feed}" for ver in versions for feed in FEEDS]
+    variants = [(ver, name) for ver in versions for name in cases]
 
-    def timed(name):
-        ver, feed = name.split("_", 1)
-        f_args, f_kw, _ = inputs[feed]
+    def timed(variant):
+        ver, name = variant
         with using(fns[ver]):
             return chip_smoke._time_queued(
-                torch, lambda: kernels[feed](*f_args, **f_kw),
-                chip_smoke.KERNEL_PASSES, flush)
+                torch, lambda: call(name), chip_smoke.KERNEL_PASSES, flush)
 
-    for name in variants:
-        timed(name)                     # warm-up
-    times = {name: [] for name in variants}
-    for name in variants + variants[::-1]:
-        times[name] += timed(name)
+    for v in variants:
+        timed(v)                        # warm-up
+    times = {v: [] for v in variants}
+    for v in variants + variants[::-1]:
+        times[v] += timed(v)
+    times = {f"{ver}_{name}": t for (ver, name), t in times.items()}
     # ---- the receivers on the per-epoch layouts, in turns ----------------
     track = {}
     if args_cli.receivers:
@@ -328,6 +392,9 @@ def main() -> int:
                     track.setdefault(f"{ver}_{name}", []).append(ms)
     res = {
         "device": smi,
+        "wide": wide,
+        "layouts": {name: chip_smoke._epoch_label(chip_smoke.launched_epoch(
+            kind, a, k)) for name, (kind, a, k, _) in cases.items()},
         "track_ms_per_block": {k: statistics.median(v)
                                for k, v in track.items()},
         "track_ms_per_block_runs": track,
@@ -335,8 +402,9 @@ def main() -> int:
         "ms_min": {k: min(v) for k, v in times.items()},
         "ms_max": {k: max(v) for k, v in times.items()},
         "us_per_epoch": {k: statistics.median(v)
-                         / inputs[k.split("_", 1)[1]][2] * 1e3
+                         / cases[k.split("_", 1)[1]][3] * 1e3
                          for k, v in times.items()},
+        "bit_for_bit": bit_for_bit,
         "split": split,
         "checks_vs_plain": checks,
         "ptxas": ptxas,
