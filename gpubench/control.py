@@ -1,0 +1,59 @@
+"""The readings that set the limits of ``correct``, on the card:
+
+    python3 gpubench/control.py --workload <cell> --seeds 1,2,3 \
+        --seconds <s>
+
+For each seed, in one process: a run of the cell (a window of
+``--seconds``), then each compared number as the program reads it
+(its lower reading) and as the control reads it: the reference computed
+at the configuration's control precision put in the program's place
+(its upper reading). One JSON line per seed on stdout.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", required=True)
+    p.add_argument("--seconds", type=float, default=8.0)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(1)
+    from gpubench.harness import checks, spec
+    from gpubench.harness.cell import run_cell
+
+    bench = spec.load_benchmark(ROOT)
+    n_blocks = None
+    for seed in (int(s) for s in args.seeds.split(",")):
+        t0 = time.perf_counter()
+        run = run_cell(bench, args.workload, seed, args.seconds, False,
+                       device=args.device,
+                       log=lambda m: print(m, file=sys.stderr))
+        n_blocks = int(run.traffic["check"]["track_blocks"])
+        ok, prog = checks.check(run, log=lambda m: print(m, file=sys.stderr))
+        acq, acq_hz, _ = checks.check_acq(
+            run, int(run.traffic["check"]["acq_searches"]), control=True)
+        trk, loop, _ = checks.check_track(run, n_blocks, control=True)
+        line = dict(seed=seed, program={k: v for k, (v, _) in prog.items()},
+                    control=dict(acq_gap=acq, acq_freq_gap_hz=acq_hz,
+                                 track_gap=trk, loop_gap_hz=loop),
+                    correct=ok, seconds=time.perf_counter() - t0)
+        print(json.dumps(line), flush=True)
+        del run
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
