@@ -469,6 +469,12 @@ class BdsD1Chain:
     def ephemeris(self) -> Optional[Ephemeris]:
         return self.assembler.ephemeris
 
+    @property
+    def synced(self) -> bool:
+        """Whether the NH bit sync (NhBitSynchronizer._try_sync) is
+        found."""
+        return self.bit_sync.synced
+
     def feed_array(self, i_prompts, epochs) -> list:
         from ..receiver.navproc import AnchorEvent
 

@@ -35,6 +35,7 @@ import torch
 from ..device import resolve_device
 from ..ops import pcps
 from ..receiver import tracking as trk
+from ..utils.profiling import StageTimer
 
 CHANNEL_AXIS = "channel"
 TIME_AXIS = "time"
@@ -226,7 +227,7 @@ def shard_fused_step(mesh: Mesh, step_fn):
 def sharded_track_block(mesh: Mesh, params: trk.TrackParams, codes,
                         state: trk.ChannelState, block_re, block_im,
                         n_epochs: int, valid_len: Optional[int] = None,
-                        graph: bool = True
+                        graph: bool = True, timers: StageTimer | None = None
                         ) -> tuple[trk.ChannelState, trk.EpochTelemetry]:
     """track_block with channels sharded over the mesh's channel axis and
     the block replicated: each shard's ledger rows and code rows go to
@@ -238,24 +239,29 @@ def sharded_track_block(mesh: Mesh, params: trk.TrackParams, codes,
     Shards of equal width on one card share one ``tracking.graph_key``
     and so one graph: each call copies its inputs into the graph's
     buffers and returns a copy of its result, so the shards' results
-    stay apart."""
+    stay apart. ``timers``: as in ``track_block``."""
+    timer = timers if timers is not None else StageTimer()
     devices = _channel_devices(mesh)
     c = int(np.asarray(state.active).shape[0])
     per = shard_rows(c, mesh)
     codes = torch.as_tensor(codes, dtype=torch.float32)
     outs = []
-    for i, (dev, st) in enumerate(zip(devices,
-                                      shard_channel_state(mesh, state))):
-        with _current(dev):
-            outs.append(trk.track_block_device(
-                params, codes[i * per:(i + 1) * per].to(dev), st,
-                _on(block_re, dev), _on(block_im, dev), n_epochs,
-                valid_len, graph))
-    parts = [trk.unpack_block(o, per, n_epochs) for o in outs]
-    new_state = trk.ChannelState(*(
-        np.concatenate(f) for f in zip(*(s for s, _ in parts))))
-    telem = trk.EpochTelemetry(*(
-        np.concatenate(f, axis=1) for f in zip(*(t for _, t in parts))))
+    with timer.stage("track.launch"):
+        for i, (dev, st) in enumerate(zip(devices,
+                                          shard_channel_state(mesh, state))):
+            with _current(dev):
+                outs.append(trk.track_block_device(
+                    params, codes[i * per:(i + 1) * per].to(dev), st,
+                    _on(block_re, dev), _on(block_im, dev), n_epochs,
+                    valid_len, graph))
+    with timer.stage("track.wait"):
+        outs = [o.cpu().numpy() for o in outs]
+    with timer.stage("track.absorb"):
+        parts = [trk.unpack_block(o, per, n_epochs) for o in outs]
+        new_state = trk.ChannelState(*(
+            np.concatenate(f) for f in zip(*(s for s, _ in parts))))
+        telem = trk.EpochTelemetry(*(
+            np.concatenate(f, axis=1) for f in zip(*(t for _, t in parts))))
     return new_state, telem
 
 

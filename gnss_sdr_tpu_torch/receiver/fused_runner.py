@@ -76,6 +76,7 @@ import torch
 from ..config import TrackConfig
 from ..device import resolve_device
 from ..models.constellation import SignalSpec
+from ..utils.profiling import StageTimer
 from ..ops.cuda import track_block_fused as fused
 from . import tracking as trk
 
@@ -164,13 +165,18 @@ class FusedTracker:
     apply_handoffs_device) lets the steady-state receiver chain spans
     on the card and download telemetry from a collector thread
     (Receiver.run(span_pipeline=True)).
+
+    ``timers``: the receiver's StageTimer, in which run_block and
+    run_blocks time their steps as sub-stages of its ``track`` stage
+    (track.anchor, track.launch, track.wait, track.absorb).
     """
 
     def __init__(self, params: trk.TrackParams, cfg: TrackConfig,
                  spec: SignalSpec, fs_hz: float, codes_sampled,
                  t_epochs: int, buf_len: int, layout: str = "mxu",
                  mesh=None, wire: str = "f32",
-                 shared_fetch: bool = False, device=None):
+                 shared_fetch: bool = False, device=None,
+                 timers: StageTimer | None = None):
         if cfg.lock_mode not in ("power", "costas"):
             raise ValueError(
                 f"correlator='fused': unknown lock_mode {cfg.lock_mode!r}")
@@ -191,6 +197,7 @@ class FusedTracker:
             # held-rate columns 17-20; direct changes rates per epoch
             wire = "slim"
         self.device = resolve_device(device)
+        self.timers = timers if timers is not None else StageTimer()
         self.wire = wire
         # diagnostic-column stride of the slim wire: the largest divisor
         # of t_epochs <= 8
@@ -433,14 +440,28 @@ class FusedTracker:
         handoff (processed epochs plus the periods the offset walk
         skipped; a deferred channel keeps its count), the meaning the
         scan (run_blocks) keeps too."""
+        t = self.timers
+        with t.stage("track.anchor"):
+            anc = self.anchor_block(state)
+        with t.stage("track.launch"):
+            args, kw = self.kernel_args(anc, block_re, block_im, codes_rows)
+            telem, st = self._kernel(*args, **kw)
+        with t.stage("track.wait"):
+            # one download of both results
+            flat = torch.cat([telem.reshape(-1), st.reshape(-1)]
+                             ).cpu().numpy()
+        with t.stage("track.absorb"):
+            return self._absorb_block(state, anc, flat, tuple(telem.shape))
+
+    def _absorb_block(self, state: trk.ChannelState, anc: dict,
+                      flat: np.ndarray, telem_shape: tuple
+                      ) -> tuple[trk.ChannelState, trk.EpochTelemetry]:
+        """run_block's host step after the download: the kernel's state
+        absorbed back into the exact ledger, and the block's
+        EpochTelemetry."""
         c = int(np.asarray(state.active).shape[0])
-        anc = self.anchor_block(state)
-        args, kw = self.kernel_args(anc, block_re, block_im, codes_rows)
-        telem, st = self._kernel(*args, **kw)
-        # one download of both results
-        flat = torch.cat([telem.reshape(-1), st.reshape(-1)]).cpu().numpy()
-        n_tel = telem.numel()
-        telem_m = flat[:n_tel].reshape(tuple(telem.shape))
+        n_tel = int(np.prod(telem_shape))
+        telem_m = flat[:n_tel].reshape(telem_shape)
         mat_out = flat[n_tel:].reshape(c, fused.N_FIELDS)
         eligible, offset0 = anc["eligible"], anc["offset0"]
         epochs0, cp0 = anc["epochs0"], anc["cp0"]
@@ -691,13 +712,17 @@ class FusedTracker:
         rebase again). ``span_extra``'s output, if set (called with the
         span's stream and ``extra_args``), lands in ``last_span_extra``.
         """
-        handle = self.submit_span(state, stream_re, stream_im, codes_rows,
-                                  n_blocks, with_ledger=True,
-                                  extra_args=extra_args)
-        arrays = handle.ys.fetch()
-        telems = self._telems_from_arrays(handle, arrays)
-        self.last_span_extra = self._extra_from_arrays(handle, arrays)
-        return self.absorb_led(state, tuple(arrays[-6:])), telems
+        t = self.timers
+        with t.stage("track.launch"):
+            handle = self.submit_span(state, stream_re, stream_im,
+                                      codes_rows, n_blocks, with_ledger=True,
+                                      extra_args=extra_args)
+        with t.stage("track.wait"):
+            arrays = handle.ys.fetch()
+        with t.stage("track.absorb"):
+            telems = self._telems_from_arrays(handle, arrays)
+            self.last_span_extra = self._extra_from_arrays(handle, arrays)
+            return self.absorb_led(state, tuple(arrays[-6:])), telems
 
     # ------------------------------------------------------------------
     # Pipelined span API: submit_span queues a span without waiting for

@@ -23,6 +23,7 @@ from .. import constants as C
 from ..nav.bits import BitSynchronizer, FrameDecoder, Subframe
 from ..nav.ephemeris import Ephemeris, EphemerisAssembler
 from ..nav.pvt import PvtSolution, solve_pvt, solve_velocity
+from ..utils.profiling import StageTimer
 
 
 @dataclasses.dataclass
@@ -86,6 +87,11 @@ class GpsLnavChain:
             self.frames = FrameDecoder()
         return events
 
+    @property
+    def synced(self) -> bool:
+        """Whether the 20 ms bit grid is found."""
+        return self.bit_sync.synced
+
     def status(self) -> dict:
         return {
             "bit_synced": self.bit_sync.synced,
@@ -113,6 +119,11 @@ class GalileoInavChain:
     @property
     def count(self) -> int:
         return self.dec.word_count
+
+    @property
+    def synced(self) -> bool:
+        """Whether the page sync (the decoder's _try_sync) is found."""
+        return self.dec.synced
 
     def feed_array(self, i_prompts, epochs) -> list[AnchorEvent]:
         words = self.dec.feed_array(i_prompts, epochs)
@@ -333,10 +344,17 @@ class ChannelNav:
 
 
 class NavProcessor:
-    """All channels' nav chains + ephemeris store + PVT."""
+    """All channels' nav chains + ephemeris store + PVT.
+
+    ``timers``: the receiver's StageTimer, in which feed_block times the
+    feed of the channels whose chain has not synced yet (``nav.sync``,
+    inside the receiver's ``nav`` stage): what a channel that never
+    syncs, such as a false lock, costs the host."""
 
     def __init__(self, fs_hz: float, code_period_s: float = 1e-3,
-                 code_length: int = 1023, signal: str = "gps_l1ca"):
+                 code_length: int = 1023, signal: str = "gps_l1ca",
+                 timers: StageTimer | None = None):
+        self.timers = timers if timers is not None else StageTimer()
         self.fs = fs_hz
         self.code_period_s = code_period_s
         self.code_length = code_length
@@ -355,16 +373,21 @@ class NavProcessor:
         self.channels.pop(channel, None)
 
     def feed_block(self, telem, window_global_start: int) -> None:
+        """Feed one block's processed epochs to every channel's chain;
+        the chains that have not synced yet are fed last, under
+        ``nav.sync`` (entered every block, so that it reads 0 where
+        every chain has synced)."""
         processed = np.asarray(telem.processed)
         i_p = np.asarray(telem.i_p)
         epochs = np.asarray(telem.epoch_index)
         offsets = np.asarray(telem.start_offset)
         chips = np.asarray(telem.chip_phase)
         carr = np.asarray(telem.carr_freq)
-        for ch, nav in self.channels.items():
+
+        def feed(ch, nav):
             rows = np.where(processed[:, ch])[0]
             if rows.size == 0:
-                continue
+                return
             g_rows = window_global_start + offsets[rows, ch].astype(
                 np.int64)
             e_rows = epochs[rows, ch]
@@ -376,6 +399,16 @@ class NavProcessor:
                 self.ephemerides[nav.prn] = eph
             self.latest[ch] = (int(e_rows[-1]), int(g_rows[-1]),
                                float(cp_rows[-1]))
+
+        unsynced = []
+        for ch, nav in self.channels.items():
+            if nav.chain.synced:
+                feed(ch, nav)
+            else:
+                unsynced.append((ch, nav))
+        with self.timers.stage("nav.sync"):
+            for ch, nav in unsynced:
+                feed(ch, nav)
 
     def status(self) -> dict:
         return {

@@ -192,6 +192,10 @@ class Receiver:
             self.window = DeviceStreamWindow(self.history, self.block,
                                              self.device)
         self.scheduler = SearchScheduler(cfg.acq)
+        # the stages' wall times, each a profiler range named after the
+        # signal while a profiler records; the trackers and the nav
+        # processor time their sub-steps here
+        self.timers = StageTimer(self.spec.name)
         self._span_rowmap = None
         self._pipeline_handoffs: list = []
         self._pipeline_active_mask = None
@@ -199,13 +203,12 @@ class Receiver:
         self.telemetry = TelemetryLog(cfg.track.n_channels)
         self.nav = NavProcessor(
             self.fs, self.spec.code_period_s, self.spec.code_length_chips,
-            signal=self.spec.name)
+            signal=self.spec.name, timers=self.timers)
         self.active: dict[int, int] = {}   # prn -> channel
         self._codes_key = None
         self._codes_ch = None
         self.time_ms = 0.0
         self.acq_events: list = []
-        self.timers = StageTimer()
         # streaming observables (enable_observables)
         self._obs_writer = None
         self._obs_every_ms = 0
@@ -244,7 +247,8 @@ class Receiver:
             self.fused = FusedTracker(
                 self.params, cfg.track, self.spec, self.fs, self.codes_full,
                 self.epochs_per_block, self.history + self.block,
-                layout=layout, wire=wire, mesh=mesh, device=self.device)
+                layout=layout, wire=wire, mesh=mesh, device=self.device,
+                timers=self.timers)
         # the in-scan search (the JAX package's conditions): the conv
         # engine's search queued inside each span; FDMA (a search per
         # frequency channel) and the two_peak / cfar detectors keep the
@@ -359,20 +363,25 @@ class Receiver:
         return self._process_block(samples, n_valid)
 
     def _process_block(self, samples, n_valid) -> bool:
-        n_fresh = self.window.advance(samples)
+        t = self.timers
+        with t.stage("window", self.block):
+            n_fresh = self.window.advance(samples)
         if n_fresh is None:
             return False
         self.time_ms += self.cfg.block_ms
 
         # paced satellite search over the freshest samples
-        self.scheduler.update_mode(len(self.active))
+        with t.stage("lifecycle"):
+            self.scheduler.update_mode(len(self.active))
         have_enough = self.window.blocks_fed * self.block >= self.acq_len
         if have_enough and self.scheduler.due(self.time_ms):
-            with self.timers.stage("acquire", self.acq_len):
+            with t.stage("acquire", self.acq_len):
                 self._run_acquisition()
 
-        with self.timers.stage("track", self.block):
-            codes = self._codes_for_state()
+        with t.stage("track", self.block):
+            # each tracker times its own anchor, launch, wait and absorb
+            with t.stage("track.launch"):
+                codes = self._codes_for_state()
             if self.fused is not None and n_valid == self.block:
                 # the fused kernel: one launch for the block's T epochs
                 self.state, telem = self.fused.run_block(
@@ -385,7 +394,8 @@ class Receiver:
                     self.mesh, self.params, codes, self.state,
                     self.window.re, self.window.im,
                     self.epochs_per_block + 1,
-                    valid_len=self.history + n_valid, graph=self.scan_graph)
+                    valid_len=self.history + n_valid, graph=self.scan_graph,
+                    timers=t)
             else:
                 # the scanned tracker (+1 catch-up epoch); a fused
                 # receiver's partial last block lands here too, where
@@ -393,23 +403,25 @@ class Receiver:
                 self.state, telem = trk.track_block(
                     self.params, codes, self.state, self.window.re,
                     self.window.im, self.epochs_per_block + 1,
-                    valid_len=self.history + n_valid, graph=self.scan_graph)
+                    valid_len=self.history + n_valid, graph=self.scan_graph,
+                    timers=t)
 
-        with self.timers.stage("nav", self.block):
+        with t.stage("nav", self.block):
             self.telemetry.append_block(telem, self.window.global_start)
             if self.cfg.pvt.enable:
                 self.nav.feed_block(telem, self.window.global_start)
 
-        # lifecycle: channels lost during this block free their PRN
-        lost = np.asarray(telem.lost_event).any(axis=0)
-        if lost.any():
-            for prn, ch in list(self.active.items()):
-                if lost[ch]:
-                    del self.active[prn]
-                    self.telemetry.close_channel(ch)
-                    self.nav.close_channel(ch)
-        self._emit_observables()
-        self.state = trk.rebase(self.state, self.block)
+        with t.stage("lifecycle"):
+            # channels lost during this block free their PRN
+            lost = np.asarray(telem.lost_event).any(axis=0)
+            if lost.any():
+                for prn, ch in list(self.active.items()):
+                    if lost[ch]:
+                        del self.active[prn]
+                        self.telemetry.close_channel(ch)
+                        self.nav.close_channel(ch)
+            self._emit_observables()
+            self.state = trk.rebase(self.state, self.block)
         return True
 
     # ------------------------------------------------------------------
@@ -529,7 +541,8 @@ class Receiver:
                         self.fused.last_span_extra, self._span_rowmap)
                     if cands is not None:
                         self._handoff(cands)
-        self.scheduler.update_mode(len(self.active))
+        with self.timers.stage("lifecycle"):
+            self.scheduler.update_mode(len(self.active))
         return k
 
     # ------------------------------------------------------------------
@@ -552,7 +565,8 @@ class Receiver:
             if self._pipeline_active_mask is not None:
                 for ch in lost_before - set(self.active.values()):
                     self._pipeline_active_mask[ch] = False
-        self.scheduler.update_mode(len(self.active))
+        with self.timers.stage("lifecycle"):
+            self.scheduler.update_mode(len(self.active))
         stop = bool(on_block is not None and on_block(self))
         return handle.n_blocks, stop
 
@@ -632,7 +646,9 @@ class Receiver:
             its rowmap)."""
             nonlocal pending
             handle, g0, rowmap = pending
-            with self.timers.stage("track", self.block * handle.n_blocks):
+            with self.timers.stage("track", self.block * handle.n_blocks), \
+                    self.timers.stage("track.wait"):
+                # the collector's download and unpack of the span
                 result, err = out_q.get()
             if err is not None:
                 raise err
@@ -679,9 +695,10 @@ class Receiver:
                     extra_args, rowmap = self._span_sel()
                     stream_re, stream_im, g0 = \
                         self._advance_span_window(full)
-                    handle = ft.submit_span(led, stream_re, stream_im,
-                                            codes_rows, k,
-                                            extra_args=extra_args)
+                    with self.timers.stage("track.launch"):
+                        handle = ft.submit_span(led, stream_re, stream_im,
+                                                codes_rows, k,
+                                                extra_args=extra_args)
                 led = handle.led
                 pending = (handle, g0, rowmap)
                 in_q.put(handle)          # the collector waits for it
@@ -903,8 +920,6 @@ class Receiver:
             "blocks": self.window.blocks_fed,
             "time_ms": self.time_ms,
             "stage_timing": self.timers.report(),
-            "track_realtime_factor": round(
-                self.timers.realtime_factor("track", self.fs), 2),
             "tracked_prns": sorted(self.active),
             "nav": self.nav.status(),
             "ephemerides": sorted(self.nav.ephemerides),

@@ -52,6 +52,7 @@ from ..ops.correlator import (
 )
 from ..ops.cuda import launches
 from ..ops.cuda.epl_correlator import epl_correlate_block
+from ..utils.profiling import StageTimer
 
 _U32_SCALE = 4294967296.0
 CORRELATORS = ("shift", "exact", "slice", "fused", "pallas")
@@ -688,14 +689,23 @@ def unpack_block(buf, n_channels: int,
 
 def track_block(params: TrackParams, codes, state: ChannelState, block_re,
                 block_im, n_epochs: int, valid_len: int | None = None,
-                graph: bool = True) -> tuple[ChannelState, EpochTelemetry]:
+                graph: bool = True, timers: StageTimer | None = None
+                ) -> tuple[ChannelState, EpochTelemetry]:
     """Run ``n_epochs`` tracking epochs over one resident sample block
     (track_block_device) and download the result in one copy. Returns
     the host ledger and [T, C] telemetry. The caller picks ``n_epochs =
     block_ms / code_period_ms + 1``: the +1 lets a channel that fell
     behind catch up one epoch per block. ``valid_len`` (a Python int)
     bounds processing when the block's tail is zero padding (a short
-    final read). ``graph``: as in track_block_device."""
-    buf = track_block_device(params, codes, state, block_re, block_im,
-                             n_epochs, valid_len, graph)
-    return unpack_block(buf, np.asarray(state.active).shape[0], n_epochs)
+    final read). ``graph``: as in track_block_device. ``timers``: the
+    receiver's StageTimer, in which the launch, the one download and the
+    unpack are timed apart (track.launch, track.wait, track.absorb)."""
+    t = timers if timers is not None else StageTimer()
+    with t.stage("track.launch"):
+        buf = track_block_device(params, codes, state, block_re, block_im,
+                                 n_epochs, valid_len, graph)
+    with t.stage("track.wait"):
+        host = buf.cpu().numpy()            # the one download
+    with t.stage("track.absorb"):
+        return unpack_block(host, np.asarray(state.active).shape[0],
+                            n_epochs)

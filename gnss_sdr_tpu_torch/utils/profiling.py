@@ -15,6 +15,17 @@ import time
 from collections import defaultdict
 from typing import Iterator
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+# A stage's range is of the user scope, as torch.profiler.record_function
+# opens one (the same name and category in a trace), but opened without
+# record_function's dispatcher op: on the H100's host 2-11 us a range
+# against its 9-19 us (PERF.md).
+_range_enter = torch.autograd._record_function_with_args_enter
+_range_exit = torch.autograd._record_function_with_args_exit
+
 
 @dataclasses.dataclass
 class StageStats:
@@ -32,21 +43,26 @@ class StageStats:
 
 
 class StageTimer:
-    """Accumulating wall-clock timer keyed by stage name."""
+    """Accumulating wall-clock timer keyed by stage name.
 
-    def __init__(self):
+    A sub-step is a stage with a dotted name (``track.wait``) entered
+    inside its parent stage (``track``): ``stats`` holds it beside the
+    parent, whose total includes it. While a profiler records (``trace``
+    below, or any ``torch.profiler.profile``), each interval is also a
+    profiler range named ``stage.<prefix>.<name>`` (``prefix``: the
+    receiver's signal, so each branch of a multi-constellation receiver
+    names its own), on the profiler's clock beside the card's activity.
+    With no profiler running a stage makes one state check and opens
+    no range."""
+
+    def __init__(self, prefix: str = ""):
+        self.prefix = prefix
         self.stats: dict[str, StageStats] = defaultdict(StageStats)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, items: float = 0.0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            s = self.stats[name]
-            s.calls += 1
-            s.total_s += time.perf_counter() - t0
-            s.items += items
+    def stage(self, name: str, items: float = 0.0) -> "_Stage":
+        """A context manager: one interval of stage ``name``, counting
+        ``items`` (samples, epochs, ...)."""
+        return _Stage(self, name, items)
 
     def report(self) -> dict[str, dict]:
         return {
@@ -59,12 +75,34 @@ class StageTimer:
             for name, s in sorted(self.stats.items())
         }
 
-    def realtime_factor(self, stage: str, fs_hz: float) -> float:
-        """Signal-seconds per wall-second for a stage whose items are
-        IQ samples."""
-        s = self.stats[stage]
-        return s.items_per_s / fs_hz if fs_hz else 0.0
 
+class _Stage:
+    """One interval of a StageTimer stage. The clock starts before the
+    profiler range opens and stops after it closes, so a range's cost
+    shows in the stage's total."""
+
+    __slots__ = ("timer", "name", "items", "t0", "rng")
+
+    def __init__(self, timer: StageTimer, name: str, items: float):
+        self.timer, self.name, self.items = timer, name, items
+        self.rng = None
+
+    def __enter__(self) -> None:
+        self.t0 = time.perf_counter()
+        # the flag torch.autograd.profiler keeps while any profiler runs,
+        # its cheapest check (a profiler of the card alone sets it too)
+        if _autograd_profiler._is_profiler_enabled:
+            prefix = self.timer.prefix
+            self.rng = _range_enter(f"stage.{prefix}.{self.name}" if prefix
+                                    else f"stage.{self.name}")
+
+    def __exit__(self, *exc) -> None:
+        if self.rng is not None:
+            _range_exit(self.rng)
+        s = self.timer.stats[self.name]
+        s.calls += 1
+        s.total_s += time.perf_counter() - self.t0
+        s.items += self.items
 
 
 @contextlib.contextmanager
@@ -73,7 +111,6 @@ def trace(log_dir: str) -> Iterator:
     where a card is present, into ``log_dir/trace_<pid>_<ns>.json``, a
     Chrome trace that Perfetto and chrome://tracing open. Yields the
     ``torch.profiler.profile`` object (``key_averages()``, ``events()``)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -190,7 +190,7 @@ def _receiver(source, **kw):
         block_ms=20), source, device=CPU)
 
 
-_RUN_ONLY = ("stage_timing", "track_realtime_factor")
+_RUN_ONLY = ("stage_timing",)
 
 
 @pytest.mark.parametrize("scan_blocks", [1, 4])

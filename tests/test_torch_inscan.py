@@ -94,7 +94,10 @@ def test_rising_satellite_acquired_in_scan_as_in_jax(runs, pipe):
     assert abs(ch[RISER]["last_doppler_hz"] - 1300.0) < 60
     assert rx.fused.last_span_extra is not None or pipe
     # the search ran in the spans: the boundary search never did
-    assert set(s["stage_timing"]) == set(js["stage_timing"])
+    # the port's own host stages and dotted sub-steps aside, the same
+    # stages ran in both receivers
+    port = {k for k in s["stage_timing"] if "." not in k}
+    assert port - {"window", "lifecycle"} == set(js["stage_timing"])
     assert s["stage_timing"]["acquire"]["calls"] == \
         js["stage_timing"]["acquire"]["calls"]
 
