@@ -52,17 +52,19 @@ GPU:
      kernel's device time from the profiler, events around each launch
      beside it), the plain version's and the bound;
  12. the scanned receiver (the JAX package's default tracker) on the
-     24-satellite scene, 5 s from a cold start: correlator="pallas" (B5
-     launched blocks x 501 times, B1 and B3 never) and the default
-     "shift" (no kernel launch), each twice, on the eager loop and on
-     its CUDA graph (the first block the warm-up, the second the
-     capture and a replay, apart from the later blocks'), the two runs'
-     telemetry and summaries equal; every PRN tracked within 40 Hz; one
-     block of each profiled (host launch calls, device kernels per
-     epoch, busy share, B5's launches and time inside the replay); then
-     the graph against the eager loop block by block, bit for bit in
-     the state and the 17 telemetry fields, 3 blocks and a 200 ms tail
-     on the same graph, the replays with the sync debug mode at "error";
+     24-satellite scene, 5 s from a cold start: the default "shift" (B7
+     launched once a block, no other kernel) on the eager launch and on
+     its CUDA graph (the first block the warm-up, the second the capture
+     and a replay, apart from the later blocks'), the two runs'
+     telemetry and summaries equal, and correlator="pallas" on its graph
+     (the same dispatch to B7); every PRN tracked within 40 Hz; B5's
+     main-path launches (none) from these runs' counts; one block of
+     each run profiled (host
+     launch calls, device kernels, busy share, B7's time inside the
+     replay); then the graph against the eager launch block by block,
+     bit for bit in the state and the 17 telemetry fields, 3 blocks and
+     a 200 ms tail on the same graph, the replays with the sync debug
+     mode at "error";
  13. the IF capture: an int8 real file at 16.368 MHz with a 4.092 MHz
      IF, DC removal, mixed and decimated 4x on the card, 2 s,
      correlator="pallas": every PRN tracked within 40 Hz, eager and
@@ -70,6 +72,24 @@ GPU:
  14. the fused receiver on a stream that ends in a partial block: the
      full blocks through B1, the tail through the scanned tracker,
      eager and graph runs equal;
+ 14b. kernel B7 (the scanned tracker's block of epochs in one launch)
+     against its plain version, the op loop, on the card (SCAN_CASES:
+     "shift" and "pallas", power and Costas lock, carrier aiding and
+     interp on and off, a forced death, 1, 15 and 32 channels, 2.048 and
+     8.184 MHz, 101 and 501 epochs): open loop (every epoch from the op
+     loop's ledger: the integer ledger, flags, starts and epoch counts
+     equal, the sums within 1e-4 of their column's max; and B7's one
+     launch of the block's epochs equal bit for bit to its own chained
+     one-epoch launches: the prefetch, the second window slot and the
+     parity slot), a tail block, closed loop over 12 blocks on every
+     case (flags, starts and epoch counts equal, the carrier within 10
+     Hz; at 32 channels and 500 ms of the nearer of the op loop on the
+     card and on the CPU), its CUDA graph against its eager launch bit
+     for bit with one launch a replay; its time per block at the rtlsdr
+     default's shape (15 channels, 100 ms, 2.048 MHz) and the main
+     path's (32 channels, 500 ms, 2.046 MHz), the op loop's and the
+     bounds (bytes once, operations, and the latency of one cluster
+     barrier an epoch);
  15. the per-epoch kernels against their plain versions at full width
      (32 channels, 24 tracking and 8 idle), open loop (pieces of 20-25
      epochs, each from the kernel's own state), power, Costas and
@@ -910,11 +930,13 @@ def _launch_counts():
     from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
     from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
 
     return {"track_block_fused_mxu": fused.launch_count,
             "_mxu_kernel_shared": fused.shared_launch_count,
             "track_block_fused_direct": fused.direct_launch_count,
             "epl_correlate_pallas": b5.launch_count,
+            "track_block_scan": b7.launch_count,
             "track_block_fused": ep.windows_launch_count,
             "track_block_fused_seg": ep.seg_launch_count,
             "gather_segments": ep.gather_launch_count,
@@ -925,10 +947,12 @@ def _reset_launch_counts():
     from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
     from gnss_sdr_tpu_torch.ops.cuda import track_block_epoch as ep
     from gnss_sdr_tpu_torch.ops.cuda import track_block_fused as fused
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
 
     fused.reset_launch_count()
     ep.reset_launch_count()
     b5.reset_launch_count()
+    b7.reset_launch_count()
 
 
 def _expect_launches(launches, **counts):
@@ -947,7 +971,7 @@ def _run_receiver(torch, sats, sig, label, layout="auto", scan_blocks=1,
     checks every PRN tracked within 40 Hz and all blocks processed;
     prints its real-time factor and stage shares. The launch counts are
     set to 0 just before the run and read just after. ``scan_graph``:
-    the scanned tracker's CUDA graph (True) or its eager loop; ``mesh``:
+    the scanned tracker's CUDA graph (True) or its eager run; ``mesh``:
     given to the receiver through its own ``_use_mesh`` before the run.
     Returns (receiver, summary with the run's wall time "wall_s" added,
     launches)."""
@@ -1468,7 +1492,7 @@ def _profile(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     res = dict(wall_ms=wall * 1e3, kernels=0, kernel_ms=0.0, b5_kernels=0,
-               b5_ms=0.0, host_calls={})
+               b5_ms=0.0, b7_kernels=0, b7_ms=0.0, host_calls={})
     for e in prof.key_averages():
         name = e.key
         if name.startswith(("cudaGraphLaunch", "cuGraphLaunch",
@@ -1483,6 +1507,9 @@ def _profile(torch, fn):
             if "epl_correlator_kernel" in name:
                 res["b5_kernels"] += e.count
                 res["b5_ms"] += us / 1e3
+            if "track_block_scan_kernel" in name:
+                res["b7_kernels"] += e.count
+                res["b7_ms"] += us / 1e3
     res["host_launch_calls"] = sum(res["host_calls"].values())
     res["busy_share"] = res["kernel_ms"] / res["wall_ms"]
     return res
@@ -1523,18 +1550,18 @@ def _scan_run(torch, sats, sig, label, correlator, scan_graph, **kw):
 
 
 def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
-    """The scanned tracker's CUDA graph against its eager loop on the
-    card, bit for bit in the [13, C] state and the 17 telemetry fields:
-    ``n_full`` 500 ms blocks and then a tail of ``tail_ms`` valid ms
+    """The scanned tracker's CUDA graph against its eager run (B7's
+    launch with "shift" and "pallas") on the card, bit for bit in the
+    [13, C] state and the 17 telemetry fields: ``n_full`` 500 ms blocks and then a tail of ``tail_ms`` valid ms
     through the same graph, each pair from the same ledger (the scene's
     first 32 satellites started on their code boundaries), the graph
     calls after the second (the first two warm up and capture, where the
-    key is new) with the sync debug mode at "error". B5's launches are
-    counted from the replays (501 per block with "pallas"). Returns the
-    number of blocks compared."""
+    key is new) with the sync debug mode at "error". B7's launches are
+    counted from the replays (one per block with either correlator).
+    Returns the number of blocks compared."""
     from gnss_sdr_tpu_torch.config import AcqConfig, TrackConfig
     from gnss_sdr_tpu_torch.models import GPS_L1CA
-    from gnss_sdr_tpu_torch.ops.cuda import epl_correlator as b5
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
     from gnss_sdr_tpu_torch.receiver import tracking as trk
     from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
 
@@ -1555,7 +1582,7 @@ def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
                                GPS_L1CA.code_rate_hz)
     codes = torch.from_numpy(trk.make_code_table(GPS_L1CA, 32)[
         np.maximum(st.prn_idx, 0)]).cuda()
-    per_replay = t_epochs if correlator == "pallas" else 0
+    per_replay = 1
     graphs = set()
     for k in range(n_full + 1):
         x = sig[k * block:k * block + history + block]
@@ -1566,7 +1593,7 @@ def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
         valid = None if k < n_full else history + tail_ms * n0
         eager = trk.track_block_device(params, codes, st, re, im, t_epochs,
                                        valid, graph=False)
-        before = b5.launch_count
+        before = b7.launch_count
         torch.cuda.synchronize()
         if k >= 2:
             torch.cuda.set_sync_debug_mode("error")
@@ -1578,7 +1605,7 @@ def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
         # the tail block too replays the graph of its key
         graphs.add(trk._GRAPHS[trk.graph_key(params, codes, st, re,
                                              t_epochs)])
-        assert b5.launch_count - before == per_replay
+        assert b7.launch_count - before == per_replay
         assert torch.equal(replay, eager), (correlator, k)
         end, tl = trk.unpack_block(replay, N_CHANNELS, t_epochs)
         assert tl.processed.any(axis=0)[:len(sats)].all(), (correlator, k)
@@ -1588,37 +1615,37 @@ def scan_graph_vs_eager(torch, correlator, sats, sig, n_full=3, tail_ms=200):
     print(f"scanned tracker graph vs eager [{correlator}]: {n_full} blocks "
           f"and a {tail_ms} ms tail on the same graph equal bit for bit "
           "(state and 17 telemetry fields); blocks 3 on under sync debug "
-          f"mode 'error'; B5 launches counted from the replays: {per_replay} "
+          f"mode 'error'; B7 launches counted from the replays: {per_replay} "
           "per block")
     return n_full + 1
 
 
 def phase_scan_receiver(torch):
-    """The scanned receiver at the operating point, cold start, 5 s:
-    correlator="pallas" through B5 and the default "shift", each on its
-    eager loop and on its CUDA graph (first block apart), the two runs'
-    telemetry equal; one block of each profiled (host launch calls,
-    device kernels, busy share); the graph against the eager loop block
-    by block, bit for bit, with a tail block on the same graph."""
+    """The scanned receiver at the operating point, cold start, 5 s: the
+    default "shift" correlator on its eager launch and on its CUDA graph
+    (first block apart), the two runs' telemetry equal, and "pallas" on
+    its graph: both dispatch to B7, one launch a block and no other
+    kernel; one block of each run profiled (host launch calls, device
+    kernels, busy share); the graph against the eager launch block by
+    block, bit for bit, with a tail block on the same graph."""
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     sats, sig = _scene(SCAN_S)
     n_blocks = sig.size // (BLOCK_MS * 2046)
     t_epochs = BLOCK_MS + 1
     out = {}
-    for correlator in ("pallas", "shift"):
+    for correlator, graphs in (("shift", (False, True)), ("pallas", (True,))):
         runs = {}
-        for graph in (False, True):
+        for graph in graphs:
             rx, summary, launches, stats = _scan_run(
                 torch, sats, sig, "scan", correlator, graph)
-            _expect_launches(launches, epl_correlate_pallas=(
-                n_blocks * t_epochs if correlator == "pallas" else 0))
+            _expect_launches(launches, track_block_scan=n_blocks)
             codes = rx._codes_for_state()
             prof = _profile(torch, lambda: trk.track_block(
                 rx.params, codes, rx.state, rx.window.re, rx.window.im,
                 t_epochs, valid_len=rx.history + rx.block, graph=graph))
-            assert prof["b5_kernels"] == (t_epochs if correlator == "pallas"
-                                          else 0), prof
+            assert prof["b7_kernels"] == 1 and prof["b5_kernels"] == 0, prof
+            assert not graph or prof["host_launch_calls"] <= 10, prof
             stats["profiled_block"] = prof
             print(f"  profiled block [{correlator}, "
                   f"{'graph' if graph else 'eager'}]: wall "
@@ -1627,20 +1654,455 @@ def phase_scan_receiver(torch):
                   f"{json.dumps(prof['host_calls'])}, device kernels "
                   f"{prof['kernels']} ({prof['kernels'] / t_epochs:.1f} per "
                   f"epoch) {prof['kernel_ms']:.3f} ms, busy share "
-                  f"{prof['busy_share']:.4f}, B5 {prof['b5_kernels']} "
-                  f"kernels {prof['b5_ms']:.3f} ms")
+                  f"{prof['busy_share']:.4f}, B7 {prof['b7_kernels']} "
+                  f"kernel {prof['b7_ms']:.3f} ms")
             runs[graph] = (rx, summary, launches, stats)
-        _same_run(f"scanned receiver [{correlator}]", runs[False][:2],
-                  runs[True][:2])
-        assert runs[True][3]["profiled_block"]["host_launch_calls"] <= 10
         out[correlator] = runs
-    ch_p = {c["prn"]: c for c in out["pallas"][True][1]["channels"]}
-    ch_s = {c["prn"]: c for c in out["shift"][True][1]["channels"]}
-    worst = max(abs(ch_p[p]["last_doppler_hz"] - ch_s[p]["last_doppler_hz"])
-                for p in range(1, 25))
-    print(f"pallas vs shift receiver: |Doppler difference| <= {worst:.4f} Hz")
-    for correlator in ("pallas", "shift"):
-        scan_graph_vs_eager(torch, correlator, sats, sig)
+    _same_run("scanned receiver [shift]", out["shift"][False][:2],
+              out["shift"][True][:2])
+    scan_graph_vs_eager(torch, "shift", sats, sig)
+    return out
+
+
+# ---- kernel B7: the scanned tracker's block of epochs in one launch ------
+
+# the scanned blocks B7 is held to its plain version (the op loop) on:
+# name -> (fs, channels, block_ms, TrackConfig keywords); the rtlsdr
+# default at 15 channels first, then the lock, aiding and interp
+# variants, a forced death, one channel, the main path's 32 channels at
+# 500 ms and GPS at 8.184 MHz
+SCAN_CASES = {
+    "shift": (2_048_000.0, 15, 100, {}),
+    "pallas": (2_048_000.0, 15, 100, dict(correlator="pallas")),
+    "costas": (2_048_000.0, 15, 100, dict(lock_mode="costas")),
+    "aiding": (2_048_000.0, 15, 100, dict(carrier_aiding=True)),
+    "interp": (2_048_000.0, 15, 100, dict(interp_code=True)),
+    "pallas_costas_aiding_interp": (2_048_000.0, 15, 100, dict(
+        correlator="pallas", lock_mode="costas", carrier_aiding=True,
+        interp_code=True)),
+    "death": (2_048_000.0, 15, 100, dict(lock_threshold=1e12,
+                                         max_lost_epochs=7)),
+    "c1": (2_048_000.0, 1, 100, {}),
+    "c32_500ms": (FS, N_CHANNELS, BLOCK_MS, {}),
+    "gps_8184k": (8_184_000.0, 15, 100, {}),
+}
+# each sum's (and the power's) largest difference over its column's
+# largest |value|: the sums run in another order (B5's tolerance)
+SCAN_SUM_TOL = 1e-4
+# the processed channels' discriminators (cycles, chips): the atan and
+# the early-late ratio of sums that differ by ulps
+SCAN_DISC_TOL = 1e-5
+SCAN_CLOSED_BLOCKS = 12
+# the closed-loop cases held to the op loop on the CPU as well. The
+# carrier step is the f32 fraction of the cycles a sample times 2**32
+# (nco.cycles_to_step, the JAX package's arithmetic): for a negative
+# Doppler the fraction is near 1, whose f32 grain is 256 counts, so
+# carrier rates an ulp apart can take steps 256 counts apart, a carrier
+# phase gap of 1.2e-4 cycles an epoch that the loops carry on. Over 501
+# epochs at 32 channels the op loop on the card parts so from the op loop
+# on the CPU (PRN 7, -800 Hz, at epoch 84 of the first block;
+# tools/port_scan_probe.py), while B7 stays with the CPU's; from one
+# ledger, epoch by epoch, the three agree within ulps. So B7 is held to
+# the nearer plain version, channel by channel
+SCAN_CLOSED_ON_CPU = ("c32_500ms",)
+# the benchmark's loop_gap_hz limit (gpubench/configs/gps_l1_rtlsdr.json)
+SCAN_LOOP_GAP_HZ = 10.0
+# the timed shapes: the rtlsdr default and the main path's
+SCAN_TIMED = ("shift", "c32_500ms")
+# f32 ops per processed lane in B7: B5's, the phase's scale to radians
+# and a precise sincosf (about 20: the range reduction and two
+# polynomials in fma pairs; an estimate that errs low, so the bound stays
+# a bound)
+B7_OPS_PER_LANE = B5_OPS_PER_LANE + 1 + 20
+# B7's floor an epoch: its chain is serial, and each epoch waits on one
+# cluster barrier (the blocks' sums pushed by DSMEM, then the wait); the
+# figure the kernel's design takes for it, not measured
+SCAN_BARRIER_US = 1.0
+SCAN_TIMING_PASSES = 30
+# the integer ledger, the flags, the starts and the epoch counts: exact
+_SCAN_EXACT_STATE = ("active", "prn_idx", "offset", "epochs", "lost_count",
+                     "carr_acc", "chip_int", "chip_frac_u32")
+_SCAN_EXACT_TELEM = ("processed", "locked", "lost_event", "start_offset",
+                     "epoch_index", "chip_phase")
+_SCAN_SUMS = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "power")
+
+
+def scan_scene(name, n_blocks=1, seed=0):
+    """The inputs of ``n_blocks`` scanned blocks for SCAN_CASES[name], in
+    numpy: the TrackParams, the channels' code rows [C, L], the start
+    ledger (each satellite's channel on its code boundary at sample 0;
+    where C >= 4 one channel on PRN 32, which the stream lacks, and 3
+    idle channels), the stream (the blocks and two code periods past
+    them, room for the catch-up epoch), the samples a block and the
+    epochs a block. Returns (params, codes, state, sig, block, n_epochs)."""
+    from gnss_sdr_tpu_torch.config import TrackConfig
+    from gnss_sdr_tpu_torch.models import (GPS_L1CA, SatelliteScenario,
+                                           synthesize)
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    fs, c, block_ms, cfg_kw = SCAN_CASES[name]
+    params = trk.TrackParams.create(TrackConfig(n_channels=c, **cfg_kw),
+                                    GPS_L1CA, fs)
+    n0 = GPS_L1CA.samples_per_code(fs)
+    block = block_ms * n0
+    n_sats = c if c < 4 else c - 4
+    sats = scene_sats(SatelliteScenario)[:n_sats]
+    sig = synthesize(sats, n_blocks * block + 2 * n0, fs, noise_std=1.0,
+                     seed=seed).astype(np.complex64)
+    st = trk.init_state(c)
+    for ch, s in enumerate(sats):
+        off = int(round((1023.0 - s.code_phase_chips) % 1023.0
+                        * fs / GPS_L1CA.code_rate_hz))
+        st = trk.start_channel(st, ch, s.prn - 1, s.doppler_hz, off,
+                               GPS_L1CA.code_rate_hz)
+    if c >= 4:
+        st = trk.start_channel(st, n_sats, 31, 1000.0, 100,
+                               GPS_L1CA.code_rate_hz)
+    codes = trk.make_code_table(GPS_L1CA, 32)[np.maximum(st.prn_idx, 0)]
+    return params, codes, st, sig, block, block_ms + 1
+
+
+def scan_block(torch, sig, k, block, device="cuda"):
+    """Block k of ``sig`` with the stream's tail past a block (two code
+    periods), as f32 re, im on ``device``."""
+    x = sig[k * block:(k + 1) * block + sig.size % block]
+    return (torch.from_numpy(np.ascontiguousarray(x.real)).to(device),
+            torch.from_numpy(np.ascontiguousarray(x.imag)).to(device))
+
+
+def scan_run(torch, how, params, codes, st, re, im, n_epochs, valid=None):
+    """One block from the host ledger ``st`` on the card: ``how`` "b7"
+    (the kernel's wrapper), "ops" (the op loop), "eager" or "graph"
+    (track_block_device without or with its graph). Returns the int32
+    result."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    codes = torch.as_tensor(codes).to(re.device)
+    if how in ("eager", "graph"):
+        return trk.track_block_device(params, codes, st, re, im, n_epochs,
+                                      valid, graph=how == "graph")
+    limit = re.shape[0] if valid is None else min(re.shape[0], valid)
+    ins = torch.from_numpy(trk._pack_inputs(st, limit)).to(re.device)
+    fn = b7.track_block_scan if how == "b7" else trk.run_epoch_ops
+    return fn(params, codes, ins, re, im, n_epochs)
+
+
+def scan_compare(a, b, label):
+    """B7's block ``a`` against the op loop's ``b`` (unpack_block pairs)
+    from the same ledger: the exact fields equal, the sums and the power
+    within SCAN_SUM_TOL of their column's max, the processed channels'
+    discriminators within SCAN_DISC_TOL. Returns the largest deviations:
+    the sums' relative, the discriminators' and the loop floats' (the
+    carrier and code rates, the stored discriminators and the lock EMA)
+    absolute."""
+    (sa, ta), (sb, tb) = a, b
+    for f in _SCAN_EXACT_STATE:
+        assert np.array_equal(getattr(sa, f), getattr(sb, f)), (label, f)
+    for f in _SCAN_EXACT_TELEM:
+        assert np.array_equal(getattr(ta, f), getattr(tb, f)), (label, f)
+    dev = {"sums_rel": 0.0, "disc": 0.0, "carr_freq_hz": 0.0,
+           "code_rate_hz": 0.0, "loop_state": 0.0}
+    for f in _SCAN_SUMS:
+        u = np.asarray(getattr(ta, f), np.float64)
+        v = np.asarray(getattr(tb, f), np.float64)
+        scale = np.maximum(np.abs(v).max(axis=1, keepdims=True), 1e-30)
+        dev["sums_rel"] = max(dev["sums_rel"],
+                              float((np.abs(u - v) / scale).max()))
+    proc = tb.processed
+    for f in ("pll_err", "dll_err"):
+        d = np.abs(getattr(ta, f).astype(np.float64) - getattr(tb, f))
+        dev["disc"] = max(dev["disc"], float(d[proc].max(initial=0.0)))
+    for f, key in (("carr_freq", "carr_freq_hz"), ("code_rate",
+                                                   "code_rate_hz")):
+        d = np.abs(getattr(ta, f).astype(np.float64) - getattr(tb, f))
+        dev[key] = max(dev[key], float(d[proc].max(initial=0.0)),
+                       float(np.abs(getattr(sa, f).astype(np.float64)
+                                    - getattr(sb, f)).max()))
+    for f in ("carr_err", "code_err", "lock_ema"):
+        dev["loop_state"] = max(dev["loop_state"], float(np.abs(
+            getattr(sa, f).astype(np.float64) - getattr(sb, f)).max()))
+    assert dev["sums_rel"] <= SCAN_SUM_TOL, (label, dev)
+    assert dev["disc"] <= SCAN_DISC_TOL, (label, dev)
+    return dev
+
+
+def _worst(acc, dev):
+    return {k: max(acc.get(k, 0.0), v) for k, v in dev.items()}
+
+
+def scan_chain_check(torch, params, codes, st, re, im, n_epochs, limit,
+                     label):
+    """B7's multi-epoch path against B7 itself: one launch of
+    ``n_epochs`` epochs from the ledger ``st`` equal bit for bit, end
+    state and every telemetry row, to ``n_epochs`` chained one-epoch
+    launches, each from the last one's end state. The chain is the same
+    deterministic code with one epoch a launch, so this holds the next
+    window's prefetch, the second window slot and the parity slot of the
+    block sums exactly (a one-epoch launch runs none of them)."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    c = st.active.shape[0]
+    codes = torch.as_tensor(codes).to(re.device)
+    ins = torch.from_numpy(trk._pack_inputs(st, limit)).to(re.device)
+    whole = b7.track_block_scan(params, codes, ins, re, im, n_epochs)
+    rows = []
+    for _ in range(n_epochs):
+        one = b7.track_block_scan(params, codes, ins, re, im, 1)
+        rows.append(one[13 * c:].view(17, 1, c))
+        ins = torch.cat([one[:13 * c], ins[13 * c:]])
+    telem = whole[13 * c:].view(17, n_epochs, c)
+    chained = torch.cat(rows, dim=1)
+    differ = (telem != chained).any(dim=0).any(dim=1).nonzero()
+    assert differ.numel() == 0, (label, "first epoch differing",
+                                 int(differ[0]))
+    assert torch.equal(whole[:13 * c], ins[:13 * c]), (label, "end state")
+
+
+def scan_open_loop(torch, name, seed=0, tail=False, n_epochs=None):
+    """B7 against the op loop on the card, open loop: every epoch of one
+    block run by both with ``n_epochs=1`` from the op loop's ledger
+    (scan_compare); then B7's one launch of the block's epochs against
+    its own chained one-epoch launches, bit for bit (scan_chain_check).
+    With ``tail`` two thirds of the block valid (a stream's last block).
+    Returns the largest deviations and the channel-epochs processed."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, st, sig, block, t_epochs = scan_scene(name, seed=seed)
+    re, im = scan_block(torch, sig, 0, block)
+    valid = 2 * block // 3 if tail else None
+    c = st.active.shape[0]
+    n_epochs = n_epochs or t_epochs
+    scan_chain_check(torch, params, codes, st, re, im, n_epochs,
+                     min(re.shape[0], valid or re.shape[0]), name)
+    worst, processed = {}, 0
+    for t in range(n_epochs):
+        a = trk.unpack_block(scan_run(torch, "b7", params, codes, st, re, im,
+                                      1, valid), c, 1)
+        b = trk.unpack_block(scan_run(torch, "ops", params, codes, st, re,
+                                      im, 1, valid), c, 1)
+        worst = _worst(worst, scan_compare(a, b, (name, t)))
+        processed += int(b[1].processed.sum())
+        st = b[0]
+    return worst, processed
+
+
+def scan_closed_loop(torch, name, n_blocks=SCAN_CLOSED_BLOCKS, seed=0):
+    """B7 on its graph (track_block_device) and the op loop on the card,
+    each over ``n_blocks`` blocks from its own ledger (closed loop, the
+    ledger rebased by a block after each): the flags, the starts and the
+    epoch counts equal every epoch, and the carrier rates of processed
+    epochs within SCAN_LOOP_GAP_HZ. On the SCAN_CLOSED_ON_CPU cases the
+    op loop runs on the CPU as well, with the same flags, and each
+    channel's carrier is held within SCAN_LOOP_GAP_HZ of the nearer of
+    the two plain versions. Returns the largest carrier gap to the card's
+    op loop (Hz), the largest held, each channel held to the CPU's op
+    loop alone with its two gaps, the largest prompt-sum gap over its
+    block's max and the lost events."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, st, sig, block, t_epochs = scan_scene(name, n_blocks,
+                                                         seed=seed)
+    c = st.active.shape[0]
+    sides = ("graph", "ops") + (("cpu",) if name in SCAN_CLOSED_ON_CPU
+                                else ())
+    ledger = dict.fromkeys(sides, st)
+    carr = {s: np.zeros(c) for s in sides[1:]}
+    gap = {"i_p_rel": 0.0, "lost_events": 0}
+    for k in range(n_blocks):
+        re, im = scan_block(torch, sig, k, block)
+        out = {s: trk.unpack_block(scan_run(
+            torch, "ops" if s == "cpu" else s, params, codes, ledger[s],
+            *((re.cpu(), im.cpu()) if s == "cpu" else (re, im)), t_epochs),
+            c, t_epochs) for s in sides}
+        ta = out["graph"][1]
+        for s in sides[1:]:
+            tb = out[s][1]
+            for f in ("processed", "locked", "lost_event", "start_offset",
+                      "epoch_index"):
+                assert np.array_equal(getattr(ta, f), getattr(tb, f)), \
+                    (name, s, k, f)
+            d = np.abs(ta.carr_freq.astype(np.float64) - tb.carr_freq)
+            carr[s] = np.maximum(carr[s], np.where(tb.processed, d,
+                                                   0.0).max(axis=0))
+        tb = out["ops"][1]
+        gap["i_p_rel"] = max(gap["i_p_rel"], float(
+            np.abs(ta.i_p.astype(np.float64) - tb.i_p).max()
+            / max(np.abs(tb.i_p).max(), 1e-30)))
+        gap["lost_events"] += int(tb.lost_event.sum())
+        ledger = {s: trk.rebase(out[s][0], block) for s in sides}
+    held = np.minimum.reduce([carr[s] for s in sides[1:]])
+    gap["carr_freq_hz"] = float(carr["ops"].max())
+    gap["carr_freq_hz_held"] = float(held.max())
+    gap["held_to_cpu"] = {
+        int(ch): [float(carr["ops"][ch]), float(carr["cpu"][ch])]
+        for ch in np.nonzero(carr["ops"] > SCAN_LOOP_GAP_HZ)[0]
+    } if "cpu" in sides else {}
+    assert gap["carr_freq_hz_held"] <= SCAN_LOOP_GAP_HZ, (name, gap)
+    return gap
+
+
+def scan_graph_check(torch, name, n_full=3, seed=0):
+    """B7 through track_block_device: ``n_full`` blocks and then a tail
+    block (two thirds of a block valid) on one graph key, each replay
+    equal to B7's eager launch bit for bit, a second eager launch equal
+    to the first, exactly one B7 launch a replay (counted from the
+    replays), the replays under the sync debug mode "error"; on the tail
+    block the op loop processes the same epochs. Returns the blocks
+    compared."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, st, sig, block, t_epochs = scan_scene(name, n_full + 1,
+                                                         seed=seed)
+    codes = torch.from_numpy(codes).cuda()
+    c = st.active.shape[0]
+    keys = set()
+    for k in range(n_full + 1):
+        re, im = scan_block(torch, sig, k, block)
+        valid = None if k < n_full else 2 * block // 3
+        eager = scan_run(torch, "eager", params, codes, st, re, im,
+                         t_epochs, valid)
+        again = scan_run(torch, "eager", params, codes, st, re, im,
+                         t_epochs, valid)
+        assert torch.equal(eager, again), (name, k)
+        torch.cuda.synchronize()
+        before = b7.launch_count
+        if k >= 2:                    # past the warm-up and the capture
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay = scan_run(torch, "graph", params, codes, st, re, im,
+                              t_epochs, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert b7.launch_count - before == 1, (name, k)
+        assert torch.equal(replay, eager), (name, k)
+        keys.add(trk.graph_key(params, codes, st, re, t_epochs))
+        end, tl = trk.unpack_block(replay, c, t_epochs)
+        if valid is not None:
+            assert 0 < tl.processed[:, 0].sum() < t_epochs
+            # the op loop over the same tail: the same epochs processed
+            _, to = trk.unpack_block(scan_run(torch, "ops", params, codes,
+                                              st, re, im, t_epochs, valid),
+                                     c, t_epochs)
+            for f in ("processed", "start_offset", "epoch_index"):
+                assert np.array_equal(getattr(tl, f), getattr(to, f)), f
+        st = trk.rebase(end, block)
+    (key,) = keys
+    g = trk._GRAPHS[key]
+    assert g.graph is not None
+    assert g.graph.launches == {(b7.__name__, "launch_count"): 1}, \
+        g.graph.launches
+    return n_full + 1
+
+
+def scan_inputs(torch, name):
+    """SCAN_CASES[name]'s first block on the card as B7 takes it: (params,
+    codes [C, L], the packed ledger, re, im, epochs, samples a code
+    period)."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, st, sig, block, t_epochs = scan_scene(name)
+    re, im = scan_block(torch, sig, 0, block)
+    ins = torch.from_numpy(trk._pack_inputs(st, re.shape[0])).cuda()
+    return (params, torch.from_numpy(codes).cuda(), ins, re, im, t_epochs,
+            block // (t_epochs - 1))
+
+
+def scan_bound(codes, ins, re, im, out, n0):
+    """B7's bounds on one block (ms) from its result ``out``: the bytes
+    it must move once (the block's re and im, read once although every
+    channel's cluster reads it from L2; the code rows, the ledger in, the
+    result out) over 3.35 TB/s; the processed lanes' f32 operations
+    (B7_OPS_PER_LANE each, n0 lanes a processed channel-epoch) over 67
+    TFLOP/s; the latency of its serial chain, one cluster barrier an
+    epoch (SCAN_BARRIER_US). Returns the three, the largest as
+    ``bound_ms`` and its name as ``bound_by``."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    c = codes.shape[0]
+    t_epochs = (out.numel() // c - 13) // 17
+    _, tl = trk.unpack_block(out, c, t_epochs)
+    n_bytes = _nbytes(re, im, codes, ins, out)
+    ops = B7_OPS_PER_LANE * float(tl.processed.sum()) * n0
+    b = {"bytes_ms": n_bytes / H100_BYTES_S * 1e3,
+         "operations_ms": ops / H100_F32_FLOPS * 1e3,
+         "latency_ms": t_epochs * SCAN_BARRIER_US * 1e-3}
+    by = max(b, key=b.get)
+    return dict(b, bound_ms=b[by], bound_by=by[:-3], bytes=n_bytes, ops=ops)
+
+
+def scan_timing(torch, name, passes=SCAN_TIMING_PASSES, inputs=None):
+    """B7's time per block at SCAN_CASES[name]'s shape (CUDA events
+    around each of ``passes`` launches queued behind a head start, the
+    block L2-resident as the receiver leaves it), the op loop's (its
+    eager loop, one call at a time) and the bounds (scan_bound).
+    ``inputs``: scan_inputs(torch, name), made here where None."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, ins, re, im, t_epochs, n0 = (inputs
+                                                or scan_inputs(torch, name))
+    no_flush = torch.empty(0, dtype=torch.uint8, device="cuda")
+
+    def kernel():
+        return b7.track_block_scan(params, codes, ins, re, im, t_epochs)
+
+    def plain():
+        return trk.run_epoch_ops(params, codes, ins, re, im, t_epochs)
+
+    for _ in range(3):
+        kernel()
+    out = plain()
+    torch.cuda.synchronize()
+    k = _time_queued(torch, kernel, passes, no_flush)
+    p = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        p.append((time.perf_counter() - t0) * 1e3)
+    res = dict(name=name, channels=codes.shape[0], epochs=t_epochs,
+               ms=statistics.median(k), ms_min=min(k), ms_max=max(k),
+               us_per_epoch=statistics.median(k) * 1e3 / t_epochs,
+               plain_ms=statistics.median(p),
+               **scan_bound(codes, ins, re, im, out, n0))
+    print(f"timing [B7, {name}] (ms per block): " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in res.items()}))
+    return res
+
+
+def phase_scan_kernel(torch):
+    """B7 against its plain version (the op loop) on the card: open loop
+    on every SCAN_CASES case and on the default case's tail block (each
+    with B7's multi-epoch launch against its chained one-epoch launches),
+    closed loop over SCAN_CLOSED_BLOCKS blocks on every case, the graph
+    against the eager launch on the default and the main path's cases,
+    and the time per block at SCAN_TIMED's shapes."""
+    out = {"open": {}, "closed": {}, "timing": {}}
+    for name in SCAN_CASES:
+        worst, n = scan_open_loop(torch, name)
+        out["open"][name] = worst
+        print(f"B7 vs op loop, open loop [{name}]: {n} channel-epochs "
+              "processed, ledger, flags and starts equal; "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    worst, n = scan_open_loop(torch, "shift", tail=True)
+    out["open"]["shift_tail"] = worst
+    print(f"B7 vs op loop, open loop [shift, a tail block]: {n} processed; "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    for name in SCAN_CASES:
+        gap = scan_closed_loop(torch, name)
+        out["closed"][name] = gap
+        print(f"B7 vs op loop, closed loop [{name}, {SCAN_CLOSED_BLOCKS} "
+              "blocks]: flags, starts and epochs equal; " + json.dumps(gap))
+    for name in SCAN_TIMED:
+        scan_graph_check(torch, name)
+        print(f"B7 graph [{name}]: replays equal to the eager launch bit for "
+              "bit, two launches equal, one launch a replay, a tail block "
+              "on the same key")
+        out["timing"][name] = scan_timing(torch, name)
     return out
 
 
@@ -1679,8 +2141,7 @@ def phase_if_capture(torch):
             finally:
                 src.close()
             assert rx.fs == FS_IF_IN / IF_DECIM and rx.f_if == 0.0
-            assert launches["epl_correlate_pallas"] == n_blocks * (
-                BLOCK_MS + 1)
+            _expect_launches(launches, track_block_scan=n_blocks)
             runs[graph] = (rx, summary, launches, stats)
     _same_run("IF capture", runs[False][:2], runs[True][:2])
     return runs
@@ -4753,7 +5214,7 @@ def phase_mesh_receiver(torch, device="cuda", mesh_devices=None):
     ``run(scan_blocks=4)`` on 9 blocks and a 200 ms tail, whose tail goes
     through ``parallel.sharded_track_block`` (the slice correlator); (2)
     the scanned receiver with correlator="pallas" on 3 blocks and a 200
-    ms tail, every block through sharded_track_block, B5 launched per
+    ms tail, every block through sharded_track_block, B7 launched per
     shard (16 and 8 channels a shard: cluster 8, as at 32, so the sums
     match). Each run tracks every PRN within 40 Hz; telemetry and
     summaries equal to the unsharded run's (the fused receiver's tail at
@@ -4781,7 +5242,7 @@ def phase_mesh_receiver(torch, device="cuda", mesh_devices=None):
             ("fused, spans of 4", "fused", 9, "track_block_fused_mxu",
              dict(scan_blocks=4)),
             ("scanned, pallas", "pallas", MESH_SCAN_FULL,
-             "epl_correlate_pallas", {})):
+             "track_block_scan", {})):
         x = sig[:n_full * block + MESH_TAIL_MS * 2046]
         runs = {}
         for n in (1, *MESH_SHARDS):
@@ -4813,7 +5274,7 @@ def phase_mesh_receiver(torch, device="cuda", mesh_devices=None):
             for n in MESH_SHARDS:
                 _expect_launches(runs[n][2], **{kernel: n * l1[kernel]})
         if correlator == "pallas" and device == "cuda":
-            assert l1[kernel] == (n_full + 1) * (BLOCK_MS + 1), l1
+            assert l1[kernel] == n_full + 1, l1
         out["launches"][label] = {n: r[2] for n, r in runs.items()}
         for n in MESH_SHARDS:
             what = f"unsharded and {n}-shard runs"
@@ -5046,12 +5507,14 @@ def main() -> int:
     phase_lean_check(torch)
     dtiming = phase_timing(torch, layout="direct")
     steady = phase_steady(torch)
+    _reset_launch_counts()                  # B5's checks start here
     b5_abs = phase_b5_check(torch)
     b5_timing = phase_b5_timing(torch)
+    b5_check_launches = _launch_counts()["epl_correlate_pallas"]
     scan = phase_scan_receiver(torch)
-    phase_if_capture(torch)
+    if_runs = phase_if_capture(torch)
     phase_fused_tail(torch)
-    b5_graph = scan["pallas"][True][3]["profiled_block"]
+    scan_k = phase_scan_kernel(torch)
     epoch_abs, resident_launches = phase_epoch_check(torch)
     direct_abs = max(direct_abs, epoch_abs["direct"])
     etiming = phase_epoch_timing(torch)
@@ -5168,22 +5631,54 @@ def main() -> int:
         "route": "cuda",
         "source": src + "epl_correlator.cu",
         "replaces": "gnss_sdr_tpu/ops/pallas/epl_correlator.py:104",
-        # the slice's main path: the scanned receiver, correlator="pallas",
-        # on its CUDA graph (launches counted from the replays)
-        "launches": scan["pallas"][True][2]["epl_correlate_pallas"],
-        "launches_eager": scan["pallas"][False][2]["epl_correlate_pallas"],
-        "launches_mesh": {"scanned, pallas": {
-            n: mesh_rx["launches"]["scanned, pallas"][n][
-                "epl_correlate_pallas"] for n in MESH_SHARDS}},
+        # the main path, the scanned receiver (phase 12, its counts reset
+        # before it): none, its sums are computed inside B7; B5 runs only
+        # through its entry points (phases 10-11) and the op loop
+        "launches": scan["shift"][True][2]["epl_correlate_pallas"],
+        "launches_checks": b5_check_launches,
         "max_abs_err": b5_abs,
         "ms": b5_timing["ms"],
         "ms_per_launch": b5_timing["ms_per_launch"],
-        "graph_replay_ms_per_block": b5_graph["b5_ms"],
-        "graph_replay_ms_per_launch": (b5_graph["b5_ms"]
-                                       / b5_graph["b5_kernels"]),
         "plain_ms": b5_timing["plain_ms"],
         "bound_ms": b5_timing["bound_ms"],
         "bound_by": b5_timing["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "track_block_scan",
+        "route": "cuda",
+        "source": src + "track_block_scan.cu",
+        # no TPU kernel: the JAX package's epoch_step runs as XLA ops
+        "replaces": None,
+        # the scanned receiver on its CUDA graph, one launch a block
+        # (counted from the replays)
+        "launches": scan["shift"][True][2]["track_block_scan"],
+        "launches_by_path": {
+            "scanned_shift_eager": scan["shift"][False][2][
+                "track_block_scan"],
+            "scanned_pallas_graph": scan["pallas"][True][2][
+                "track_block_scan"],
+            "if_capture_graph": if_runs[True][2]["track_block_scan"]},
+        "launches_mesh": {"scanned, pallas": {
+            n: mesh_rx["launches"]["scanned, pallas"][n][
+                "track_block_scan"] for n in MESH_SHARDS}},
+        "sums_rel_err": max(v["sums_rel"] for v in scan_k["open"].values()),
+        # to the card's op loop; held: to the nearer plain version on the
+        # SCAN_CLOSED_ON_CPU cases
+        "closed_loop_carrier_gap_hz": max(
+            v["carr_freq_hz"] for v in scan_k["closed"].values()),
+        "closed_loop_carrier_gap_hz_held": max(
+            v["carr_freq_hz_held"] for v in scan_k["closed"].values()),
+        "closed_loop_held_to_cpu": {
+            k: v["held_to_cpu"] for k, v in scan_k["closed"].items()
+            if v["held_to_cpu"]},
+        "shapes": {name: {k: t[k] for k in (
+            "channels", "epochs", "ms", "us_per_epoch", "plain_ms",
+            "bound_ms", "bound_by", "bytes_ms", "operations_ms",
+            "latency_ms")} for name, t in scan_k["timing"].items()},
+        "ms": scan_k["timing"][SCAN_TIMED[1]]["ms"],
+        "plain_ms": scan_k["timing"][SCAN_TIMED[1]]["plain_ms"],
+        "bound_ms": scan_k["timing"][SCAN_TIMED[1]]["bound_ms"],
+        "bound_by": scan_k["timing"][SCAN_TIMED[1]]["bound_by"],
         "library_ms": None,
     }] + [{
         "name": name,

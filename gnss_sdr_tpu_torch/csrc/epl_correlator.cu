@@ -39,17 +39,14 @@
 //    distributed shared memory. No atomics: the same inputs give the
 //    same bits on every run, which the tracker's closed loop and the
 //    graph-versus-eager check rely on.
-//  * No integer modulo: base_idx = chip_int * os is in [0, L*os) and
-//    floor(x) in [-L*os, 2 L*os) for any code rate below twice the
-//    nominal (the ramp spans W + 2 shift samples, about one code
-//    period), so base_idx + floor(x) is in [-L*os, 3 L*os) and at most
-//    two conditional adds or subtracts wrap it, equal to torch.remainder
-//    (wrap_code_index in the wrapper module is the same rule in torch,
-//    and the tests hold the two to torch.remainder). A ledger outside that
+//  * The per-lane body (wipe-off, chip ramp, code-index wrap without a
+//    modulo, six products) is epl_lane.cuh, shared with kernel B7 (the
+//    scanned tracker's block of epochs in one launch). The index wrap
+//    equals torch.remainder on the ramps a tracked channel makes
+//    (wrap_code_index in the wrapper module is the same rule in torch, and
+//    the tests hold the two to torch.remainder); a ledger outside that
 //    range (a corrupt state) is clamped into the row, so no lane reads
 //    outside it.
-//  * One precise sincosf per lane (not __sincosf, whose error would move
-//    the sums' ulps).
 //  * Each thread issues its first window loads before it waits for the
 //    code row, which is staged in shared memory with cp.async (faster at
 //    every cluster size on the H100 than reading the row through __ldg,
@@ -64,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epl_lane.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -72,9 +71,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 4;          // window lanes a thread loads ahead
 constexpr int kMaxCluster = 8;     // the portable cluster size
-// f32(2 pi / 2^32), the constant the plain version's to_radians rounds to
-constexpr float kRadPerCount = (float)(6.283185307179586 / 4294967296.0);
-
 struct Params {
   const float* re;         // the block, [n_block]
   const float* im;
@@ -97,36 +93,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-// (base_idx + fl) mod n for base_idx in [0, n) and fl in [-n, 2n), by at
-// most two conditional adds or subtracts; outside that, clamped into the
-// row (wrap_code_index in ops/cuda/epl_correlator.py is this rule)
-__device__ __forceinline__ int wrap_index(int base_idx, float fl, int n) {
-  const float nf = (float)n;
-  int idx = base_idx + (int)fminf(fmaxf(fl, -nf), 3.0f * nf);
-  if (idx < 0) {
-    idx += n;
-  } else {
-    if (idx >= n) idx -= n;
-    if (idx >= n) idx -= n;
-  }
-  return min(max(idx, 0), n - 1);
-}
-
-__device__ __forceinline__ float chip_at(const float* code, int n_code,
-                                         int base_idx, float chip_frac,
-                                         float cps, float os, int j,
-                                         int interp) {
-  float x = fmaf((float)j, cps, chip_frac) * os;
-  float fl = floorf(x);
-  int idx = wrap_index(base_idx, fl, n_code);
-  float v = code[idx];
-  if (interp) {
-    int nxt = idx + 1 == n_code ? 0 : idx + 1;
-    v = fmaf(x - fl, code[nxt] - v, v);
-  }
-  return v;
-}
-
 __global__ void __launch_bounds__(kThreads)
     epl_correlator_kernel(Params p) {
   extern __shared__ float staged[];
@@ -146,12 +112,13 @@ __global__ void __launch_bounds__(kThreads)
   const int n_valid = min(p.n_valid[c], p.w);
   const int lo = rank * p.part;
   const int hi = min(lo + p.part, n_valid);
-  const uint32_t acc = (uint32_t)p.carr_acc[c];
-  const uint32_t step = (uint32_t)p.carr_step[c];
-  const int base_idx = p.chip_int[c] * p.oversample;
-  const float frac = p.chip_frac[c];
-  const float cps = p.cps[c];
-  const float os = (float)p.oversample;
+  epl::LaneNco q;
+  q.acc = (uint32_t)p.carr_acc[c];
+  q.step = (uint32_t)p.carr_step[c];
+  q.base_idx = p.chip_int[c] * p.oversample;
+  q.frac = p.chip_frac[c];
+  q.cps = p.cps[c];
+  q.os = (float)p.oversample;
   // the wrapper checks the starts against the block on the host; the
   // clamp keeps every read inside it whatever the card holds
   const int start = min(max(p.start[c], 0), p.n_block - p.w);
@@ -176,26 +143,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       int li = i + b * kThreads;
-      if (li < hi) {
-        uint32_t phase = acc + (uint32_t)li * step;
-        float theta = (float)phase * kRadPerCount;
-        float st, ct;
-        sincosf(theta, &st, &ct);
-        float wre = xr[b] * ct + xi[b] * st;
-        float wim = xi[b] * ct - xr[b] * st;
-        float e = chip_at(staged, p.n_code, base_idx, frac, cps, os,
-                          li + p.shift, p.interp);
-        float pr = chip_at(staged, p.n_code, base_idx, frac, cps, os, li,
-                           p.interp);
-        float l = chip_at(staged, p.n_code, base_idx, frac, cps, os,
-                          li - p.shift, p.interp);
-        s[0] += wre * e;
-        s[1] += wim * e;
-        s[2] += wre * pr;
-        s[3] += wim * pr;
-        s[4] += wre * l;
-        s[5] += wim * l;
-      }
+      if (li < hi)
+        epl::accumulate(xr[b], xi[b], li, q, staged, p.n_code, p.shift,
+                        p.interp, s);
     }
     i += kBatch * kThreads;
 #pragma unroll

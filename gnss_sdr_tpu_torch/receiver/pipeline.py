@@ -93,9 +93,10 @@ def _on_device(t: torch.Tensor, device: torch.device) -> bool:
 class Receiver:
     def __init__(self, cfg: ReceiverConfig, source: SampleSource,
                  device=None, scan_graph: bool = True):
-        """``scan_graph=False`` runs the scanned tracker's eager loop on
-        the card instead of its CUDA graph (tracking.track_block_device),
-        for checks that hold the two to each other."""
+        """``scan_graph=False`` runs the scanned tracker's block eagerly
+        on the card instead of as its CUDA graph
+        (tracking.track_block_device), for checks that hold the two to
+        each other."""
         self.cfg = cfg
         self.scan_graph = scan_graph
         self.source = source

@@ -19,9 +19,12 @@ runs the discriminators, lock detector and loop filters, and advances
 the exact ledger; lock and loss transitions are masked selects. Nothing
 in the epoch loop waits for the card: the state goes up in one packed
 copy and comes back, with the [T, C] telemetry, in one copy at the end.
-On CUDA the loop is captured once per block shape as a CUDA graph and
-replayed (track_block_device), as the JAX package jits its scan: about
-180 small ops per epoch would otherwise each cost a launch from Python.
+On the card, with the "shift" or "pallas" correlator, the whole block of
+epochs is ONE launch of kernel B7 (ops/cuda/track_block_scan.py), which
+computes epoch_step with B5's sums; the other correlators run the op
+loop (run_epoch_ops), about 190 small ops an epoch. Either is captured
+once per block shape as a CUDA graph and replayed (track_block_device),
+as the JAX package jits its scan.
 
 Arithmetic as the JAX package's jitted graph computes it on the CPU
 (checked bit for bit against it on the integer ledger): a division by
@@ -51,6 +54,7 @@ from ..ops.correlator import (
     fma,
 )
 from ..ops.cuda import launches
+from ..ops.cuda import track_block_scan as b7
 from ..ops.cuda.epl_correlator import epl_correlate_block
 from ..utils.profiling import StageTimer
 
@@ -485,10 +489,26 @@ def epoch_step(params: TrackParams, codes: torch.Tensor,
 def _run_epochs(params: TrackParams, codes: torch.Tensor, ins: torch.Tensor,
                 block_re: torch.Tensor, block_im: torch.Tensor,
                 n_epochs: int) -> torch.Tensor:
-    """The block's epochs as torch ops on the inputs' device, from the
-    packed inputs ``ins`` (_pack_inputs; ``limit`` stays a 0-d tensor, so
-    a tail block runs the same ops as a full one). Returns the int32
-    result of track_block_device."""
+    """The block's epochs on the inputs' device, from the packed inputs
+    ``ins`` (_pack_inputs): with a correlator whose sums kernel B7
+    computes ("shift", "pallas") through B7's wrapper, which launches it
+    on the card and runs its plain version, the op loop, on the CPU; the
+    other correlators run the op loop. Returns the int32 result of
+    track_block_device."""
+    if params.correlator in b7.CORRELATORS:
+        return b7.track_block_scan(params, codes, ins, block_re, block_im,
+                                   n_epochs)
+    return run_epoch_ops(params, codes, ins, block_re, block_im, n_epochs)
+
+
+def run_epoch_ops(params: TrackParams, codes: torch.Tensor,
+                  ins: torch.Tensor, block_re: torch.Tensor,
+                  block_im: torch.Tensor, n_epochs: int) -> torch.Tensor:
+    """The block's epochs as torch ops (epoch_step) on the inputs'
+    device, from the packed inputs ``ins`` (``limit`` stays a 0-d tensor,
+    so a tail block runs the same ops as a full one): B7's plain version,
+    and the path of the other correlators. Returns the int32 result of
+    track_block_device."""
     c = (ins.shape[0] - 1) // len(ChannelState._fields)
     st = _device_state(ins[:-1].view(-1, c))
     limit = ins[-1]
@@ -538,8 +558,11 @@ class _BlockGraph:
     so does every later call without the capture. A key used once (a
     stream's short last block) so never pays for a capture. One graph
     holds the whole block, not one epoch, so a block costs the host one
-    graph launch instead of one per epoch; its capture is the dearer
-    for it (about 1.4-2.3 s on the H100 at 32 channels, PERF.md)."""
+    graph launch instead of one per epoch. Where B7 runs the block (the
+    "shift" and "pallas" correlators) the graph holds its one launch; the
+    op loop's graph holds some 190 kernels an epoch, and its capture is
+    the dearer for it (about 1.4-2.3 s on the H100 at 32 channels,
+    PERF.md)."""
 
     def __init__(self, key: tuple):
         params, n_epochs, c, n, n_code, dev = key
@@ -623,21 +646,23 @@ def track_block_device(params: TrackParams, codes, state: ChannelState,
     the limit go up in one copy from pinned memory, and nothing here
     waits for the card.
 
-    On CUDA the epochs run on the block's card, made current here, as
+    On CUDA the epochs run on the block's card, made current here (one
+    launch of kernel B7 with "shift" or "pallas", else the op loop), as
     one CUDA graph per graph_key (the
     counterpart of the JAX package's jitted scan): a key's first call is
     the eager warm-up, its second captures, and every call from the
     second on replays; each call copies its inputs into the graph's
     buffers, and the result is a copy of the graph's. A capture that
     fails raises.
-    ``graph=False`` runs the eager loop of torch ops instead, which the
-    checks hold the replay to; on the CPU the eager loop always runs."""
+    ``graph=False`` runs the same eagerly (B7's launch, or the loop of
+    torch ops), which the checks hold the replay to; on the CPU the op
+    loop always runs."""
     if params.correlator not in CORRELATORS:
         raise ValueError(f"unknown correlator {params.correlator!r}; "
                          f"expected one of {CORRELATORS}")
-    block_re = torch.as_tensor(block_re, dtype=torch.float32)
+    block_re = torch.as_tensor(block_re, dtype=torch.float32).contiguous()
     block_im = torch.as_tensor(block_im, dtype=torch.float32,
-                               device=block_re.device)
+                               device=block_re.device).contiguous()
     dev = block_re.device
     codes = torch.as_tensor(codes, dtype=torch.float32).to(dev).contiguous()
     limit = block_re.shape[0]

@@ -234,11 +234,11 @@ def test_b5_window_past_block_raises_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("correlator", ["shift", "pallas"])
 def test_scan_graph_equals_eager_on_card(card, correlator):
-    """The scanned tracker's CUDA graph against its eager loop, bit for
+    """The scanned tracker's CUDA graph against its eager launch, bit for
     bit in the [13, C] state and the 17 telemetry fields, over 3 blocks
     and a 200 ms tail block on the same graph; the calls after the
     warm-up and the capture run with the sync debug mode at "error";
-    B5's launches counted from the replays."""
+    B7's launches counted from the replays, one a block."""
     sats, sig = chip_smoke._scene(2.5)
     assert chip_smoke.scan_graph_vs_eager(torch, correlator, sats,
                                           sig) == 4
@@ -248,12 +248,99 @@ def test_scan_graph_equals_eager_on_card(card, correlator):
 def test_scan_receiver_on_card(card):
     """1.5 s of the 24-satellite scene through the scanned tracker with
     correlator="pallas" (on its CUDA graph): every PRN tracked within 40
-    Hz, B5 launched once per epoch (blocks x 501, counted from the
-    replays), no other kernel."""
+    Hz, B7 launched once a block (counted from the replays), no other
+    kernel."""
     sats, sig = chip_smoke._scene(1.5)
     rx, summary, launches = chip_smoke._run_receiver(
         torch, sats, sig, "test", correlator="pallas")
-    chip_smoke._expect_launches(launches, epl_correlate_pallas=3 * 501)
+    chip_smoke._expect_launches(launches, track_block_scan=3)
+
+
+# kernel B7: the scanned tracker's block of epochs in one launch, held to
+# its plain version (the op loop, run_epoch_ops) on the same card. The
+# sums run in another order than the op loop's, so they are held within
+# chip_smoke.SCAN_SUM_TOL of their column's max and the discriminators of
+# processed channels within SCAN_DISC_TOL; the integer ledger, the flags,
+# the starts and the epoch counts come before the sums and are exact.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.SCAN_CASES))
+def test_b7_matches_op_loop_open_loop_on_card(card, case):
+    """Every epoch of one block run by B7 and by the op loop with
+    n_epochs=1 from the op loop's ledger (chip_smoke.scan_compare), and
+    B7's one launch of the block's epochs equal bit for bit to its own
+    chained one-epoch launches (chip_smoke.scan_chain_check: the
+    prefetch, the second window slot and the parity slot); B7 counted
+    once a launch, the op loop never."""
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+
+    _, c, block_ms, _ = chip_smoke.SCAN_CASES[case]
+    before = b7.launch_count
+    worst, processed = chip_smoke.scan_open_loop(torch, case)
+    assert b7.launch_count == before + 2 * (block_ms + 1) + 1
+    assert processed > 0
+    print(case, worst)
+
+
+@pytest.mark.cuda
+def test_b7_tail_block_open_loop_on_card(card):
+    """A stream's last block, two thirds valid: B7 against the op loop
+    open loop, the processing stopping where the valid samples do."""
+    worst, processed = chip_smoke.scan_open_loop(torch, "shift", tail=True)
+    assert 0 < processed < 12 * 101
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.SCAN_CASES))
+def test_b7_closed_loop_on_card(card, case):
+    """B7 on its CUDA graph and the op loop over 12 blocks (100 ms, and
+    500 ms at the main path's 32 channels), each from its own ledger:
+    flags, starts and epoch counts equal, the carrier within the
+    benchmark's loop_gap_hz limit (10 Hz) of the op loop on the card; at
+    32 channels and 500 ms the op loop runs on the CPU too, and each
+    channel is held to the nearer of the two
+    (chip_smoke.SCAN_CLOSED_ON_CPU: over 501 epochs the plain versions
+    part themselves where a negative Doppler's carrier step, in grains
+    of 256 counts, falls on either side of a grain's edge)."""
+    gap = chip_smoke.scan_closed_loop(torch, case)
+    assert gap["carr_freq_hz_held"] <= chip_smoke.SCAN_LOOP_GAP_HZ
+    if case not in chip_smoke.SCAN_CLOSED_ON_CPU:
+        assert gap["carr_freq_hz"] <= chip_smoke.SCAN_LOOP_GAP_HZ
+    if case == "death":
+        assert gap["lost_events"] == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shift", "c32_500ms", "gps_8184k"])
+def test_b7_graph_equals_eager_launch_on_card(card, case):
+    """B7 through track_block_device: each replay equal to its eager
+    launch bit for bit, two eager launches equal, one launch a replay,
+    a tail block on the same graph key (chip_smoke.scan_graph_check)."""
+    assert chip_smoke.scan_graph_check(torch, case) == 4
+
+
+@pytest.mark.cuda
+def test_b7_bad_arguments_raise_on_card(card):
+    """The wrapper's checks on the card: inputs on two devices, a ledger
+    for another C, and the exact correlator, which B7 does not compute."""
+    import dataclasses
+
+    from gnss_sdr_tpu_torch.ops.cuda import track_block_scan as b7
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    params, codes, st, sig, block, t = chip_smoke.scan_scene("c1")
+    re, im = chip_smoke.scan_block(torch, sig, 0, block)
+    codes = torch.from_numpy(codes).cuda()
+    ins = torch.from_numpy(trk._pack_inputs(st, re.shape[0])).cuda()
+    before = b7.launch_count
+    with pytest.raises(ValueError, match="ins is on"):
+        b7.track_block_scan(params, codes, ins.cpu(), re, im, t)
+    with pytest.raises(ValueError, match="13"):
+        b7.track_block_scan(params, codes, ins[1:].contiguous(), re, im, t)
+    with pytest.raises(ValueError, match="correlator"):
+        b7.track_block_scan(dataclasses.replace(params, correlator="exact"),
+                            codes, ins, re, im, t)
+    assert b7.launch_count == before
 
 
 # the per-epoch layouts: B4a (windows), B4b (seg) with B4c, B6 (resident)
