@@ -33,17 +33,15 @@ def main(argv=None) -> int:
     from gpubench.harness.cell import run_cell
 
     bench = spec.load_benchmark(ROOT)
-    n_blocks = None
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         run = run_cell(bench, args.workload, seed, args.seconds, False,
                        device=args.device,
                        log=lambda m: print(m, file=sys.stderr))
-        n_blocks = int(run.traffic["check"]["track_blocks"])
         ok, prog = checks.check(run, log=lambda m: print(m, file=sys.stderr))
         acq, acq_hz, _ = checks.check_acq(
             run, int(run.traffic["check"]["acq_searches"]), control=True)
-        trk, loop, _ = checks.check_track(run, n_blocks, control=True)
+        trk, loop, _ = checks.check_tracking(run, control=True)
         line = dict(seed=seed, program={k: v for k, (v, _) in prog.items()},
                     control=dict(acq_gap=acq, acq_freq_gap_hz=acq_hz,
                                  track_gap=trk, loop_gap_hz=loop),

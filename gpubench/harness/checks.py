@@ -6,7 +6,9 @@ whatever the program derived from them.
   acq_gap      each branch's first search and a seeded sample of its
                others: the detected PRNs and each one's code phase the
                same as the reference's, and the largest relative gap of
-               the peak/average ratios (a differing detection reads 1)
+               the peak/average ratios (a differing detection reads 1);
+               an in-scan search (searched inside a span) compares the
+               ratio of every PRN it searched
   acq_freq_gap_hz  in the same searches: the largest gap of a detection's
                fine carrier, Hz
   track_gap    a sample of the window's blocks, drawn from the seed,
@@ -27,6 +29,22 @@ whatever the program derived from them.
                with nothing decoded (but for the branches that the
                configuration's ``nav_missing_skip`` names)
 
+In spans (a traffic whose drive runs ``scan_blocks`` > 1) the tracking
+numbers compare every block of a sample of the window's spans, drawn
+from the seed: the reference starts each span from the ledger the
+program started it from and carries its own ledger from block to block
+(``reference/span.py``), each superstep after the span's first at the
+rates the program held in it; ``loop_gap_hz`` is then the gap between
+the rates its own loop update gave and the program's. The sums compare
+as the program's download carries them (in bfloat16 on the slim2 wire:
+the gap beyond half a bfloat16 step). Every pair of blocks, inside
+spans and across them, carries on (the next block's first epoch one
+code period, or as many as the offset walk skipped, past this block's
+last); the span's last ledger equals the reference's in its integer
+fields; and between two spans the program started exactly the
+handoffs of the searches in between, in order, into idle channels, and
+nothing else in the ledger changed.
+
 A configuration compares the numbers its ``limits`` name.
 
 The control (``control=True``) puts the reference at the control's
@@ -39,7 +57,8 @@ import numpy as np
 import torch
 
 from ..reference import acquisition as ref_acq
-from ..reference import fused, ledger, lnav, scanned
+from ..reference import conv_acquisition as conv_acq
+from ..reference import fused, ledger, lnav, scanned, span
 from ..signals import SIGNALS, beidou_b1i, glonass_l1of
 
 NUMBERS = ("acq_gap", "acq_freq_gap_hz", "track_gap", "loop_gap_hz",
@@ -129,6 +148,49 @@ def _search_ref(x, name, d, fs, allowed, rnd):
     return ref_acq.search(x, codes, fs, acq, n_int, squaring=sq, rnd=rnd)
 
 
+def _conv_decim(acq: dict, sig, n_fft: int) -> int:
+    """The conv engine's coarse decimation (its configuration's
+    ``coarse_decim``, or the largest power of two that divides the
+    period's samples and keeps a sample a chip, two for BOC)."""
+    if acq["coarse_decim"]:
+        return int(acq["coarse_decim"])
+    floor = sig.code_length * (2 if sig.boc else 1)
+    r, k = 1, 2
+    while n_fft % k == 0 and n_fft // k >= floor:
+        r, k = k, k * 2
+    return r
+
+
+def _conv_ref(re8, im8, scale, name, d, fs, prns, rnd):
+    sig, acq = SIGNALS[name], d["acq"]
+    inv = 1.0 / scale
+    codes = {p: sig.sample_code(p, fs) for p in prns}
+    n_fft = int(round(fs * sig.code_period_ms / 1000.0))
+    return conv_acq.search(re8.double() * inv, im8.double() * inv, codes,
+                           fs, acq, acq["non_coherent_ms"]
+                           // sig.code_period_ms,
+                           _conv_decim(acq, sig, n_fft),
+                           float(acq["detection_threshold"]), rnd=rnd)
+
+
+def row_gaps(prog: dict, ref: dict) -> tuple[float, float, int | None]:
+    """``acq_gaps`` over every searched PRN of an in-scan search, ``prog``
+    {PRN: (detected, ratio, lag, Hz)} as ``ref``: the detections equal,
+    a detection's code phase equal (else 1), the largest relative gap of
+    the ratios of every PRN, detected or not."""
+    worst, hz, at = 0.0, 0.0, None
+    for prn, (det, ratio, lag, freq) in ref.items():
+        p_det, p_ratio, p_lag, p_freq = prog[prn]
+        if bool(p_det) != bool(det) or (det and int(p_lag) != lag):
+            return 1.0, hz, prn
+        if det:
+            hz = max(hz, abs(float(p_freq) - freq))
+        gap = abs(float(p_ratio) - ratio) / ratio
+        if gap > worst:
+            worst, at = gap, prn
+    return worst, hz, at
+
+
 def check_acq(run, n_searches: int, control=False, log=None
               ) -> tuple[float, float, int]:
     """(acq_gap, acq_freq_gap_hz, searches compared) over each branch's
@@ -147,19 +209,38 @@ def check_acq(run, n_searches: int, control=False, log=None
             rest = rng.choice(np.arange(1, len(searches)), n_searches - 1,
                               replace=False)
             searches = [searches[0]] + [searches[i] for i in sorted(rest)]
+        conv = d["acq"]["engine"] == "conv"
         for s in searches:
             a = s["gs"] + s["w0"] - lay.block
             re8, im8 = run.stream.int8_range(a, a + lay.acq_len)
-            inv = 1.0 / run.stream.scale
-            x = torch.complex(re8.double() * inv, im8.double() * inv)
-            ref = _search_ref(x, name, d, fs, s["allowed"], ref_acq.as_is)
-            if control:
-                ctl = _search_ref(x, name, d, fs, s["allowed"], ref_acq.bf16)
-                prog = {p: (lag, f, r) for p, (det, r, lag, f) in ctl.items()
-                        if det}
+            in_scan = s.get("kind") == "span"
+            prns = ([p for p in s["rowmap"] if p is not None] if in_scan
+                    else s["allowed"])
+
+            def search(low):
+                """The reference's verdicts, at the configuration's
+                precision or (``low``) the control's."""
+                if conv:
+                    return _conv_ref(re8, im8, run.stream.scale, name, d, fs,
+                                     prns, conv_acq.f8 if low
+                                     else conv_acq.bf16)
+                inv = 1.0 / run.stream.scale
+                x = torch.complex(re8.double() * inv, im8.double() * inv)
+                return _search_ref(x, name, d, fs, prns,
+                                   ref_acq.bf16 if low else ref_acq.as_is)
+            ref = search(False)
+            if in_scan:
+                # an in-scan search: every row it searched
+                prog = search(True) if control else {
+                    p: (s["detected"][i], s["ratio"][i], s["lag"][i],
+                        s["freq"][i]) for i, p in enumerate(s["rowmap"])
+                    if p is not None}
+                gap, hz, prn = row_gaps(prog, ref)
             else:
-                prog = {p: (lag, f, r) for p, lag, f, r in s["cands"]}
-            gap, hz, prn = acq_gaps(prog, ref)
+                prog = ({p: (lag, f, r) for p, (det, r, lag, f)
+                         in search(True).items() if det} if control
+                        else {p: (lag, f, r) for p, lag, f, r in s["cands"]})
+                gap, hz, prn = acq_gaps(prog, ref)
             worst_hz = max(worst_hz, hz)
             if gap >= worst:
                 worst = gap
@@ -317,6 +398,258 @@ def check_track(run, n_blocks: int, control=False) -> tuple[float, float,
     return gap, loop, seen
 
 
+# -- tracking in spans --------------------------------------------------
+
+def block_summary(telem, gs: int) -> tuple:
+    """What ``carries_on_blocks`` reads of a block: its window's global
+    start, and per channel whether it processed an epoch, whether it
+    lost lock, and the start sample and epoch count of its first and
+    last processed epochs."""
+    proc = np.asarray(telem.processed)
+    cols = np.arange(proc.shape[1])
+    first = np.argmax(proc, axis=0)
+    last = proc.shape[0] - 1 - np.argmax(proc[::-1], axis=0)
+    so = np.asarray(telem.start_offset)
+    ei = np.asarray(telem.epoch_index)
+    return (int(gs), proc.any(axis=0),
+            np.asarray(telem.lost_event).any(axis=0), so[first, cols],
+            so[last, cols], ei[first, cols], ei[last, cols])
+
+
+def carries_on_blocks(a: tuple, b: tuple, n0: int) -> bool:
+    """Whether block ``b`` carries on from block ``a`` (summaries) for
+    every channel ``a`` processed and did not lose: ``b`` processes it,
+    its first epoch count past ``a``'s last by the code periods between
+    them (one, or more where the offset walk skipped), and its first
+    start that many periods (+-2 samples) past ``a``'s last."""
+    gs_a, any_a, lost_a, _, so_last, _, ei_last = a
+    gs_b, any_b, _, so_first, _, ei_first, _ = b
+    for c in np.nonzero(any_a & ~lost_a)[0]:
+        if not any_b[c]:
+            return False
+        periods = int(ei_first[c]) - int(ei_last[c])
+        step = (gs_b + int(so_first[c])) - (gs_a + int(so_last[c]))
+        if periods < 1 or abs(step - periods * n0) > 2:
+            return False
+    return True
+
+
+def _led(x, code_rate_hz: float) -> tuple:
+    """A span's ledger on the host: from a ChannelState, or from the
+    card's ledger tensors."""
+    if hasattr(x, "_fields"):
+        return span.led_from_state(x._asdict(), code_rate_hz)
+    return tuple(np.asarray(t.cpu().numpy() if torch.is_tensor(t) else t)
+                 for t in x)
+
+
+def _prn_rows(rec: dict, n_ch: int) -> np.ndarray:
+    """Each channel's PRN row at a span's start."""
+    x = rec["led_in"]
+    if hasattr(x, "_fields"):
+        return np.asarray(x.prn_idx)
+    rows = np.zeros(n_ch, np.int32)
+    for prn, ch in rec["channels"].items():
+        rows[ch] = prn - 1
+    return rows
+
+
+def _excess(p, r, wire: str) -> np.ndarray:
+    """|p - r|, less half a bfloat16 step of the larger where the wire
+    carries the program's value in bfloat16."""
+    p, r = np.asarray(p, np.float64), np.asarray(r, np.float64)
+    d = np.abs(p - r)
+    if wire == "f32":
+        return d
+    m = np.maximum(np.abs(p), np.abs(r))
+    e = np.floor(np.log2(np.where(m > 0, m, 1.0)))
+    return np.maximum(d - np.where(m > 0, 2.0 ** (e - 8), 0.0), 0.0)
+
+
+def span_track_gap(prog: dict, ref: dict, wire: str, k: int) -> float:
+    """``track_gaps``' sum gap of one block of a span, on what the wire
+    carries: the prompt sums every processed epoch, the early and late
+    sums where the wire has them (slim2: the first epoch of even
+    supersteps); a differing flag, start or epoch count reads 1."""
+    for f in FLAGS:
+        if not np.array_equal(np.asarray(prog[f], bool), ref[f]):
+            return 1.0
+    proc = ref["processed"]
+    if not proc.any():
+        return 0.0
+    for f in LEDGER:
+        if not np.array_equal(np.asarray(prog[f])[proc], ref[f][proc]):
+            return 1.0
+    mag = np.sqrt(ref["i_p"].astype(np.float64) ** 2
+                  + ref["q_p"].astype(np.float64) ** 2)
+    carried = np.ones(proc.shape[0], bool)
+    if wire == "slim2":
+        carried[:] = False
+        carried[::2 * k] = True
+    gap = 0.0
+    for c in np.nonzero(proc.any(axis=0))[0]:
+        rows = proc[:, c]
+        scale = max(float(np.median(mag[rows, c])), 1e-30)
+        for f in SUMS:
+            r = rows if f in ("i_p", "q_p") else rows & carried
+            if r.any():
+                d = _excess(np.asarray(prog[f])[r, c], ref[f][r, c], wire)
+                gap = max(gap, float(d.max()) / scale)
+    return gap
+
+
+def check_handoffs(run, br, n0: int, block: int, code_rate_hz: float
+                   ) -> str | None:
+    """Between two spans of one run: the handoffs the program made
+    (``acq_events``) are the searches' candidates in between, in order,
+    as many as idle channels take (eight a span in the pipeline), and
+    the next span's ledger is the last one's with exactly those
+    channels started (synchronous spans on the host from the search's
+    code boundary; the pipeline on the card, the boundary moved into
+    [n0, 2 n0) of the span's window, a span late). Returns what
+    differs, or None."""
+    pipelined = bool(run.drive.get("span_pipeline"))
+    events = br.acq_events
+    for i in range(1, len(br.spans)):
+        a, b = br.spans[i - 1], br.spans[i]
+        if a["run"] != b["run"] or b["first"] != a["first"] + a["k"]:
+            continue
+        made = [(c.prn, float(np.float32(c.carrier_freq_hz)),
+                 int(c.sample_local_index))
+                for _, c in events[a["events"]:b["events"]]]
+        found = [(p, float(np.float32(f)), int(x)) for s in br.searches
+                 if s["unit"] == i - 1 for p, f, x in s["handed"]]
+        last = _led(a["led_out"], code_rate_hz)
+        n_idle = int((last[0] < 0.5).sum())
+        take = min(len(found), n_idle, 8 if pipelined else len(found))
+        if made != found[:take]:
+            return (f"span {i}: handoffs {made} where the searches before "
+                    f"it gave {found}")
+        start = b["led_in"]
+        if pipelined:
+            want = last
+            for prn, freq, sample in made:
+                ch = b["channels"][prn]
+                if want[0][ch] > 0.5:
+                    return f"span {i}: PRN {prn} started on busy channel {ch}"
+                off = n0 + (sample - a["k"] * block) % n0
+                want = span.start_in_led(want, ch, freq, off, code_rate_hz)
+            got = _led(start, code_rate_hz)
+        else:
+            st = span.state_from_led(last, a["led_in"].prn_idx)
+            want_d = ledger.handoff(st, made, code_rate_hz)
+            want = [want_d[f] for f in ledger.DTYPES]
+            got = [np.asarray(getattr(start, f)) for f in ledger.DTYPES]
+        for w, g in zip(want, got):
+            if not np.array_equal(np.asarray(w), np.asarray(g)):
+                return f"span {i}: the ledger it started from differs"
+    return None
+
+
+def check_spans(run, n_spans: int, control=False, log=None
+                ) -> tuple[float, float, list]:
+    """(track_gap, loop_gap_hz, [(branch, block, gap, loop gap)]) over
+    every block of ``n_spans`` of the window's spans, drawn from the
+    seed as the window ran; the links between blocks, the spans' last
+    ledgers and the handoffs between spans besides (not for the
+    control)."""
+    fs = float(run.config["stream"]["fs_hz"])
+    gap, loop, seen = 0.0, 0.0, []
+    for name, br in run.branches.items():
+        d = run.config["branches"][name]
+        sig = SIGNALS[name]
+        lay = Layout(d, fs, sig.code_period_ms)
+        code_len = int(sig.code_length)
+        if not control:
+            ids = sorted(br.summary)
+            for b in ids:
+                nxt = br.summary.get(b + 1)
+                if nxt is not None and not carries_on_blocks(
+                        br.summary[b], nxt, lay.n0):
+                    gap, loop = 1.0, FLAG_GAP_HZ
+                    seen.append((name, int(b), 1.0, FLAG_GAP_HZ))
+                    if log:
+                        log(f"{name}: block {b + 1} does not carry on")
+                    break
+            bad = check_handoffs(run, br, lay.n0, lay.block,
+                                 sig.code_rate_hz)
+            if bad is not None:
+                gap, loop = 1.0, FLAG_GAP_HZ
+                seen.append((name, -1, 1.0, FLAG_GAP_HZ))
+                if log:
+                    log(f"{name}: {bad}")
+        g = fused.Geometry.create(
+            d, fs, sig.code_length, sig.code_rate_hz, sig.carrier_hz,
+            sig.code_period_ms, sig.boc, lay.history + lay.block)
+        table = fused.sampled_table(
+            lambda p: sig.sample_code(p, fs), d["acq"]["n_prn"], lay.n0,
+            lay.n0 + d["track"]["window_margin"])
+        picked = sorted(br.sampled)[:n_spans]
+        if not picked:
+            gap, loop = 1.0, FLAG_GAP_HZ
+            if log:
+                log(f"{name}: no span in the window")
+        for i in picked:
+            rec = br.spans[i]
+            k, g0 = rec["k"], rec["g0"]
+            led = _led(rec["led_in"], sig.code_rate_hz)
+            rows = _prn_rows(rec, led[0].shape[0])
+            re, im = samples(run.stream, g0, lay.history + k * lay.block)
+            ref_led = ctl_led = led
+            prev = prev_proc = None
+            for b in range(k):
+                bid = rec["first"] + b
+                if control:
+                    ctl, ctl_led, _, _ = span.track_block(
+                        g, table, ctl_led, rows, b, re, im, fs, lay.block,
+                        code_len, rnd=fused.f8)
+                    cand = span.on_wire(ctl, br.wire, g.k_epochs)
+                else:
+                    telem, gs = br.telem[bid]
+                    if gs != g0 + (b + 1) * lay.block:
+                        raise RuntimeError(f"{name} block {bid}: the span "
+                                           f"and the telemetry name other "
+                                           f"windows")
+                    cand = telem._asdict()
+                held = span.held_rates(cand, br.wire, g.k_epochs, prev,
+                                       led[5])
+                ref, ref_led, prev_proc, lp = span.track_block(
+                    g, table, ref_led, rows, b, re, im, fs, lay.block,
+                    code_len, held=held, prev_proc=prev_proc)
+                gg = span_track_gap(cand, ref, br.wire, g.k_epochs)
+                gap, loop = max(gap, gg), max(loop, lp)
+                if gg >= 1.0:
+                    loop = FLAG_GAP_HZ
+                seen.append((name, int(bid), gg, lp))
+                prev = cand
+            if not control:
+                out = _led(rec["led_out"], sig.code_rate_hz)
+                if not all(np.array_equal(np.asarray(x), np.asarray(y))
+                           for x, y in zip(ref_led[:4], out[:4])):
+                    gap, loop = 1.0, FLAG_GAP_HZ
+                    seen.append((name, int(rec["first"] + k - 1), 1.0,
+                                 FLAG_GAP_HZ))
+                    if log:
+                        log(f"{name}: the ledger span {i} leaves differs")
+                elif prev_proc is not None and prev_proc.any():
+                    d_hz = np.abs(ref_led[5][prev_proc][:, [0, 3]].astype(
+                        np.float64) - out[5][prev_proc][:, [0, 3]])
+                    loop = max(loop, float(d_hz.max()))
+    return gap, loop, seen
+
+
+def check_tracking(run, control=False, log=None) -> tuple[float, float,
+                                                        list]:
+    """The tracking numbers of a run: the traffic's ``track_spans``
+    spans where its drive runs spans, else its ``track_blocks``
+    blocks."""
+    chk = run.traffic["check"]
+    if run.span_blocks > 1:
+        return check_spans(run, int(chk["track_spans"]), control=control,
+                           log=log)
+    return check_track(run, int(chk["track_blocks"]), control=control)
+
+
 # -- nav ----------------------------------------------------------------
 
 def _decoded(name: str, chain) -> list:
@@ -399,7 +732,7 @@ def check(run, log=print) -> tuple[bool, dict]:
     configuration's ``limits`` name, each within its limit."""
     chk = run.traffic["check"]
     acq, acq_hz, n_s = check_acq(run, int(chk["acq_searches"]), log=log)
-    trk, loop, seen = check_track(run, int(chk["track_blocks"]))
+    trk, loop, seen = check_tracking(run, log=log)
     wrong, missing, n_units = check_nav(run, float(chk.get("nav_min_s",
                                                            np.inf)))
     log(f"compared: {n_s} searches, {len(seen)} blocks, {n_units} nav "

@@ -5,7 +5,8 @@ read once (re and im f32; the windows overlap, so their union), the
 active channels' replica rows, the starts and the state read, and the
 telemetry and state written; the operations of the lanes inside each
 processed epoch's mask: 12 f32 operations of the mix and 2 x 2 x R bf16
-operations (re and im rows, multiply and add)."""
+operations (re and im rows, multiply and add). In the lean telemetry
+mode of the multi-block scan the lanes come from the held rates."""
 import torch
 
 TARGET = ("gnss_sdr_tpu_torch.ops.cuda.track_block_fused",
@@ -32,12 +33,34 @@ def window_lanes(starts, active, t_epochs, k_epochs, n0, wp):
     return torch.clamp(a[1:] - a[:-1], max=span).sum()
 
 
+def lanes_lean(telem, kw):
+    """The lanes inside the processed epochs' masks from the lean
+    telemetry (the multi-block scan's): the processed flag in bit 0 of
+    col 16, each epoch's n_t from the rate its superstep held (col 18,
+    on the superstep's first epoch; col 17 with carrier aiding), as the
+    kernel rounds it."""
+    k = kw["k_epochs"]
+    processed = (telem[..., 16].to(torch.int32) & 1).to(torch.float32)
+    held = telem[::k]
+    rate = held[..., 18]
+    if kw.get("aiding_scale", 0.0):
+        rate = rate + (held[..., 17] - kw.get("if_freq", 0.0)) \
+            * kw["aiding_scale"]
+    n_t = torch.round(kw["fs"] * kw["code_len"] / rate)
+    n_t = torch.where(rate > 0, n_t, torch.zeros_like(n_t))
+    n_t = n_t.repeat_interleave(k, dim=0)[:telem.shape[0]]
+    return (n_t * processed).double().sum()
+
+
 def cost(args, kw, out):
     stream_re, _, starts, bank, state = args[:5]
     telem, st = out
     r_rows = bank.shape[1]
     active = telem[..., 16].amax(dim=0) > 0
-    lanes = (telem[..., 12] * telem[..., 16]).double().sum()
+    if kw.get("telem_mode", "full") == "lean":
+        lanes = lanes_lean(telem, kw)
+    else:
+        lanes = (telem[..., 12] * telem[..., 16]).double().sum()
     win = window_lanes(starts[:active.shape[0]], active, kw["t_epochs"],
                        kw["k_epochs"], kw["n0"], kw["wp"])
     rows = active.sum() * bank[0].numel() * bank.element_size()

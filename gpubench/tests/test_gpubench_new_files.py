@@ -40,12 +40,12 @@ def test_new_cell_metric_and_traffic_from_files(tmp_path):
     bench["per_layer"].append({
         "name": "blocks_seen.test", "unit": "blocks", "better": "higher",
         "source": "host_clock", "layer": "receiver pipeline",
-        "moves": "rtf.rtlsdr", "workloads": ["rtlsdr.three_sats"]})
+        "moves": "card_ms_per_s.rtlsdr", "workloads": ["rtlsdr.three_sats"]})
     # a new member of a family of metrics takes the family's reader
     bench["per_layer"].append({
         "name": "nav_ms_per_s.test", "unit": "ms/signal_s",
         "better": "lower", "source": "program_span", "layer": "nav",
-        "moves": "rtf.rtlsdr", "workloads": ["rtlsdr.three_sats"]})
+        "moves": "card_ms_per_s.rtlsdr", "workloads": ["rtlsdr.three_sats"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
     subprocess.run([sys.executable, "-c", DRIVE], cwd=tmp_path, env=env,

@@ -76,3 +76,22 @@ def test_b1_counts_every_input_once():
                                  (telem, state))
     assert float(c["bytes"]) == (1024 + 1024) * 8 + 2 * 8 * 256 * 2 + 16 \
         + 2048 * 2 + 3360
+
+
+def test_b1_lean_telemetry_counts_the_same_lanes():
+    """The multi-block scan's lean telemetry (processed in bit 0 of col
+    16 beside the lock and loss bits, the held code rate on each
+    superstep's first epoch) gives the full telemetry's lane count."""
+    stream = torch.zeros(4000)
+    starts = torch.tensor([0, 10, 500, 700], dtype=torch.int32)
+    bank = torch.zeros((4, 8, 256), dtype=torch.bfloat16)
+    state = torch.zeros((4, 128))
+    telem = torch.zeros((10, 4, 21))
+    telem[:, :2, 16] = 3.0                   # processed + 2 locked
+    telem[::5, :2, 18] = 100.0               # fs * code_len / 100 lanes
+    kw = dict(t_epochs=10, k_epochs=5, n0=100, wp=256, fs=1000.0,
+              code_len=10.0, telem_mode="lean")
+    c = spec.roofline("b1").cost((stream, stream, starts, bank, state), kw,
+                                 (telem, state))
+    assert float(c["bf16_ops"]) == 2 * 2 * 8 * 2000
+    assert float(c["f32_ops"]) == 12 * 2000
