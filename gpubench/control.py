@@ -5,9 +5,11 @@
 
 For each seed, in one process: a run of the cell (a window of
 ``--seconds``), then each compared number as the program reads it
-(its lower reading) and as the control reads it: the reference computed
+(its lower reading), the numbers the configuration does not compare
+(``readings``), and as the control reads them: the reference computed
 at the configuration's control precision put in the program's place
-(its upper reading). One JSON line per seed on stdout.
+(its upper reading), through the reference module the configuration
+names. One JSON line per seed on stdout.
 """
 import argparse
 import json
@@ -36,15 +38,19 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         run = run_cell(bench, args.workload, seed, args.seconds, False,
-                       device=args.device,
+                       device=args.device, card_clock=False,
                        log=lambda m: print(m, file=sys.stderr))
-        ok, prog = checks.check(run, log=lambda m: print(m, file=sys.stderr))
+        readings = {}
+        ok, prog = checks.check(run, log=lambda m: print(m, file=sys.stderr),
+                                readings=readings)
         acq, acq_hz, _ = checks.check_acq(
             run, int(run.traffic["check"]["acq_searches"]), control=True)
-        trk, loop, _ = checks.check_tracking(run, control=True)
+        trk, loop, truth, _ = checks.check_tracking(run, control=True)
         line = dict(seed=seed, program={k: v for k, (v, _) in prog.items()},
+                    readings=readings,
                     control=dict(acq_gap=acq, acq_freq_gap_hz=acq_hz,
-                                 track_gap=trk, loop_gap_hz=loop),
+                                 track_gap=trk, loop_gap_hz=loop,
+                                 carrier_truth_hz=truth),
                     correct=ok, seconds=time.perf_counter() - t0)
         print(json.dumps(line), flush=True)
         del run

@@ -25,7 +25,6 @@ span too) and each acquisition search's arguments and answers
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 
@@ -228,22 +227,6 @@ class _SpanSample:
         return True
 
 
-def _hook_stage_ranges(br: Branch, tracer: Tracer) -> None:
-    """Name the receiver's stages in the trace while it records."""
-    stage = br.rx.timers.stage
-
-    @contextlib.contextmanager
-    def named(name, items=0.0):
-        if not tracer.active:
-            with stage(name, items):
-                yield
-            return
-        with torch.profiler.record_function(f"stage.{br.name}.{name}"), \
-                stage(name, items):
-            yield
-    br.rx.timers.stage = named
-
-
 def _light(x, limit=1 << 16):
     """``x`` itself, or where it is a tensor of more than ``limit``
     elements, a stand-in of its shape and type that holds no memory."""
@@ -294,9 +277,10 @@ class _Roofline:
 
 def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
              trace: bool, device="cuda", t_process: float | None = None,
-             tmp_dir: str = ".", log=print) -> Run:
+             tmp_dir: str = ".", log=print, card_clock: bool = True) -> Run:
     """Set up, warm up and measure one cell; returns the Run (the window
-    closed, the receivers still held)."""
+    closed, the receivers still held). ``card_clock`` False opens no
+    card clock, whatever the cell's metrics read."""
     t0 = time.perf_counter() if t_process is None else t_process
     device = torch.device(device)
     cell = spec.cell(bench, cell_name)
@@ -318,7 +302,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     # whole window (CARD_CLOCK in its file) has it measured in an
     # untraced run
     clock = None
-    if not trace and device.type == "cuda" and any(
+    if card_clock and not trace and device.type == "cuda" and any(
             getattr(spec.load_module(spec.metric_path(m["name"])),
                     "CARD_CLOCK", False)
             for m in spec.metrics_for(bench, cell_name, "end_to_end")):
@@ -348,8 +332,6 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
                 pick = samplers[br.name] = _SpanSample(
                     br, traffic["check"]["track_spans"], seed)
             _hook_check(br, spans, pick)
-            if trace:
-                _hook_stage_ranges(br, tracer)
         block_ms = {rx.cfg.block_ms for rx in rxs.values()}
         if len(block_ms) != 1:
             raise ValueError("branches with different block lengths")
@@ -378,7 +360,6 @@ def _measure(run: Run, entry, seconds, tracer, clock, t0, log) -> None:
     trace_at = int(tr.get("start_block", 1))
     trace_n = int(tr.get("blocks", 1))
     state = dict(deadline=None, in_window=False, rounds=0, t_end=None)
-    lap = max(1, round(1.0 / run.block_s))     # card clock: a signal second
 
     def wrap(br):
         step = br.rx.step
@@ -390,7 +371,7 @@ def _measure(run: Run, entry, seconds, tracer, clock, t0, log) -> None:
                     for b in branches:
                         b.source.stop = True
                 elif (clock is not None and state["in_window"]
-                      and state["rounds"] and state["rounds"] % lap == 0):
+                      and clock.due()):
                     clock.lap()
                 elif state["in_window"] and run.trace:
                     if state["rounds"] == trace_at:
@@ -455,7 +436,7 @@ def _measure(run: Run, entry, seconds, tracer, clock, t0, log) -> None:
         clock.stop()
         run.card_busy_s = clock.busy_s
         log(f"card clock: {clock.busy_s!r} s busy over {clock.ops} device "
-            f"operations in {clock.laps} laps")
+            f"operations in {clock.laps} laps, each record whole")
     run.window_blocks = state["rounds"]
     for br in branches:
         br.stages1 = _stage_totals(br.rx)
@@ -472,8 +453,8 @@ def _measure_units(run: Run, entry, seconds, tracer, clock, t0, log,
     """The window in units of a block or a span, as the traffic's drive
     runs the receiver: the entry's ``on_block`` hook fires after each
     unit; it counts the unit's blocks, times it, stops the run at the
-    deadline, laps the card clock (once a signal second, or once a unit
-    where a unit is longer), opens and closes the traced stretch on unit
+    deadline, laps the card clock (on a unit boundary once a lap is
+    due), opens and closes the traced stretch on unit
     boundaries (sized in blocks) and renders the stream a span ahead."""
     (br,) = run.branches.values()
     rx, stream = br.rx, run.stream
@@ -482,9 +463,8 @@ def _measure_units(run: Run, entry, seconds, tracer, clock, t0, log,
     trace_at = int(tr.get("start_block", 1))
     trace_n = int(tr.get("blocks", 1))
     ahead = run.span_blocks * rx.block * rx.decim    # samples a unit reads
-    lap = max(1, round(1.0 / run.block_s))     # card clock: a signal second
     st = dict(deadline=None, in_window=False, blocks=0, seen=0,
-              t_prev=None, t_end=None, lap_at=0, trace_from=None)
+              t_prev=None, t_end=None, trace_from=None)
 
     def render_ahead():
         pos = br.source.pos
@@ -503,9 +483,8 @@ def _measure_units(run: Run, entry, seconds, tracer, clock, t0, log,
         st["t_prev"] = st["t_end"] = te
         if te >= st["deadline"]:
             return True
-        if clock is not None and st["blocks"] - st["lap_at"] >= lap:
+        if clock is not None and clock.due():
             clock.lap()
-            st["lap_at"] = st["blocks"]
         if run.trace:
             if st["trace_from"] is None and st["blocks"] >= trace_at:
                 tracer.start()
@@ -543,7 +522,7 @@ def _measure_units(run: Run, entry, seconds, tracer, clock, t0, log,
         clock.stop()
         run.card_busy_s = clock.busy_s
         log(f"card clock: {clock.busy_s!r} s busy over {clock.ops} device "
-            f"operations in {clock.laps} laps")
+            f"operations in {clock.laps} laps, each record whole")
     run.window_blocks = st["blocks"]
     br.stages1 = _stage_totals(rx)
     del rx.telemetry.append_block

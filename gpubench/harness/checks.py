@@ -22,6 +22,17 @@ whatever the program derived from them.
   loop_gap_hz  in the same blocks: the largest gap of the carrier
                frequency and of the code rate after each epoch's loop
                filters
+  carrier_truth_hz  in the same blocks: the largest gap between the
+               mean carrier frequency the program reports over a
+               channel's processed epochs of the block and the carrier
+               of that PRN's satellite in the sky
+               (``Satellite.carrier_hz``), over the channels tracked for
+               at least the traffic's ``check.truth_after_s`` at the
+               block's first of them (2 s where it names none: the
+               pull-in after a handoff left out); a PRN that is not in
+               the sky is left out (a false alarm is the acquisition's,
+               and ``acq_gap`` judges it). The mean, not one epoch: a
+               sound loop's single epochs stray by up to some 50 Hz
   nav_wrong    every message unit the nav layer decoded (LNAV subframe
                and ephemeris, I/NAV word, D1 subframe, GLONASS string)
                that differs from what the satellite broadcast
@@ -45,7 +56,11 @@ fields; and between two spans the program started exactly the
 handoffs of the searches in between, in order, into idle channels, and
 nothing else in the ledger changed.
 
-A configuration compares the numbers its ``limits`` name.
+The tracking reference is the module ``reference/<name>.py`` that the
+configuration's ``reference.tracker`` names (``spec.reference``).
+
+A configuration compares the numbers its ``limits`` name; the others are
+printed beside them, as readings.
 
 The control (``control=True``) puts the reference at the control's
 precision in the program's place for the acquisition and tracking
@@ -58,11 +73,13 @@ import torch
 
 from ..reference import acquisition as ref_acq
 from ..reference import conv_acquisition as conv_acq
-from ..reference import fused, ledger, lnav, scanned, span
+from ..reference import ledger, lnav, span
 from ..signals import SIGNALS, beidou_b1i, glonass_l1of
+from . import spec
 
 NUMBERS = ("acq_gap", "acq_freq_gap_hz", "track_gap", "loop_gap_hz",
-           "nav_wrong", "nav_missing")
+           "carrier_truth_hz", "nav_wrong", "nav_missing")
+TRUTH_AFTER_S = 2.0       # check.truth_after_s where a traffic names none
 SUMS = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l")
 FLAGS = ("processed", "locked", "lost_event")
 LEDGER = ("start_offset", "epoch_index")
@@ -308,67 +325,66 @@ def carries_on(telem, gs: int, nxt_state, nxt_gs: int, n0: int) -> bool:
     return True
 
 
-class _Tracker:
-    """A branch's reference tracker: the scanned tracker or the fused
-    block tracker, as the configuration's ``reference`` names it."""
-
-    def __init__(self, kind: str, name: str, d: dict, fs: float,
-                 lay: Layout):
-        sig = SIGNALS[name]
-        self.kind, self.lay, self.fs = kind, lay, fs
-        n_prn = d["acq"]["n_prn"]
-        if kind == "scanned":
-            if sig.boc:
-                raise ValueError("the scanned reference is BPSK only")
-            self.p = scanned.params(d["track"], fs, sig.code_length,
-                                    sig.code_rate_hz, sig.code_period_ms)
-            self.table = torch.from_numpy(np.stack(
-                [sig.table(p) for p in range(1, n_prn + 1)]).astype(
-                    np.float32))
-        elif kind == "fused":
-            self.g = fused.Geometry.create(
-                d, fs, sig.code_length, sig.code_rate_hz, sig.carrier_hz,
-                sig.code_period_ms, sig.boc, lay.history + lay.block)
-            self.table = fused.sampled_table(
-                lambda p: sig.sample_code(p, fs), n_prn, lay.n0,
-                lay.n0 + d["track"]["window_margin"])
-        else:
-            raise ValueError(f"no reference tracker {kind!r}")
-
-    def run(self, st: dict, re, im, control: bool, follow=None) -> dict:
-        lay = self.lay
-        if self.kind == "scanned":
-            codes = self.table[np.maximum(np.asarray(st["prn_idx"]), 0)]
-            return scanned.track_block(
-                self.p, codes, st, re, im, lay.epochs + 1,
-                lay.history + lay.block,
-                dtype=torch.bfloat16 if control else torch.float32)
-        rnd = None
-        if control:
-            rnd = fused.f8 if self.g.layout == "mxu" else fused.bf16
-        return fused.track_block(self.g, self.table, st, re, im, self.fs,
-                                 rnd=rnd, follow=follow)
+def truth_gap(prog: dict, prn_idx, truth: dict, period_s: float,
+              after_s: float) -> tuple[float, int | None]:
+    """(Hz, PRN): the largest gap of one block's telemetry ``prog``
+    between a channel's mean carrier frequency over the epochs it
+    processed and ``truth`` {PRN: the satellite's carrier, Hz}, over the
+    channels whose epoch count at the first of them spans ``after_s``;
+    ``prn_idx`` [C] each channel's PRN row; PRNs not in ``truth`` are
+    left out."""
+    proc = np.asarray(prog["processed"], bool)
+    epochs = np.asarray(prog["epoch_index"])
+    freq = np.asarray(prog["carr_freq"], np.float64)
+    worst, at = 0.0, None
+    for c in np.nonzero(proc.any(axis=0))[0]:
+        rows = proc[:, c]
+        first = np.nonzero(rows)[0][0]
+        prn = int(prn_idx[c]) + 1
+        hz = truth.get(prn)
+        if hz is None or int(epochs[first, c]) * period_s < after_s:
+            continue
+        gap = abs(float(freq[rows, c].mean()) - hz)
+        if gap > worst:
+            worst, at = gap, prn
+    return worst, at
 
 
-def check_track(run, n_blocks: int, control=False) -> tuple[float, float,
-                                                            list]:
-    """(track_gap, loop_gap_hz, [(branch, block, gap, loop gap)]) over
-    ``n_blocks`` of the window's blocks per branch, drawn from the seed,
-    every epoch of each. The reference starts each block from the ledger
-    the program's step started from, with the block's handoffs made
-    again from the acquisition's verdicts; where the configuration's
-    reference says ``follow``, each superstep after a block's first
-    starts from the loops as the program's telemetry left them."""
+def _truth(run, name: str) -> dict:
+    """{PRN: carrier Hz} of the branch's satellites in the run's sky."""
+    return {s.prn: float(s.carrier_hz) for s in run.sky if s.system == name}
+
+
+def _tracker(run, name: str, d: dict, fs: float, lay: Layout):
+    """The branch's reference tracker, from the module the configuration
+    names; with that module."""
+    ref = spec.reference(run.config["reference"]["tracker"])
+    return ref, ref.Tracker(SIGNALS[name], d, fs, lay)
+
+
+def check_track(run, n_blocks: int, control=False
+                ) -> tuple[float, float, float, list]:
+    """(track_gap, loop_gap_hz, carrier_truth_hz, [(branch, block, gap,
+    loop gap, truth gap, its PRN)]) over ``n_blocks`` of the window's
+    blocks per branch, drawn from the seed, every epoch of each. The
+    reference starts each block from the ledger the program's step
+    started from, with the block's handoffs made again from the
+    acquisition's verdicts; where the configuration's reference says
+    ``follow``, each superstep after a block's first starts from the
+    loops as the program's telemetry left them. The truth gap is the
+    program's (the control's in its place)."""
     follow = bool(run.config["reference"].get("follow"))
     fs = float(run.config["stream"]["fs_hz"])
+    after = float(run.traffic["check"].get("truth_after_s", TRUTH_AFTER_S))
     ids = list(run.window_block_ids())
     rng = np.random.default_rng([run.seed, 4])
     pick = sorted(rng.choice(ids, min(n_blocks, len(ids)), replace=False))
-    gap, loop, seen = 0.0, 0.0, []
+    gap, loop, truth, seen = 0.0, 0.0, 0.0, []
     for name, br in run.branches.items():
         d = run.config["branches"][name]
         sig = SIGNALS[name]
         lay = Layout(d, fs, sig.code_period_ms)
+        sky = _truth(run, name)
         if not control:
             # every block of the run hands its ledger on to the next
             for b, (telem, gs) in br.telem.items():
@@ -376,9 +392,9 @@ def check_track(run, n_blocks: int, control=False) -> tuple[float, float,
                 if nxt is not None and not carries_on(telem, gs, nxt[0],
                                                       nxt[1], lay.n0):
                     gap, loop = 1.0, FLAG_GAP_HZ
-                    seen.append((name, int(b), 1.0, FLAG_GAP_HZ))
+                    seen.append((name, int(b), 1.0, FLAG_GAP_HZ, 0.0, None))
                     break
-        trk = _Tracker(run.config["reference"]["tracker"], name, d, fs, lay)
+        _, trk = _tracker(run, name, d, fs, lay)
         for b in pick:
             state, gs, events = br.track_in[int(b)]
             telem, gs2 = br.telem[int(b)]
@@ -393,9 +409,11 @@ def check_track(run, n_blocks: int, control=False) -> tuple[float, float,
                     else telem._asdict())
             ref = trk.run(st, re, im, False, cand if follow else None)
             g, lp = track_gaps(cand, ref)
-            gap, loop = max(gap, g), max(loop, lp)
-            seen.append((name, int(b), g, lp))
-    return gap, loop, seen
+            hz, prn = truth_gap(cand, st["prn_idx"], sky,
+                                sig.code_period_ms * 1e-3, after)
+            gap, loop, truth = max(gap, g), max(loop, lp), max(truth, hz)
+            seen.append((name, int(b), g, lp, hz, prn))
+    return gap, loop, truth, seen
 
 
 # -- tracking in spans --------------------------------------------------
@@ -547,19 +565,21 @@ def check_handoffs(run, br, n0: int, block: int, code_rate_hz: float
 
 
 def check_spans(run, n_spans: int, control=False, log=None
-                ) -> tuple[float, float, list]:
-    """(track_gap, loop_gap_hz, [(branch, block, gap, loop gap)]) over
-    every block of ``n_spans`` of the window's spans, drawn from the
-    seed as the window ran; the links between blocks, the spans' last
-    ledgers and the handoffs between spans besides (not for the
-    control)."""
+                ) -> tuple[float, float, float, list]:
+    """(track_gap, loop_gap_hz, carrier_truth_hz, [(branch, block, gap,
+    loop gap, truth gap, its PRN)]) over every block of ``n_spans`` of
+    the window's spans, drawn from the seed as the window ran; the links
+    between blocks, the spans' last ledgers and the handoffs between
+    spans besides (not for the control)."""
     fs = float(run.config["stream"]["fs_hz"])
-    gap, loop, seen = 0.0, 0.0, []
+    after = float(run.traffic["check"].get("truth_after_s", TRUTH_AFTER_S))
+    gap, loop, truth, seen = 0.0, 0.0, 0.0, []
     for name, br in run.branches.items():
         d = run.config["branches"][name]
         sig = SIGNALS[name]
         lay = Layout(d, fs, sig.code_period_ms)
         code_len = int(sig.code_length)
+        sky = _truth(run, name)
         if not control:
             ids = sorted(br.summary)
             for b in ids:
@@ -567,7 +587,7 @@ def check_spans(run, n_spans: int, control=False, log=None
                 if nxt is not None and not carries_on_blocks(
                         br.summary[b], nxt, lay.n0):
                     gap, loop = 1.0, FLAG_GAP_HZ
-                    seen.append((name, int(b), 1.0, FLAG_GAP_HZ))
+                    seen.append((name, int(b), 1.0, FLAG_GAP_HZ, 0.0, None))
                     if log:
                         log(f"{name}: block {b + 1} does not carry on")
                     break
@@ -575,15 +595,11 @@ def check_spans(run, n_spans: int, control=False, log=None
                                  sig.code_rate_hz)
             if bad is not None:
                 gap, loop = 1.0, FLAG_GAP_HZ
-                seen.append((name, -1, 1.0, FLAG_GAP_HZ))
+                seen.append((name, -1, 1.0, FLAG_GAP_HZ, 0.0, None))
                 if log:
                     log(f"{name}: {bad}")
-        g = fused.Geometry.create(
-            d, fs, sig.code_length, sig.code_rate_hz, sig.carrier_hz,
-            sig.code_period_ms, sig.boc, lay.history + lay.block)
-        table = fused.sampled_table(
-            lambda p: sig.sample_code(p, fs), d["acq"]["n_prn"], lay.n0,
-            lay.n0 + d["track"]["window_margin"])
+        ref_mod, trk = _tracker(run, name, d, fs, lay)
+        g, table = trk.g, trk.table
         picked = sorted(br.sampled)[:n_spans]
         if not picked:
             gap, loop = 1.0, FLAG_GAP_HZ
@@ -601,8 +617,9 @@ def check_spans(run, n_spans: int, control=False, log=None
                 bid = rec["first"] + b
                 if control:
                     ctl, ctl_led, _, _ = span.track_block(
-                        g, table, ctl_led, rows, b, re, im, fs, lay.block,
-                        code_len, rnd=fused.f8)
+                        ref_mod, g, table, ctl_led, rows, b, re, im, fs,
+                        lay.block, code_len,
+                        rnd=ref_mod.rounding(g.layout, True))
                     cand = span.on_wire(ctl, br.wire, g.k_epochs)
                 else:
                     telem, gs = br.telem[bid]
@@ -614,13 +631,15 @@ def check_spans(run, n_spans: int, control=False, log=None
                 held = span.held_rates(cand, br.wire, g.k_epochs, prev,
                                        led[5])
                 ref, ref_led, prev_proc, lp = span.track_block(
-                    g, table, ref_led, rows, b, re, im, fs, lay.block,
-                    code_len, held=held, prev_proc=prev_proc)
+                    ref_mod, g, table, ref_led, rows, b, re, im, fs,
+                    lay.block, code_len, held=held, prev_proc=prev_proc)
                 gg = span_track_gap(cand, ref, br.wire, g.k_epochs)
-                gap, loop = max(gap, gg), max(loop, lp)
+                hz, prn = truth_gap(cand, rows, sky,
+                                    sig.code_period_ms * 1e-3, after)
+                gap, loop, truth = max(gap, gg), max(loop, lp), max(truth, hz)
                 if gg >= 1.0:
                     loop = FLAG_GAP_HZ
-                seen.append((name, int(bid), gg, lp))
+                seen.append((name, int(bid), gg, lp, hz, prn))
                 prev = cand
             if not control:
                 out = _led(rec["led_out"], sig.code_rate_hz)
@@ -628,21 +647,21 @@ def check_spans(run, n_spans: int, control=False, log=None
                            for x, y in zip(ref_led[:4], out[:4])):
                     gap, loop = 1.0, FLAG_GAP_HZ
                     seen.append((name, int(rec["first"] + k - 1), 1.0,
-                                 FLAG_GAP_HZ))
+                                 FLAG_GAP_HZ, 0.0, None))
                     if log:
                         log(f"{name}: the ledger span {i} leaves differs")
                 elif prev_proc is not None and prev_proc.any():
                     d_hz = np.abs(ref_led[5][prev_proc][:, [0, 3]].astype(
                         np.float64) - out[5][prev_proc][:, [0, 3]])
                     loop = max(loop, float(d_hz.max()))
-    return gap, loop, seen
+    return gap, loop, truth, seen
 
 
-def check_tracking(run, control=False, log=None) -> tuple[float, float,
-                                                        list]:
-    """The tracking numbers of a run: the traffic's ``track_spans``
-    spans where its drive runs spans, else its ``track_blocks``
-    blocks."""
+def check_tracking(run, control=False, log=None
+                   ) -> tuple[float, float, float, list]:
+    """The tracking numbers of a run (``check_track``): the traffic's
+    ``track_spans`` spans where its drive runs spans, else its
+    ``track_blocks`` blocks."""
     chk = run.traffic["check"]
     if run.span_blocks > 1:
         return check_spans(run, int(chk["track_spans"]), control=control,
@@ -727,18 +746,22 @@ def check_nav(run, min_s: float) -> tuple[int, int, int]:
     return wrong, missing, checked
 
 
-def check(run, log=print) -> tuple[bool, dict]:
+def check(run, log=print, readings=None) -> tuple[bool, dict]:
     """(correct, {number: (value, limit)}) for the numbers the
-    configuration's ``limits`` name, each within its limit."""
+    configuration's ``limits`` name, each within its limit. Every number
+    is logged; ``readings`` (a dict) takes those that have no limit."""
     chk = run.traffic["check"]
     acq, acq_hz, n_s = check_acq(run, int(chk["acq_searches"]), log=log)
-    trk, loop, seen = check_tracking(run, log=log)
+    trk, loop, truth, seen = check_tracking(run, log=log)
     wrong, missing, n_units = check_nav(run, float(chk.get("nav_min_s",
                                                            np.inf)))
     log(f"compared: {n_s} searches, {len(seen)} blocks, {n_units} nav "
         f"units")
     worst = max(seen, key=lambda x: x[2], default=None)
     log(f"largest track_gap in block {worst}")
+    worst = max(seen, key=lambda x: x[4], default=None)
+    log(f"largest carrier_truth_hz at (branch, block, gap, loop gap, Hz, "
+        f"PRN) {worst}")
     log("nav chains: " + "; ".join(
         f"{name} " + " ".join(
             f"{nav.prn}:{int(bool(st.get('bit_synced')))}"
@@ -747,9 +770,14 @@ def check(run, log=print) -> tuple[bool, dict]:
             for st in [nav.chain.status()])
         for name, br in run.branches.items()))
     values = dict(acq_gap=acq, acq_freq_gap_hz=acq_hz, track_gap=trk,
-                  loop_gap_hz=loop,
+                  loop_gap_hz=loop, carrier_truth_hz=truth,
                   nav_wrong=float(wrong), nav_missing=float(missing))
     limits = run.config["limits"]
     out = {k: (values[k], limits[k]) for k in NUMBERS if k in limits}
+    for k in NUMBERS:
+        if k not in limits:
+            log(f"{k} {values[k]!r} (no limit: not compared)")
+            if readings is not None:
+                readings[k] = values[k]
     ok = all(v <= lim for v, lim in out.values())
     return ok, out

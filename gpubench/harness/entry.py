@@ -3,7 +3,8 @@
 ``execute`` runs the cell on ``device``, reads the metrics, checks the
 answers against the reference, and prints (stdout's last line) the one
 JSON object of the result, and before it on stderr each compared number
-beside its limit. ``gpubench/run.py`` calls it on the card after its
+beside its limit (the numbers the configuration does not compare go
+under ``readings``, before ``compared``). ``gpubench/run.py`` calls it on the card after its
 checks for one; the tests call it on the CPU.
 """
 from __future__ import annotations
@@ -110,8 +111,10 @@ def execute(bench: dict, workload: str, seed: int, seconds: float,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    correct, numbers = checks.check(run, log=log)
+    readings = {}
+    correct, numbers = checks.check(run, log=log, readings=readings)
     result["correct"] = bool(correct)
+    result["readings"] = readings
     result["compared"] = {k: {"value": v, "limit": lim}
                           for k, (v, lim) in numbers.items()}
     for k, (v, lim) in numbers.items():

@@ -6,6 +6,8 @@ the files it names by convention under ``gpubench/``:
   metrics/<metric>.py       a reader: ``read(run)`` -> number or None
                             (or ``metrics/<base>.py`` for ``<base>.<x>``)
   rooflines/<kernel>.py     a kernel's bytes and operations per launch
+  reference/<name>.py       a configuration's tracking reference, named
+                            by its ``reference.tracker``
 
 A new configuration, traffic mix, metric or kernel is a new file and an
 entry in ``BENCHMARK.json``; nothing here names one.
@@ -22,6 +24,7 @@ ROOT = BENCH_DIR.parent
 
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+MODULE_RE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -89,6 +92,18 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
 
 def roofline(kernel: str, bench_dir: Path = BENCH_DIR):
     return load_module(Path(bench_dir) / "rooflines" / f"{kernel}.py")
+
+
+def reference(name: str):
+    """The tracking reference a configuration names: the module
+    ``reference/<name>.py`` of this benchmark, imported by its name
+    (``reference/__init__.py`` says what it provides)."""
+    path = BENCH_DIR / "reference" / f"{name}.py"
+    if not MODULE_RE.match(name) or not path.is_file():
+        raise FileNotFoundError(
+            f"no reference tracker {name!r}: {path} is missing")
+    package = __package__.rsplit(".", 1)[0]
+    return importlib.import_module(f"{package}.reference.{name}")
 
 
 def check_names(bench: dict) -> list[str]:

@@ -150,10 +150,24 @@ class CardClock:
     """The program's busy time on the card over a whole window: the
     profiler with the card's activity only (no host operations
     recorded), every kernel, copy and set united, those on the
-    generator's stream left out. The stream is named in the trace by a
-    marker kernel launched on it. The window is recorded in laps (the
-    profiler stopped, read and started again, the card idle between),
-    so that no lap fills the profiler's buffer."""
+    generator's stream left out. The window is recorded in laps of
+    ``LAP_S`` seconds (the profiler stopped, read and started again,
+    the card idle between): records of laps five to ten times longer
+    came without one of their markers.
+
+    The record dates the card's work by a clock of its own converted to
+    the host's, and the conversion strays by some milliseconds from lap
+    to lap; the profiler leaves out whatever it dates outside the
+    record's span, so a kernel near either end of a lap can be lost.
+    Each lap therefore keeps the card idle for ``PAD_S`` at both ends,
+    inside the record, and is bracketed by two marker kernels on the
+    generator's stream, each run alone: one before the lap's first
+    launch and one after its last kernel has ended. A lap whose record
+    lacks either marker raises, because kernels near its ends may be
+    lost with it. The markers name the generator's stream."""
+
+    LAP_S = 1.0
+    PAD_S = 0.025
 
     def __init__(self, device, side_stream):
         self.device = torch.device(device)
@@ -163,6 +177,20 @@ class CardClock:
         self.ops = 0
         self.laps = 0
         self._prof = None
+        self._t_lap = None
+
+    def _mark(self) -> None:
+        """A marker kernel on the generator's stream, run alone."""
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self.side):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _idle(seconds: float) -> None:
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            pass
 
     def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -170,31 +198,46 @@ class CardClock:
         torch.cuda.synchronize(self.device)
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
-        if self.side_id is None:
-            with torch.cuda.stream(self.side):
-                torch.cuda._sleep(1)
+        self._idle(self.PAD_S)
+        self._mark()
+        self._t_lap = time.perf_counter()
 
-    def stop(self) -> None:
-        torch.cuda.synchronize(self.device)
+    def due(self) -> bool:
+        """Whether the lap has lasted ``LAP_S``."""
+        return time.perf_counter() - self._t_lap >= self.LAP_S
+
+    def _read(self) -> None:
+        """Close the lap's record and count it."""
+        self._mark()
+        self._idle(self.PAD_S)
         self._prof.__exit__(None, None, None)
         cuda = torch._C._autograd.DeviceType.CUDA
-        spans = []
+        spans, marks = [], set()
+        n_marks = 0
         for e in self._prof.profiler.kineto_results.events():
             if e.device_type() != cuda:
                 continue
-            if self.side_id is None and MARKER in e.name():
-                self.side_id = e.device_resource_id()
+            if MARKER in e.name():
+                n_marks += 1
+                marks.add(e.device_resource_id())
             spans.append((e.start_ns(), e.end_ns(),
                           e.device_resource_id()))
         self._prof = None
-        if self.side_id is None:
-            raise RuntimeError("the generator's stream was not found in "
-                               "the card's trace")
+        self.laps += 1
+        if n_marks != 2 or len(marks) != 1 or (
+                self.side_id is not None and marks != {self.side_id}):
+            raise RuntimeError(
+                f"card clock lap {self.laps}: the record holds {n_marks} "
+                f"of its 2 markers, on streams {sorted(marks)}: the lap's "
+                "record is not whole")
+        self.side_id = marks.pop()
         mine = [(a, b) for a, b, s in spans if s != self.side_id and b > a]
         self.busy_s += union_seconds(mine) * 1e-9
         self.ops += len(mine)
-        self.laps += 1
+
+    def stop(self) -> None:
+        self._read()
 
     def lap(self) -> None:
-        self.stop()
+        self._read()
         self.start()

@@ -16,7 +16,9 @@ code, the block's epochs, and the telemetry as the receiver reports it
 
 ``rnd`` rounds the correlator's operands: bfloat16 for the mxu tile and
 nothing on seg is the configuration's precision; the control passes
-float8 (e4m3) for the mxu tile and bfloat16 for seg's mixed window.
+float8 (e4m3) for the mxu tile and bfloat16 for seg's mixed window
+(``rounding``). ``Tracker`` is the module's face as a configuration's
+tracking reference (``reference/__init__.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def as_is(x):
     return x
 
 
-def _fma(a, b, c):
+def fma(a, b, c):
     def f64(x):
         return x.double() if isinstance(x, torch.Tensor) else float(x)
     return (f64(a) * f64(b) + f64(c)).float()
@@ -219,7 +221,7 @@ def _atan_poly(x):
     return torch.where(x < 0.0, -r, r)
 
 
-def _superstep(st, j, win_re, win_im, bank, *, k_epochs, wp, n0, fs,
+def superstep(st, j, win_re, win_im, bank, *, k_epochs, wp, n0, fs,
                code_len, lock_threshold, max_lost, pll_c1, pll_c2, dll_c1,
                dll_c2, el_shift, aiding_scale, if_freq, lock_mode,
                costas_thr, interp, rnd):
@@ -513,9 +515,9 @@ def _epoch(st, wre, wim, reps, start_lane, rem_i, *, wp, n0, fs, code_len,
     new_lost = torch.where(act, torch.where(locked, zero, lost + 1.0), lost)
     died = new_lost >= f(max_lost)
     new_active = torch.where(died, zero, active)
-    ncp = _fma(step, n_t_f, carr_phase)
+    ncp = fma(step, n_t_f, carr_phase)
     new_carr_phase = ncp - torch.floor(ncp)
-    new_chip_res = _fma(dc, n_t_f, chip_res) - f(code_len)
+    new_chip_res = fma(dc, n_t_f, chip_res) - f(code_len)
     new_drift = drift + n_t_f - f(n0)
 
     def sel(new, old):
@@ -588,7 +590,7 @@ def track_block(g: Geometry, table: torch.Tensor, state: dict,
                 st = follow_loops(st, follow, (j - 1) * k, j * k)
             off = (j * k * g.n0 // 128) * 128
             idx = starts[:, None] + off + lanes[None, :]
-            st, tl = _superstep(st, j, re[idx], im[idx], reps, k_epochs=k,
+            st, tl = superstep(st, j, re[idx], im[idx], reps, k_epochs=k,
                                 rnd=rnd, **kw)
             rows.append(tl)
         telem = torch.cat(rows, dim=0)
@@ -620,3 +622,34 @@ def track_block(g: Geometry, table: torch.Tensor, state: dict,
                      - processed).astype(np.int32),
         chip_phase=np.mod(anc["cp0"][None, :] + tm[:, :, 14],
                           g.code_len).astype(np.float32))
+
+
+def rounding(layout: str, control: bool):
+    """The correlator operands' rounding on ``layout``: the
+    configuration's (bfloat16 mxu tile, nothing on seg), or with
+    ``control`` the control's (float8 e4m3 mxu tile, bfloat16 seg)."""
+    if layout == "mxu":
+        return f8 if control else bf16
+    return bf16 if control else as_is
+
+
+class Tracker:
+    """A branch's fused block tracker, from its signal, its branch
+    configuration, the stream's rate and its sample layout: ``g`` its
+    geometry, ``table`` its tiled sampled codes."""
+
+    def __init__(self, sig, d: dict, fs: float, lay):
+        self.fs = fs
+        self.g = Geometry.create(
+            d, fs, sig.code_length, sig.code_rate_hz, sig.carrier_hz,
+            sig.code_period_ms, sig.boc, lay.history + lay.block)
+        self.table = sampled_table(
+            lambda p: sig.sample_code(p, fs), d["acq"]["n_prn"], lay.n0,
+            lay.n0 + d["track"]["window_margin"])
+
+    def run(self, st: dict, re, im, control: bool, follow=None) -> dict:
+        """One block from the ledger ``st`` (``track_block``), at the
+        configuration's precision or the control's."""
+        return track_block(self.g, self.table, st, re, im, self.fs,
+                           rnd=rounding(self.g.layout, control),
+                           follow=follow)

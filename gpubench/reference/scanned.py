@@ -11,7 +11,9 @@ power lock detector, and the exact ledger (u32 carrier phase, integer
 chip and u32 fractional chip) advanced over the epoch.
 
 ``dtype`` is the float precision of every float quantity: float32 is
-the configuration's, bfloat16 the control's.
+the configuration's, bfloat16 the control's. ``Tracker`` is the
+module's face as a configuration's tracking reference
+(``reference/__init__.py``).
 """
 from __future__ import annotations
 
@@ -245,3 +247,29 @@ def track_block(p: Params, codes: torch.Tensor, state: dict, re, im,
     return {f: torch.stack([r[f] for r in rows]).float().numpy()
             if rows[0][f].is_floating_point()
             else torch.stack([r[f] for r in rows]).numpy() for f in TELEM}
+
+
+class Tracker:
+    """A branch's scanned tracker, from its signal, its branch
+    configuration, the stream's rate and its sample layout."""
+
+    def __init__(self, sig, d: dict, fs: float, lay):
+        if sig.boc:
+            raise ValueError("the scanned reference is BPSK only")
+        self.lay = lay
+        self.p = params(d["track"], fs, sig.code_length, sig.code_rate_hz,
+                        sig.code_period_ms)
+        self.table = torch.from_numpy(np.stack(
+            [sig.table(p) for p in range(1, d["acq"]["n_prn"] + 1)]).astype(
+                np.float32))
+
+    def run(self, st: dict, re, im, control: bool, follow=None) -> dict:
+        """One block and its catch-up epoch from the ledger ``st``
+        (``track_block``), in float32 or the control's bfloat16
+        (``follow`` does not apply: the tracker has no supersteps)."""
+        lay = self.lay
+        codes = self.table[np.maximum(np.asarray(st["prn_idx"]), 0)]
+        return track_block(
+            self.p, codes, st, re, im, lay.epochs + 1,
+            lay.history + lay.block,
+            dtype=torch.bfloat16 if control else torch.float32)

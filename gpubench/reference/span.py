@@ -10,8 +10,14 @@ phase in cycles, carrier discriminator, code rate, code discriminator,
 lost count, lock EMA). Per block: the offset walk and eligibility, the
 block-start anchor in the kernel's f32 arithmetic, 128-aligned window
 starts counted from the span stream's first sample, the replica rows,
-the block's supersteps (``fused._superstep``), and the absorb of the
-kernel state into the ledger with the rebase past the block folded in.
+the block's supersteps, and the absorb of the kernel state into the
+ledger with the rebase past the block folded in.
+
+The tracker's own arithmetic comes from the configuration's reference
+module (``ref``, ``reference/<name>.py``, ``fused`` as a rule): its
+``Tracker`` (``g``, the geometry; ``table``, the sampled codes),
+``build_replicas``, ``superstep``, ``rounding``, ``fma`` and
+``N_FIELDS``.
 
 ``follow`` (the judge of a program's span): each superstep after the
 span's first starts from the carrier frequency and code rate the
@@ -26,8 +32,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-
-from . import fused
 
 U32 = 4294967296.0
 
@@ -89,8 +93,7 @@ def _t(x, dtype):
     return torch.as_tensor(np.asarray(x)).to(dtype)
 
 
-def anchor(g: fused.Geometry, led: tuple, b: int, block_len: int,
-           fs: float) -> dict:
+def anchor(ref, g, led: tuple, b: int, block_len: int, fs: float) -> dict:
     """Block ``b`` of a span from the ledger ``led``: the walk, the
     eligible channels, the kernel's state matrix, the window starts in
     the span stream and the replica anchors."""
@@ -112,7 +115,7 @@ def anchor(g: fused.Geometry, led: tuple, b: int, block_len: int,
     dc0 = rate_eff * float(np.float32(1.0) / np.float32(fs))
     cp0 = ci.to(torch.float32) + cf
     s_anchor = torch.floor(cp0 / dc0)
-    frac0 = fused._fma(-s_anchor, dc0, cp0)
+    frac0 = ref.fma(-s_anchor, dc0, cp0)
     anc = torch.remainder(s_anchor, float(n0))
     off_abs = offset_w + b * block_len
     a_abs = torch.where(eligible, torch.clamp(
@@ -123,7 +126,7 @@ def anchor(g: fused.Geometry, led: tuple, b: int, block_len: int,
     mat = torch.stack([fc[:, 0], fc[:, 1], fc[:, 2], rate, zero, fc[:, 4],
                        fc[:, 5], eligible.to(torch.float32), zero, col9,
                        frac0, fc[:, 6], zero, anc], dim=1)
-    mat = torch.nn.functional.pad(mat, (0, fused.N_FIELDS - 14))
+    mat = torch.nn.functional.pad(mat, (0, ref.N_FIELDS - 14))
     return dict(mat=mat, starts=a_abs.to(torch.int64), eligible=eligible,
                 anchor=anc.to(torch.int64),
                 lane_shift=(col9 - float(el_pad)).to(torch.int64),
@@ -131,7 +134,7 @@ def anchor(g: fused.Geometry, led: tuple, b: int, block_len: int,
                 fc=fc)
 
 
-def absorb(g: fused.Geometry, a: dict, out: torch.Tensor,
+def absorb(g, a: dict, out: torch.Tensor,
            processed: torch.Tensor, block_len: int, code_len: int
            ) -> tuple:
     """The ledger after the block: the kernel state ``out`` folded into
@@ -182,7 +185,7 @@ def held_rates(prog: dict, wire: str, k: int, prev: dict | None,
     return out
 
 
-def track_block(g: fused.Geometry, table: torch.Tensor, led: tuple,
+def track_block(ref, g, table: torch.Tensor, led: tuple,
                 prn_idx, b: int, stream_re: torch.Tensor,
                 stream_im: torch.Tensor, fs: float, block_len: int,
                 code_len: int, rnd=None, held: np.ndarray | None = None,
@@ -198,11 +201,10 @@ def track_block(g: fused.Geometry, table: torch.Tensor, led: tuple,
     this one; ``prev_proc`` names those of the block before)."""
     if g.layout != "mxu":
         raise ValueError("the span reference runs the mxu layout")
-    a = anchor(g, led, b, block_len, fs)
+    a = anchor(ref, g, led, b, block_len, fs)
     codes = table[np.maximum(np.asarray(prn_idx), 0)]
-    reps = fused.build_replicas(codes, g.el_shift, g.n0, g.wp, g.n_rows,
-                                a["anchor"].numpy(),
-                                a["lane_shift"].numpy())
+    reps = ref.build_replicas(codes, g.el_shift, g.n0, g.wp, g.n_rows,
+                              a["anchor"].numpy(), a["lane_shift"].numpy())
     st = a["mat"]
     kw = {k: v for k, v in g.kw.items() if k not in ("t_epochs",
                                                       "k_epochs")}
@@ -224,9 +226,9 @@ def track_block(g: fused.Geometry, table: torch.Tensor, led: tuple,
         used.append(st[:, [0, 3]].numpy().copy())
         off = (j * k * g.n0 // 128) * 128
         idx = a["starts"][:, None] + off + lanes[None, :]
-        st, tl = fused._superstep(st, j, stream_re[idx], stream_im[idx],
-                                  reps, k_epochs=k, rnd=rnd or fused.bf16,
-                                  **kw)
+        st, tl = ref.superstep(st, j, stream_re[idx], stream_im[idx],
+                               reps, k_epochs=k,
+                               rnd=rnd or ref.rounding("mxu", False), **kw)
         rows.append(tl)
         prev_proc = (tl[:, :, 16] > 0.5).numpy().any(axis=0)
     tm = torch.cat(rows, dim=0)

@@ -30,6 +30,8 @@ def _environment() -> None:
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     os.environ["CUDA_CACHE_PATH"] = str(CACHE / "cuda")
     os.environ["PYTORCH_KERNEL_CACHE_PATH"] = str(CACHE / "torch_kernels")
+    # PyTorch makes the last directory of its kernel cache's path only
+    (CACHE / "torch_kernels").mkdir(parents=True, exist_ok=True)
     os.environ["USE_FLAX"] = "0"
     os.environ["USE_JAX"] = "0"
     # load from one process with few threads: the host's share of the

@@ -22,9 +22,9 @@ def test_control_fails_a_limit(cell, seconds):
     limits = run.config["limits"]
     acq, acq_hz, _ = checks.check_acq(run, int(chk["acq_searches"]),
                                       control=True)
-    trk, loop, _ = checks.check_track(run, int(chk["track_blocks"]),
+    trk, loop, truth, _ = checks.check_track(run, int(chk["track_blocks"]),
                                       control=True)
     control = dict(acq_gap=acq, acq_freq_gap_hz=acq_hz, track_gap=trk,
-                   loop_gap_hz=loop)
+                   loop_gap_hz=loop, carrier_truth_hz=truth)
     assert any(v > limits[k] for k, v in control.items() if k in limits), \
         control

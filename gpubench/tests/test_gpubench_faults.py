@@ -3,8 +3,10 @@ the harness's look for a card skipped, the rest of a run driven on the
 CPU (the kernels' plain versions) with one fault planted in the port:
 a tracking step that returns its state unchanged, half of the channels'
 correlations left out, an acquisition answer and a correlation altered
-where they are produced. (The cells run on one card: no exchange
-between cards to leave out.)"""
+where they are produced; and ``carrier_truth_hz`` over its limit where
+a loop is frozen at a handoff 100 Hz off or a carrier walks a few Hz a
+block. (The cells run on one card: no exchange between cards to leave
+out.)"""
 import io
 
 import numpy as np
@@ -30,6 +32,25 @@ def _scanned_fault(monkeypatch, fault):
         st, telem = orig(params, codes, state, *a, **kw)
         return fault(state, st, telem)
     monkeypatch.setattr(tracking, "track_block", broken)
+
+
+def _short_pull_in(monkeypatch, after_s=0.3):
+    """``carrier_truth_hz`` from channels tracked ``after_s``: what a
+    short run on the CPU holds (the cells leave 2 s for the pull-in)."""
+    orig = spec.load_traffic
+
+    def load(name, bench_dir=spec.BENCH_DIR):
+        t = orig(name, bench_dir)
+        t["check"]["truth_after_s"] = after_s
+        return t
+    monkeypatch.setattr(spec, "load_traffic", load)
+
+
+TRUTH_LIMIT = spec.load_config(BENCH, "gps_l1_rtlsdr")["limits"][
+    "carrier_truth_hz"]
+# a window long enough, on a loaded CPU too, for channels tracked past
+# ``_short_pull_in``'s time in the sampled blocks
+TRUTH_SECONDS = 2.0
 
 
 def test_sound_run_is_correct():
@@ -65,6 +86,59 @@ def test_correlation_altered(monkeypatch):
     _scanned_fault(monkeypatch, fault)
     ok, numbers = _correct()
     assert not ok and numbers["track_gap"] > 1.0
+
+
+def test_sound_carriers_within_the_truth_limit(monkeypatch):
+    _short_pull_in(monkeypatch)
+    ok, numbers = _correct(seconds=TRUTH_SECONDS)
+    assert ok and 0.0 < numbers["carrier_truth_hz"] < TRUTH_LIMIT, numbers
+
+
+def test_loop_frozen_at_a_handoff_100_hz_off(monkeypatch):
+    """Every handoff 100 Hz off its search's answer, and the carrier
+    loop never moves from it."""
+    from gnss_sdr_tpu_torch.receiver.acquisition import AcquisitionEngine
+
+    search = AcquisitionEngine.search
+
+    def off(self, *a, **kw):
+        cands = search(self, *a, **kw)
+        for c in cands:
+            c.carrier_freq_hz += 100.0
+        return cands
+    monkeypatch.setattr(AcquisitionEngine, "search", off)
+
+    def fault(old, new, telem):
+        held = np.broadcast_to(old.carr_freq, telem.carr_freq.shape)
+        return (new._replace(carr_freq=old.carr_freq.copy(),
+                             carr_err=old.carr_err.copy()),
+                telem._replace(carr_freq=held.astype(np.float32)))
+    _scanned_fault(monkeypatch, fault)
+    _short_pull_in(monkeypatch)
+    ok, numbers = _correct(seconds=TRUTH_SECONDS)
+    assert not ok and numbers["carrier_truth_hz"] > TRUTH_LIMIT, numbers
+
+
+def test_carrier_walks_a_few_hz_a_block(monkeypatch):
+    """The carrier NCO runs a walk of 10 Hz a block above the frequency
+    the tracker reports and keeps: the loops hold the signal, and the
+    reported carrier walks off the satellite's."""
+    from gnss_sdr_tpu_torch.receiver import tracking
+
+    orig = tracking.track_block
+    walk = [0.0]
+
+    def broken(params, codes, state, *a, **kw):
+        walk[0] += 10.0
+        w = np.float32(walk[0])
+        st, telem = orig(params, codes, state._replace(
+            carr_freq=state.carr_freq + w), *a, **kw)
+        return (st._replace(carr_freq=st.carr_freq - w),
+                telem._replace(carr_freq=telem.carr_freq - w))
+    monkeypatch.setattr(tracking, "track_block", broken)
+    _short_pull_in(monkeypatch)
+    ok, numbers = _correct(seconds=TRUTH_SECONDS)
+    assert not ok and numbers["carrier_truth_hz"] > TRUTH_LIMIT, numbers
 
 
 def test_acquisition_answer_altered(monkeypatch):

@@ -73,7 +73,7 @@ def test_control_fails_a_limit(small):
     ok, _ = _numbers(run)
     assert ok
     acq, _, _ = checks.check_acq(run, 4, control=True)
-    trk, loop, _ = checks.check_tracking(run, control=True)
+    trk, loop, _, _ = checks.check_tracking(run, control=True)
     limits = run.config["limits"]
     control = dict(acq_gap=acq, track_gap=trk, loop_gap_hz=loop)
     assert any(v > limits[k] for k, v in control.items()), control

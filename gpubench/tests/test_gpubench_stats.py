@@ -1,9 +1,14 @@
 """The metrics' arithmetic on synthetic timings: a rate over the whole
-window, a nearest-rank tail, the union of device intervals and the
-idle share and idle stretches of a synthetic trace."""
-import pytest
+window, a nearest-rank tail, the union of device intervals, the idle
+share and idle stretches of a synthetic trace, and the card clock's
+laps on a synthetic record."""
+import contextlib
+from types import SimpleNamespace
 
-from gpubench.harness import stats
+import pytest
+import torch
+
+from gpubench.harness import stats, trace
 from gpubench.harness.trace import GENERATE_RANGE, WINDOW_RANGE, summarize
 
 
@@ -59,3 +64,69 @@ def test_trace_idle_share_and_names():
     assert idle["host.outside_steps"] == pytest.approx(500e-6)
     names = [k for k, _ in t["device_ops"]]
     assert GENERATE_RANGE in names and "gen" not in names
+
+
+def _recorded(monkeypatch, laps):
+    """The card's record of each lap as ``laps`` gives it: (kernel,
+    start, end, stream) a kernel; the card's calls do nothing."""
+    cuda = torch._C._autograd.DeviceType.CUDA
+
+    def event(name, a, b, stream):
+        return SimpleNamespace(device_type=lambda: cuda, name=lambda: name,
+                               start_ns=lambda: a, end_ns=lambda: b,
+                               device_resource_id=lambda: stream)
+
+    class Profile(contextlib.nullcontext):
+        def __init__(self, activities):
+            super().__init__()
+            lap = laps.pop(0)
+            self.profiler = SimpleNamespace(kineto_results=SimpleNamespace(
+                events=lambda: [event(*e) for e in lap]))
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(trace.CardClock, "PAD_S", 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+
+
+def test_card_clock_counts_whole_laps_without_the_generator(monkeypatch):
+    """Each lap's record holds its two markers on the generator's
+    stream; the program's kernels on every other stream are united."""
+    m = trace.MARKER
+    _recorded(monkeypatch, [
+        [(m, 0, 1, 9), ("k", 2, 12, 7), ("gen", 0, 40, 9), (m, 50, 51, 9)],
+        [(m, 0, 1, 9), ("k", 2, 22, 7), ("k", 5, 30, 8), (m, 60, 61, 9)]])
+    clock = trace.CardClock("cpu", None)
+    clock.start()
+    clock.lap()
+    clock.stop()
+    assert clock.laps == 2 and clock.ops == 3 and clock.side_id == 9
+    assert clock.busy_s == pytest.approx((10 + 28) * 1e-9)
+
+
+@pytest.mark.parametrize("lap", [
+    [("k", 2, 12, 7), (trace.MARKER, 50, 51, 9)],
+    [(trace.MARKER, 0, 1, 9), ("k", 2, 12, 7)],
+    [(trace.MARKER, 0, 1, 9), ("k", 2, 12, 7), (trace.MARKER, 50, 51, 8)],
+])
+def test_card_clock_refuses_a_lap_whose_record_is_not_whole(monkeypatch,
+                                                            lap):
+    """A lap's record that lacks its first or its last marker, or holds
+    them on two streams, raises."""
+    _recorded(monkeypatch, [lap])
+    clock = trace.CardClock("cpu", None)
+    clock.start()
+    with pytest.raises(RuntimeError, match="not whole"):
+        clock.stop()
+
+
+def test_card_clock_refuses_a_lap_on_another_stream(monkeypatch):
+    m = trace.MARKER
+    _recorded(monkeypatch, [[(m, 0, 1, 9), (m, 5, 6, 9)],
+                            [(m, 0, 1, 7), (m, 5, 6, 7)]])
+    clock = trace.CardClock("cpu", None)
+    clock.start()
+    clock.lap()
+    with pytest.raises(RuntimeError, match="not whole"):
+        clock.stop()
